@@ -1,0 +1,145 @@
+'''Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/torch_kernels/<name>.so csrc/*.cu
+
+The library goes under ``build/torch_kernels/`` beside the package and is
+named by a hash of the sources and flags, so it is built at first use and
+again whenever a source changes. ``nvcc``'s register and shared-memory
+report (``-Xptxas -v``) is kept in ``nvcc.log`` next to it. Nothing here
+runs at import: the CPU tests import every module and have no nvcc.
+'''
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_kernels')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# dynamic shared memory one block may use on sm_90 (csrc/common.cuh)
+MAX_SMEM_BYTES = 232448
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argtypes of every entry point: without them ctypes passes each pointer as
+# a 32-bit int and cuts it
+_SIGNATURES = {
+    # x, w1, b1, w2, b2, c1, c2, B, Ci, Cm, Co, H, W, K, tile_h, smem,
+    # device, stream
+    'dnnca_conv_chain': [_P] * 7 + [_I] * 10 + [_P],
+    # x, w, bias, out, B, Ci, Co, H, W, device, stream
+    'dnnca_tconv2x2': [_P] * 4 + [_I] * 6 + [_P],
+    # x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu,
+    # device, stream
+    'dnnca_stencil_conv': [_P] * 4 + [_I] * 13 + [_P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of the last build in this process
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu')) +
+                  glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found (PATH or /usr/local/cuda/bin); '
+                           'the CUDA kernels cannot be built')
+    return path
+
+
+def library_path():
+    '''Path of the shared library for the current sources and flags.'''
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(os.path.basename(src).encode())
+        with open(src, 'rb') as fh:
+            digest.update(fh.read())
+    return os.path.join(BUILD_DIR,
+                        f'libdnnca_torch_kernels-{digest.hexdigest()[:16]}.so')
+
+
+def build():
+    '''Compile the library unless a build of these sources exists; returns
+    its path.'''
+    global build_seconds
+    target = library_path()
+    if os.path.exists(target):
+        return target
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{target}.{os.getpid()}.tmp'
+    cu = [s for s in _sources() if s.endswith('.cu')]
+    start = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
+                          capture_output=True, text=True, check=False)
+    with open(os.path.join(BUILD_DIR, 'nvcc.log'), 'w') as fh:
+        fh.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}')
+    os.replace(tmp, target)
+    build_seconds = time.perf_counter() - start
+    return target
+
+
+def library():
+    '''The loaded kernel library (built on first use).'''
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dnnca_error_string.argtypes = [ctypes.c_int]
+            lib.dnnca_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name, *args):
+    '''Call entry point ``name`` and raise if the launch was refused.'''
+    lib = library()
+    code = getattr(lib, name)(*args)
+    if code != 0:
+        msg = lib.dnnca_error_string(code).decode()
+        raise RuntimeError(f'{name} failed: CUDA error {code} ({msg})')
+
+
+def check_cuda_f32(**tensors):
+    '''Raise unless every tensor is a contiguous float32 tensor on one
+    CUDA device; returns that device.'''
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if not t.is_cuda or t.device != device:
+            raise ValueError(
+                f'{name} must be a CUDA tensor on {device}, got {t.device}')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    return device
+
+
+def stream_of(device):
+    '''Raw handle of PyTorch's current stream on ``device``.'''
+    return torch.cuda.current_stream(device).cuda_stream

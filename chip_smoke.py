@@ -71,6 +71,7 @@ def environment():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f'card: {smi}')
     for mod in ('yaml', 'PIL'):
         try:
             __import__(mod)

@@ -1,4 +1,4 @@
-'''Prediction run driver (counterpart of dnncancerannotator_tpu.runs.predict):
+'''The predict run (counterpart of dnncancerannotator_tpu.runs.predict):
 load the latest checkpoint and write one probability map per slice.'''
 
 import logging

@@ -21,7 +21,7 @@ def encode_png(array, bitdepth=8):
         if array.ndim != 2:
             raise ValueError(f'16-bit PNG needs a 2-D array, got {array.shape}')
         array = np.clip(array, 0, 65535).astype(np.uint16)
-        img = Image.fromarray(array, mode='I;16')
+        img = Image.fromarray(array)   # uint16 [H, W] is mode I;16
     else:
         if array.dtype != np.uint8:
             array = np.clip(array * 255.0, 0, 255).astype(np.uint8)

@@ -27,19 +27,18 @@
 // needs it as a residual; prediction does not). The halo recompute costs
 // about 20% extra conv1 work at 16 x 32.
 //
-// Each thread keeps the output channels of one pixel in registers. The
-// channel count is a template bucket (C = 4, 8, 16 or 32, the smallest that
-// holds max(Cm, Co)): the weights are stored in shared memory as
-// [in channel][tap][C], zero-padded past the real outputs, so each tap
-// reads its C weights as C/4 float4 broadcasts and runs C FMAs with no
-// per-channel guards. K = 3 is a template case with the taps unrolled;
-// other odd K run the same code with a runtime tap loop.
-#include "common.cuh"
+// Each thread keeps the output channels of one pixel in registers, with the
+// weights staged as float4 broadcasts (conv_tile.cuh). K = 3 is a template
+// case with the taps unrolled; other odd K run the same code with a runtime
+// tap loop.
+#include "conv_tile.cuh"
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kThreads = 256;
+using dnnca::tile::conv_pixel;
+using dnnca::tile::kThreads;
+using dnnca::tile::kTileW;
+using dnnca::tile::stage_weights;
 
 struct ChainArgs {
   const float* x;
@@ -51,52 +50,6 @@ struct ChainArgs {
   float* c2;
   int B, Ci, Cm, Co, H, W, K, tile_h;
 };
-
-// Stage w [n_out][n_in][K*K] (OIHW) as [n_in][K*K][C], zero-padded.
-template <int C>
-__device__ void stage_weights(float* dst, const float* w, int n_out,
-                              int n_in, int KK) {
-  const int n = n_in * KK * C;
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    const int o = i % C, t = (i / C) % KK, c = i / (C * KK);
-    dst[i] = o < n_out ? w[(o * n_in + c) * KK + t] : 0.f;
-  }
-}
-
-// acc[o] += v * w[o] for the C weights of one (input channel, tap).
-template <int C>
-__device__ __forceinline__ void tap(float (&acc)[C], float v,
-                                    const float4* w) {
-#pragma unroll
-  for (int q = 0; q < C / 4; ++q) {
-    const float4 wq = w[q];
-    acc[4 * q + 0] = fmaf(v, wq.x, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(v, wq.y, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(v, wq.z, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(v, wq.w, acc[4 * q + 3]);
-  }
-}
-
-// One pixel of a conv: acc += sum over input channels and taps of the
-// window at src (a [n_in][rows][row_w] tile) times ws ([n_in][K*K][C]).
-template <int C, int KT>
-__device__ __forceinline__ void conv_pixel(float (&acc)[C], const float* src,
-                                           int plane, int row_w,
-                                           const float* ws, int n_in, int K) {
-  const int KK = K * K;
-  for (int c = 0; c < n_in; ++c) {
-    const float* s = src + c * plane;
-    const float4* wc = reinterpret_cast<const float4*>(ws) + c * KK * (C / 4);
-    if constexpr (KT > 0) {
-#pragma unroll
-      for (int t = 0; t < KT * KT; ++t)
-        tap<C>(acc, s[(t / KT) * row_w + t % KT], wc + t * (C / 4));
-    } else {
-      for (int t = 0; t < KK; ++t)
-        tap<C>(acc, s[(t / K) * row_w + t % K], wc + t * (C / 4));
-    }
-  }
-}
 
 template <int C, int KT>
 __global__ void __launch_bounds__(kThreads) conv_chain_kernel(ChainArgs a) {

@@ -1,2 +1,2 @@
-from .pipeline import EvalDataset, eval_ds, predict_ds
+from .pipeline import EvalDataset, TrainDataset, eval_ds, predict_ds, train_ds
 from . import augment, records, tfrecord

@@ -1,5 +1,7 @@
-'''U-Net building blocks, NCHW, forward only (counterpart of
-dnncancerannotator_tpu.models.blocks).
+'''U-Net building blocks, NCHW (counterpart of
+dnncancerannotator_tpu.models.blocks). Gradients flow through the kernels'
+autograd Functions (ops/functions.py); the pool, the skip crop and concat
+are plain autograd.
 
 - ``Downsample``: conv chain -> (skip, max-pooled);
 - ``Upsample``: 2x2 tconv -> center-crop the skip to the upsampled size ->
@@ -21,8 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import pooling
-from ..ops.kernels import conv_chain as conv_chain_mod
+from ..ops import functions, pooling
 from . import fastconv
 
 _BN_NOT_PORTED = 'BatchNorm is not ported yet (ROADMAP.md queue 2)'
@@ -102,10 +103,9 @@ class ConvChain(nn.Module):
 
     def forward(self, x):
         if self.fused:
-            _, c2 = conv_chain_mod.conv_chain(
+            return functions.conv_chain(
                 x, self.conv_0.weight, self.conv_0.bias,
                 self.conv_1.weight, self.conv_1.bias)
-            return c2
         for i in range(self.n_conv):
             x = getattr(self, f'conv_{i}')(x)
             if self.act is not None:

@@ -1,9 +1,9 @@
-'''Convolution modules and the chain routing, forward only (counterpart of
+'''Convolution modules and the chain routing (counterpart of
 dnncancerannotator_tpu.models.fastconv).
 
 Every convolution of the supported models runs through one of the port's
 CUDA kernels (ops/kernels) on the card, or its plain PyTorch version on
-the CPU:
+the CPU, forward and backward (the autograd Functions of ops/functions.py):
 
 - ``Conv2DFast``: stride-1 convs with at most 32 channels -> stencil_conv;
 - ``ConvTranspose2DFast``: kernel == stride == 2, at most 64 channels ->
@@ -23,8 +23,9 @@ import math
 import torch
 from torch import nn
 
-from ..ops.kernels import conv_chain as conv_chain_mod
-from ..ops.kernels import stencil_conv as stencil_mod
+from ..ops import functions
+from ..ops.kernels import conv_chain_bwd as conv_chain_bwd_mod
+from ..ops.kernels import stencil_conv_bwd as stencil_bwd_mod
 from ..ops.kernels import tconv2x2 as tconv_mod
 
 _NOT_PORTED = ('not ported yet (ROADMAP.md queue 2: the wide-channel and '
@@ -72,14 +73,14 @@ class Conv2DFast(nn.Module):
 
     def forward(self, x):
         co, ci, kh, kw = self.weight.shape
-        if self.strides != (1, 1) or not stencil_mod.supported(
+        if self.strides != (1, 1) or not stencil_bwd_mod.supported(
                 ci, co, kh, kw):
             raise NotImplementedError(
                 f'Conv2DFast stride {self.strides}, {ci}->{co} channels: '
                 + _NOT_PORTED)
         pads = same_or_valid_pads(kh, kw, self.padding)
-        return stencil_mod.stencil_conv(x, self.weight, self.bias, pads,
-                                        self.relu)
+        return functions.stencil_conv(x, self.weight, self.bias, pads,
+                                      self.relu)
 
 
 class ConvTranspose2DFast(nn.Module):
@@ -105,15 +106,16 @@ class ConvTranspose2DFast(nn.Module):
         if not tconv_mod.supported(ci, co):
             raise NotImplementedError(
                 f'ConvTranspose2DFast {ci}->{co} channels: ' + _NOT_PORTED)
-        return tconv_mod.tconv2x2(x, self.weight, self.bias)
+        return functions.tconv2x2(x, self.weight, self.bias)
 
 
 def chain_ok(ci, filters, kernel_size, padding):
     '''Whether a relu ConvChain cell (two stride-1 convs, no BN) runs as one
     conv_chain kernel: SAME padding with an odd kernel (size-preserving,
-    symmetric pads) and channels within the kernel's bounds. This one test
+    symmetric pads) and channels within the bounds of the chain kernel and
+    its backward. This one test
     covers both JAX chain kernels (the scalar stencil chain and the
     "flatland" chain), which the port folds into one kernel.'''
     return (isinstance(padding, str) and padding.upper() == 'SAME'
-            and conv_chain_mod.supported(ci, filters, filters,
-                                         int(kernel_size)))
+            and conv_chain_bwd_mod.supported(ci, filters, filters,
+                                             int(kernel_size)))

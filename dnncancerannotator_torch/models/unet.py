@@ -1,5 +1,5 @@
-'''UNet annotator, forward only (counterpart of
-dnncancerannotator_tpu.models.unet).
+'''UNet annotator (counterpart of dnncancerannotator_tpu.models.unet),
+differentiable through the kernels' autograd Functions.
 
 ``UNetAnnotator`` takes NHWC input like the JAX model, runs the U-Net body
 and its 1x1 logits head channel-major (NCHW, the layout the JAX model picks

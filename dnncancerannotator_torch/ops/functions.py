@@ -1,0 +1,96 @@
+'''The port's kernels as differentiable functions: each forward kernel with
+its backward kernel in a ``torch.autograd.Function`` (the counterparts of
+the JAX package's ``custom_vjp`` wrappers around its Pallas kernels).
+
+Each public function below runs the forward kernel alone, with nothing
+saved, when no gradient is being recorded (prediction), and the Function
+otherwise. The backward asks for the data gradient only when autograd needs
+it (``ctx.needs_input_grad[0]``): the model's input batch never requires
+grad, so its first conv chain skips its dx, which is need_dx=False in the
+JAX package (fastconv.py:540-569, engine.py:512-520).
+'''
+
+import torch
+
+from .kernels import conv_chain as chain_mod
+from .kernels import conv_chain_bwd as chain_bwd_mod
+from .kernels import stencil_conv as stencil_mod
+from .kernels import stencil_conv_bwd as stencil_bwd_mod
+from .kernels import tconv2x2 as tconv_mod
+from .kernels import tconv2x2_bwd as tconv_bwd_mod
+
+
+def _recording(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class ConvChainFn(torch.autograd.Function):
+    '''c2 = relu(conv(relu(conv(x, w1) + b1), w2) + b2); the forward keeps
+    c1 and c2 for the relu masks of the backward.'''
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        c1, c2 = chain_mod.conv_chain(x, w1, b1, w2, b2, need_c1=True)
+        ctx.save_for_backward(x, c1, c2, w1, w2)
+        return c2
+
+    @staticmethod
+    def backward(ctx, g):
+        x, c1, c2, w1, w2 = ctx.saved_tensors
+        return chain_bwd_mod.conv_chain_bwd(
+            x, c1, c2, g.contiguous(), w1, w2,
+            need_dx=ctx.needs_input_grad[0])
+
+
+class TConv2x2Fn(torch.autograd.Function):
+    '''ConvTranspose(kernel=2, stride=2) + bias, w [Ci, Co, 2, 2].'''
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return tconv_mod.tconv2x2(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return tconv_bwd_mod.tconv2x2_bwd(x, g.contiguous(), w,
+                                          need_dx=ctx.needs_input_grad[0])
+
+
+class StencilConvFn(torch.autograd.Function):
+    '''Stride-1 conv with explicit pads, bias and an optional fused relu;
+    with the relu, the backward masks g by the saved output first.'''
+
+    @staticmethod
+    def forward(ctx, x, w, b, pads, relu):
+        out = stencil_mod.stencil_conv(x, w, b, pads, relu)
+        ctx.pads, ctx.relu = pads, relu
+        ctx.save_for_backward(x, w, out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        if ctx.relu:
+            g = g * (out > 0)
+        dx, dw, db = stencil_bwd_mod.stencil_conv_bwd(
+            x, g.contiguous(), w, ctx.pads, need_dx=ctx.needs_input_grad[0])
+        return dx, dw, db, None, None
+
+
+def conv_chain(x, w1, b1, w2, b2):
+    if _recording(x, w1, b1, w2, b2):
+        return ConvChainFn.apply(x, w1, b1, w2, b2)
+    return chain_mod.conv_chain(x, w1, b1, w2, b2)[1]
+
+
+def tconv2x2(x, w, b):
+    if _recording(x, w, b):
+        return TConv2x2Fn.apply(x, w, b)
+    return tconv_mod.tconv2x2(x, w, b)
+
+
+def stencil_conv(x, w, b, pads, relu=False):
+    if _recording(x, w, b):
+        return StencilConvFn.apply(x, w, b, pads, relu)
+    return stencil_mod.stencil_conv(x, w, b, pads, relu)

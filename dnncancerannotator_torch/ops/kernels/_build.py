@@ -1,10 +1,13 @@
 '''Build the port's CUDA kernels with nvcc and bind them with ctypes.
 
-All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface:
+Every ``csrc/*.cu`` file compiles to an object, all of them at once in
+parallel ``nvcc`` processes, and the objects link into one shared library
+with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/torch_kernels/<name>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj>/<name>.o csrc/<name>.cu   # each file
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/torch_kernels/<lib>.so <obj>/*.o
 
 The library goes under ``build/torch_kernels/`` beside the package and is
 named by a hash of the sources and flags, so it is built at first use and
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -28,8 +32,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_kernels')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                           '-Xptxas', '-v')
 # dynamic shared memory one block may use on sm_90 (csrc/common.cuh)
 MAX_SMEM_BYTES = 232448
 
@@ -46,6 +51,17 @@ _SIGNATURES = {
     # x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu,
     # device, stream
     'dnnca_stencil_conv': [_P] * 4 + [_I] * 13 + [_P],
+    # x, c1, c2, g, w1, w2, dx, dc1, dw1b, dw2b, partial, B, Ci, Cm, Co, H,
+    # W, K, tile_h, smem, wgrad_blocks, device, stream
+    'dnnca_conv_chain_bwd': [_P] * 11 + [_I] * 11 + [_P],
+    # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, wgrad_blocks, device,
+    # stream
+    'dnnca_tconv2x2_bwd': [_P] * 6 + [_I] * 7 + [_P],
+    # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW,
+    # wgrad_blocks, device, stream
+    'dnnca_stencil_conv_bwd': [_P] * 6 + [_I] * 13 + [_P],
+    # img, flow, out, B, H, W, C, max_displacement, device, stream
+    'dnnca_warp_twopass': [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -85,17 +101,30 @@ def build():
     if os.path.exists(target):
         return target
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f'{target}.{os.getpid()}.tmp'
-    cu = [s for s in _sources() if s.endswith('.cu')]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
-                          capture_output=True, text=True, check=False)
-    with open(os.path.join(BUILD_DIR, 'nvcc.log'), 'w') as fh:
-        fh.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f'nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}')
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as obj_dir:
+        cu = [s for s in _sources() if s.endswith('.cu')]
+        objs = [os.path.join(obj_dir, os.path.basename(s)[:-3] + '.o')
+                for s in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = os.path.join(obj_dir, 'lib.so')
+        link = subprocess.run([nvcc, *ARCH_FLAGS, '-shared', '-o', tmp, *objs],
+                              capture_output=True, text=True, check=False)
+        with open(os.path.join(BUILD_DIR, 'nvcc.log'), 'w') as fh:
+            fh.write(''.join(logs) + link.stdout + link.stderr)
+        for src, proc, log in zip(cu, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f'nvcc failed on {os.path.basename(src)} '
+                                   f'({proc.returncode}):\n{log[-4000:]}')
+        if link.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({link.returncode}):\n'
+                               f'{link.stderr[-4000:]}')
+        os.replace(tmp, target)
     build_seconds = time.perf_counter() - start
     return target
 

@@ -9,16 +9,18 @@ weights in PyTorch OIHW layout ([Cm, Ci, K, K] and [Co, Cm, K, K]).
 ``F.conv2d`` + relu) for CPU tensors; it raises on any other input.
 '''
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
 MAX_CHANNELS = 32
-_TILE_W = 32
-_TILE_HEIGHTS = (16, 8, 4)
+TILE_W = 32
+TILE_HEIGHTS = (16, 8, 4)
 # tiles up to this much shared memory leave room for two blocks per SM
-_TWO_BLOCKS_SMEM = 113 * 1024
+TWO_BLOCKS_SMEM = 113 * 1024
 
 launches = 0  # kernel launches in this process
 
@@ -31,7 +33,7 @@ def plain(x, w1, b1, w2, b2):
     return c1, c2
 
 
-def _bucket(c):
+def bucket(c):
     '''The kernel's register width for c output channels.'''
     return next(b for b in (4, 8, 16, 32) if c <= b)
 
@@ -41,23 +43,25 @@ def _smem_bytes(ci, cm, co, k, tile_h):
     the channel bucket, the input tile with a 2p halo and c1 over the tile
     with a p halo (csrc/conv_chain.cu).'''
     p = k // 2
-    width = _bucket(max(cm, co))
+    width = bucket(max(cm, co))
     floats = ((ci + cm) * k * k * width + 2 * width
-              + ci * (tile_h + 4 * p) * (_TILE_W + 4 * p)
-              + cm * (tile_h + 2 * p) * (_TILE_W + 2 * p))
+              + ci * (tile_h + 4 * p) * (TILE_W + 4 * p)
+              + cm * (tile_h + 2 * p) * (TILE_W + 2 * p))
     return 4 * floats
 
 
+@functools.lru_cache(maxsize=None)
 def _tile_height(ci, cm, co, k):
     '''The tallest tile that leaves room for two blocks per SM, else the
     tallest that fits one; None if none fits.'''
-    for limit in (_TWO_BLOCKS_SMEM, _build.MAX_SMEM_BYTES):
-        for tile_h in _TILE_HEIGHTS:
+    for limit in (TWO_BLOCKS_SMEM, _build.MAX_SMEM_BYTES):
+        for tile_h in TILE_HEIGHTS:
             if _smem_bytes(ci, cm, co, k, tile_h) <= limit:
                 return tile_h
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def supported(ci, cm, co, k):
     '''Whether the kernel takes these channel counts and kernel size.'''
     return (max(ci, cm, co) <= MAX_CHANNELS and k % 2 == 1

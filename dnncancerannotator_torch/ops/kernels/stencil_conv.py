@@ -11,6 +11,8 @@ PyTorch OIHW layout [Co, Ci, KH, KW]; ``pads`` is ((top, bottom),
 input.
 '''
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -35,12 +37,13 @@ def _smem_bytes(ci, co, kh, kw):
     return 4 * (ci * kh * kw + 1) * width
 
 
+@functools.lru_cache(maxsize=None)
 def supported(ci, co, kh, kw):
     return (max(ci, co) <= MAX_CHANNELS
             and _smem_bytes(ci, co, kh, kw) <= _build.MAX_SMEM_BYTES)
 
 
-def _check(x, w, b, pads):
+def check(x, w, b, pads):
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f'x must be a non-empty [B, C, H, W] tensor, '
                          f'got {tuple(x.shape)}')
@@ -65,7 +68,7 @@ def _check(x, w, b, pads):
 
 def stencil_conv(x, w, b, pads, relu=False):
     global launches
-    oh, ow = _check(x, w, b, pads)
+    oh, ow = check(x, w, b, pads)
     if x.device.type == 'cpu':
         return plain(x, w, b, pads, relu)
     device = _build.check_cuda_f32(x=x, w=w, b=b)

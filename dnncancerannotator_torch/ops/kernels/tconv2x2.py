@@ -32,7 +32,7 @@ def supported(ci, co):
     return max(ci, co) <= MAX_CHANNELS
 
 
-def _check(x, w, b):
+def check(x, w, b):
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError(f'x must be a non-empty [B, C, H, W] tensor, '
                          f'got {tuple(x.shape)}')
@@ -48,7 +48,7 @@ def _check(x, w, b):
 
 def tconv2x2(x, w, b):
     global launches
-    _check(x, w, b)
+    check(x, w, b)
     if x.device.type == 'cpu':
         return plain(x, w, b)
     device = _build.check_cuda_f32(x=x, w=w, b=b)

@@ -1,5 +1,5 @@
 '''CLI dispatcher: subcommands generated from function docstrings.
-Only ``predict`` is ported so far.'''
+``train`` and ``predict`` are ported so far.'''
 
 import argparse
 import logging
@@ -9,10 +9,11 @@ from ..utils import dscli
 
 def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     logging.basicConfig(level=logging.INFO)
-    from . import predict
+    from . import predict, train
 
     parser = argparse.ArgumentParser(prog=prog)
     subparsers = parser.add_subparsers(help='command')
+    dscli.add_command(subparsers, train.train)
     dscli.add_command(subparsers, predict.predict)
     return dscli.run(parser, argv)
 

@@ -1,10 +1,11 @@
 '''The port's CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``gpu``: they skip where no CUDA device is visible and run on a GPU
-machine with ``python -m pytest tests/test_torch_gpu.py -m gpu``. The
-CPU-side parity of the plain versions with the JAX package is in
-test_torch_kernels.py; chip_smoke.py repeats these checks at the full
-main-path shapes.
+machine with ``python -m pytest tests/test_torch_gpu.py -m gpu
+--noconftest`` (tests/conftest.py imports JAX). The CPU-side parity of the
+plain versions with the JAX package is in test_torch_kernels.py,
+test_torch_chain_bwd.py, test_torch_conv_bwd.py and test_torch_augment.py;
+chip_smoke.py repeats these checks at the full main-path shapes.
 '''
 
 import pytest
@@ -12,11 +13,18 @@ import torch
 
 from dnncancerannotator_torch.ops import kernels
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
+from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 pytestmark = pytest.mark.gpu
 _TOL = 1e-4  # relative to max|ref|: f32 sums in another order
+# weight and bias gradients sum over every pixel of the batch (at most
+# 2e-6 * max|ref| measured on an H100 at the training shapes, chip_smoke.py)
+_W_TOL = 2e-5
 
 
 @pytest.fixture
@@ -31,10 +39,20 @@ def _rand(gen, *shape):
     return torch.randn(*shape, generator=gen).cuda()
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, tol=_TOL):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    assert err <= _TOL * float(want.abs().max()), err
+    assert err <= tol * float(want.abs().max()), err
+
+
+def _assert_grads(got, want):
+    '''(dx or None, weight and bias grads...) against the plain version.'''
+    assert (got[0] is None) == (want[0] is None)
+    if want[0] is not None:
+        _assert_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.shape == w.shape
+        _assert_close(g, w, _W_TOL)
 
 
 @pytest.mark.parametrize('ci,cm,co,h,w,k', [
@@ -76,6 +94,65 @@ def test_stencil_conv_kernel(cuda, ci, co, k, pads, relu):
         _rand(gen, co)
     _assert_close(SC.stencil_conv(x, wk, b, pads, relu),
                   SC.plain(x, wk, b, pads, relu))
+
+
+@pytest.mark.parametrize('ci,cm,co,h,w,k,need_dx', [
+    (5, 3, 3, 37, 70, 3, False),   # down_0's class, ragged tiles
+    (24, 12, 12, 16, 16, 3, True),
+    (12, 6, 6, 33, 20, 3, True),
+    (4, 5, 6, 20, 20, 5, True),    # runtime tap loop
+    (32, 32, 32, 9, 9, 3, True),   # two passes over the wgrad pairs
+])
+def test_conv_chain_bwd_kernel(cuda, ci, cm, co, h, w, k, need_dx):
+    gen = torch.Generator().manual_seed(3)
+    x = _rand(gen, 2, ci, h, w)
+    w1, b1 = _rand(gen, cm, ci, k, k) * 0.3, _rand(gen, cm)
+    w2, b2 = _rand(gen, co, cm, k, k) * 0.3, _rand(gen, co)
+    c1, c2 = CC.plain(x, w1, b1, w2, b2)
+    g = _rand(gen, *c2.shape)
+    before = CCB.launches
+    got = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2, need_dx)
+    assert CCB.launches == before + 1
+    _assert_grads(got, CCB.plain(x, c1, c2, g, w1, w2, need_dx))
+
+
+@pytest.mark.parametrize('ci,co,h,w,need_dx', [
+    (6, 3, 5, 7, True), (12, 12, 32, 32, True), (12, 6, 9, 40, False),
+    (64, 64, 4, 4, True)])
+def test_tconv2x2_bwd_kernel(cuda, ci, co, h, w, need_dx):
+    gen = torch.Generator().manual_seed(4)
+    x, wk = _rand(gen, 2, ci, h, w), _rand(gen, ci, co, 2, 2)
+    g = _rand(gen, 2, co, 2 * h, 2 * w)
+    _assert_grads(TCB.tconv2x2_bwd(x, g, wk, need_dx),
+                  TCB.plain(x, g, wk, need_dx))
+
+
+@pytest.mark.parametrize('ci,co,k,pads', [
+    (3, 1, 1, ((0, 0), (0, 0))),      # the logits head
+    (5, 7, 3, ((1, 1), (1, 1))),
+    (4, 6, 3, ((0, 2), (1, 0))),
+])
+def test_stencil_conv_bwd_kernel(cuda, ci, co, k, pads):
+    gen = torch.Generator().manual_seed(5)
+    x, wk = _rand(gen, 2, ci, 19, 23), _rand(gen, co, ci, k, k)
+    oh, ow = SC.check(x, wk, torch.zeros(co), pads)
+    g = _rand(gen, 2, co, oh, ow)
+    _assert_grads(SCB.stencil_conv_bwd(x, g, wk, pads),
+                  SCB.plain(x, g, wk, pads))
+
+
+@pytest.mark.parametrize('b,h,w,c,d,scale', [
+    (2, 37, 50, 6, 8, 4.0),
+    (1, 64, 64, 3, 3, 10.0),   # flows well past +-d: the clamp
+])
+def test_warp_twopass_kernel(cuda, b, h, w, c, d, scale):
+    gen = torch.Generator().manual_seed(6)
+    img = _rand(gen, b, h, w, c)
+    flow = _rand(gen, b, h, w, 2) * scale
+    got, want = WT.warp_twopass(img, flow, d), WT.plain(img, flow, d)
+    torch.cuda.synchronize()
+    # rounded, uncontracted blends: the same floats as the plain version
+    assert torch.equal(got, want), float((got - want).abs().max())
 
 
 def test_wrappers_reject_non_contiguous_and_f64(cuda):

@@ -13,14 +13,22 @@ _PROBE = '''
 import contextlib, io, sys
 import dnncancerannotator_torch
 from dnncancerannotator_torch import convert, engine
+from dnncancerannotator_torch.data import augment, pipeline
+from dnncancerannotator_torch.ops import functions, image, pooling, warp
+from dnncancerannotator_torch.ops.kernels import (
+    conv_chain_bwd, stencil_conv_bwd, tconv2x2_bwd, warp_twopass)
+from dnncancerannotator_torch.runs import predict, train
 from dnncancerannotator_torch.runs.__main__ import main
-out = io.StringIO()
-with contextlib.redirect_stdout(out):
-    try:
-        main(argv=['predict', '--help'])
-    except SystemExit as exc:
-        assert exc.code == 0, exc.code
-assert '--device' in out.getvalue(), out.getvalue()
+from dnncancerannotator_torch.train import losses, optimizers, schedules
+from dnncancerannotator_torch.utils import dump
+for command in ('predict', 'train'):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            main(argv=[command, '--help'])
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
+    assert '--device' in out.getvalue(), out.getvalue()
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                        'orbax', 'dnncancerannotator_tpu'))

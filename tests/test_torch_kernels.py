@@ -15,8 +15,12 @@ from dnncancerannotator_tpu.models import fastconv as jax_fastconv
 from dnncancerannotator_tpu.ops.pallas import conv_kernel, flatchain, flattconv
 from dnncancerannotator_torch.ops import kernels
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
+from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 _REL_TOL = 2e-5
 
@@ -135,8 +139,19 @@ def test_cpu_tensors_launch_no_kernel():
                 torch.from_numpy(bias))
     SC.stencil_conv(torch.from_numpy(xt), torch.ones(1, 6, 1, 1),
                     torch.zeros(1), ((0, 0), (0, 0)))
+    x = torch.rand(1, 3, 8, 8)
+    c1, c2 = CC.plain(x, torch.rand(6, 3, 3, 3), torch.rand(6),
+                      torch.rand(4, 6, 3, 3), torch.rand(4))
+    CCB.conv_chain_bwd(x, c1, c2, torch.rand_like(c2),
+                       torch.rand(6, 3, 3, 3), torch.rand(4, 6, 3, 3))
+    TCB.tconv2x2_bwd(x, torch.rand(1, 2, 16, 16), torch.rand(3, 2, 2, 2))
+    SCB.stencil_conv_bwd(x, torch.rand(1, 1, 8, 8), torch.rand(1, 3, 1, 1),
+                         ((0, 0), (0, 0)))
+    WT.warp_twopass(torch.rand(1, 8, 8, 6), torch.rand(1, 8, 8, 2))
     assert kernels.launch_counts() == {
-        'conv_chain': 0, 'tconv2x2': 0, 'stencil_conv': 0}
+        'conv_chain': 0, 'conv_chain_bwd': 0, 'tconv2x2': 0,
+        'tconv2x2_bwd': 0, 'stencil_conv': 0, 'stencil_conv_bwd': 0,
+        'warp_twopass': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():
@@ -175,3 +190,17 @@ def test_non_cpu_non_cuda_tensors_raise():
         SC.stencil_conv(torch.empty(1, 3, 4, 4, **meta),
                         torch.empty(1, 3, 1, 1, **meta),
                         torch.empty(1, **meta), ((0, 0), (0, 0)))
+    x, c = torch.empty(1, 3, 8, 8, **meta), torch.empty(1, 3, 8, 8, **meta)
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        CCB.conv_chain_bwd(x, c, c, c, torch.empty(3, 3, 3, 3, **meta),
+                           torch.empty(3, 3, 3, 3, **meta))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        TCB.tconv2x2_bwd(x, torch.empty(1, 2, 16, 16, **meta),
+                         torch.empty(3, 2, 2, 2, **meta))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        SCB.stencil_conv_bwd(x, torch.empty(1, 1, 8, 8, **meta),
+                             torch.empty(1, 3, 1, 1, **meta),
+                             ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match='CUDA tensor'):
+        WT.warp_twopass(torch.empty(1, 8, 8, 6, **meta),
+                        torch.empty(1, 8, 8, 2, **meta))

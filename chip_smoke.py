@@ -97,14 +97,16 @@ TCONV_SITES = ('unet.decoder.up_0', 'unet.decoder.up_1', 'unet.decoder.up_2')
 PALLAS = 'dnncancerannotator_tpu/ops/pallas/'
 # the Pallas kernels each CUDA kernel replaces (function definitions)
 REPLACES = {
-    'conv_chain': ('conv_kernel.py:340', 'flatchain.py:416'),
-    'conv_chain_bwd': ('conv_kernel.py:487', 'flatchain.py:293',
-                       'flatchain.py:372'),
-    'tconv2x2': ('flattconv.py:200',),
-    'tconv2x2_bwd': ('flattconv.py:156',),
-    'stencil_conv': ('conv_kernel.py:84',),
-    'stencil_conv_bwd': ('conv_kernel.py:175',),
-    'warp_twopass': ('warp_kernel.py:242',),
+    'conv_chain': ('conv_kernel.py:340 conv_chain_pallas',
+                   'flatchain.py:416 conv_chain_flat_nchw'),
+    'conv_chain_bwd': ('conv_kernel.py:487 conv_chain_bwd_pallas',
+                       'flatchain.py:293 _bwd_call_im2col',
+                       'flatchain.py:372 _bwd_call'),
+    'tconv2x2': ('flattconv.py:200 conv_transpose2x2_flat_nchw',),
+    'tconv2x2_bwd': ('flattconv.py:156 _bwd_call',),
+    'stencil_conv': ('conv_kernel.py:84 stencil_conv2d_pallas',),
+    'stencil_conv_bwd': ('conv_kernel.py:175 stencil_conv2d_bwd_pallas',),
+    'warp_twopass': ('warp_kernel.py:242 dense_image_warp_twopass_pallas',),
 }
 
 

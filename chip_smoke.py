@@ -114,6 +114,32 @@ def log(*args):
     print(*args, flush=True)
 
 
+def spiral_mask(h, w):
+    '''[h, w] bool: one path one pixel wide that spirals inward from the
+    top-left corner with one pixel between its arms (a single 4-connected
+    component that turns about (h + w) / 2 times).'''
+    mask = np.zeros((h, w), bool)
+    r = c = 0
+    dr, dc = 0, 1
+    mask[0, 0] = True
+
+    def free(y, x):
+        return 0 <= y < h and 0 <= x < w and not mask[y, x]
+
+    def taken(y, x):
+        return 0 <= y < h and 0 <= x < w and mask[y, x]
+
+    while True:
+        for _ in range(2):   # straight on, else turn right once
+            if free(r + dr, c + dc) and not taken(r + 2 * dr, c + 2 * dc):
+                r, c = r + dr, c + dc
+                mask[r, c] = True
+                break
+            dr, dc = dc, -dr
+        else:
+            return mask
+
+
 # -- phase 1 -----------------------------------------------------------------
 def environment():
     if not torch.cuda.is_available():

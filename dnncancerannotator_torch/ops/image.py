@@ -39,6 +39,34 @@ def _channel_mask(n, channels, device):
     return mask.to(device)
 
 
+def _resize_weights(n_in, n_out, device):
+    '''[n_out, n_in] interpolation matrix of TF's half-pixel bilinear
+    sampling: row i weighs source rows floor(q) and floor(q) + 1 by 1 - r
+    and r, q = clip((i + 0.5) * n_in / n_out - 0.5, 0, n_in - 1).'''
+    q = ((torch.arange(n_out, dtype=torch.float32) + 0.5) * (n_in / n_out)
+         - 0.5).clamp(0.0, n_in - 1.0)
+    lo = torch.floor(q).long().clamp(0, max(n_in - 2, 0))
+    r = q - lo
+    rows = torch.arange(n_out)
+    w = torch.zeros((n_out, n_in), dtype=torch.float32)
+    w[rows, lo] = 1.0 - r
+    if n_in > 1:
+        w[rows, lo + 1] += r
+    return w.to(device)
+
+
+def resize_bilinear(images, target_h, target_w):
+    '''Bilinear resize of [..., H, W, C] with half-pixel centers and no
+    antialiasing (``tf.image.resize(method='bilinear')``), as two
+    interpolation matmuls over H, then W (ops/image.py of the JAX
+    package).'''
+    images = images.float()
+    wy = _resize_weights(images.shape[-3], target_h, images.device)
+    wx = _resize_weights(images.shape[-2], target_w, images.device)
+    tmp = torch.einsum('oh,...hwc->...owc', wy, images)
+    return torch.einsum('pw,...owc->...opc', wx, tmp)
+
+
 def flip_left_right(images, flips):
     '''Reverse the width axis of the images of [B, H, W, C] where ``flips``
     ([B] bool) is set.'''

@@ -6,11 +6,11 @@ same function (run for CPU tensors and used as the reference on the card),
 and the shape bounds the kernel takes.
 '''
 
-from . import (conv_chain, conv_chain_bwd, stencil_conv, stencil_conv_bwd,
-               tconv2x2, tconv2x2_bwd, warp_twopass)
+from . import (cca, conv_chain, conv_chain_bwd, stencil_conv,
+               stencil_conv_bwd, tconv2x2, tconv2x2_bwd, warp_twopass)
 
 KERNELS = (conv_chain, conv_chain_bwd, tconv2x2, tconv2x2_bwd, stencil_conv,
-           stencil_conv_bwd, warp_twopass)
+           stencil_conv_bwd, warp_twopass, cca)
 
 
 def reset_launches():

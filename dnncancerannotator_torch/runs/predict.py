@@ -71,7 +71,7 @@ def predict(
     eval_step = model._make_eval_step(ds.slice_types)
     ext = 'npy' if output_format == 'npy' else 'png'
     for batch in ds.batches():
-        probs = eval_step(batch['slices']).cpu().numpy()
+        probs = eval_step(batch['slices'])[1].cpu().numpy()
         for i, meta in enumerate(batch['meta']):
             pred = probs[i, :, :, 0]
             if threshold is not None:

@@ -14,7 +14,11 @@ def train(
     save_path,
     data_path,
     max_steps,
+    early_stop_steps=None,
     save_freq=500,
+    validate=False,
+    val_data_path=None,
+    visualize=False,
     seed=0,
     device='cuda',
 ):
@@ -30,7 +34,14 @@ def train(
         save_path: output directory for checkpoints, options and results
         data_path (list[str]): training data (.tfrecords files)
         max_steps (int): stop after this many optimizer steps in all
+        early_stop_steps (int): stop when the validation loss has not
+            improved for this many steps; disabled when None (default)
         save_freq (int): checkpoint every N steps (default 500)
+        validate (bool): evaluate on val_data_path at every checkpoint
+        val_data_path (list[str]): validation data (.tfrecords files)
+        visualize (bool): write image and PR-curve summaries of the
+            training data (and of the validation data, when given) at every
+            checkpoint
         seed (int): seed of the weight init, the warp bank, the batch
             sampler and the augmentation draws
         device (str): 'cuda' (default; raises when no GPU is visible),
@@ -45,9 +56,24 @@ def train(
         data_path=data_path,
     )
     ds = data_lib.train_ds(data_path, **config['data_options']['train'])
+    eval_options = config['data_options']['eval']
+    val_ds = None
+    if validate:
+        if val_data_path is None:
+            raise ValueError('validate needs val_data_path')
+        val_ds = data_lib.eval_ds(val_data_path, **eval_options)
+    visualization = {}
+    if visualize:
+        visualization['train'] = data_lib.eval_ds(
+            data_path, **eval_options, include_meta=True)
+        if val_data_path is not None:
+            visualization['validation'] = data_lib.eval_ds(
+                val_data_path, **eval_options, include_meta=True)
     model = engine_lib.Engine(config, seed=seed, device=device)
-    results = model.train(ds, save_path=save_path, max_steps=max_steps,
-                          save_freq=save_freq)
+    results = model.train(ds, val_data=val_ds, save_path=save_path,
+                          max_steps=max_steps,
+                          early_stop_steps=early_stop_steps,
+                          save_freq=save_freq, visualization=visualization)
     dump_lib.dump_train_results(
         os.path.join(save_path, 'results.pkl'), results, format_='pickle')
     return results

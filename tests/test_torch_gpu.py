@@ -11,7 +11,9 @@ chip_smoke.py repeats these checks at the full main-path shapes.
 import pytest
 import torch
 
+from chip_smoke import spiral_mask
 from dnncancerannotator_torch.ops import kernels
+from dnncancerannotator_torch.ops.kernels import cca as CCA
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
 from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
@@ -153,6 +155,27 @@ def test_warp_twopass_kernel(cuda, b, h, w, c, d, scale):
     torch.cuda.synchronize()
     # rounded, uncontracted blends: the same floats as the plain version
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('case', ['spiral', 'checkerboard', 'full', 'empty',
+                                  'noise', 'odd'])
+def test_cca_kernel(cuda, case):
+    gen = torch.Generator().manual_seed(7)
+    h, w = (77, 333) if case == 'odd' else (128, 128)
+    ii, jj = torch.meshgrid(torch.arange(h), torch.arange(w), indexing='ij')
+    plane = {
+        'spiral': torch.from_numpy(spiral_mask(h, w)),
+        'checkerboard': (ii + jj) % 2 == 0,
+        'full': torch.ones(h, w, dtype=torch.bool),
+        'empty': torch.zeros(h, w, dtype=torch.bool),
+    }.get(case)
+    masks = (torch.rand(3, h, w, generator=gen) < 0.55) if plane is None \
+        else plane.expand(3, h, w)
+    masks = masks.contiguous().cuda()
+    got = CCA.cca_raw_labels(masks)
+    torch.cuda.synchronize()
+    # integer labels, the same fixed point whatever order the atomics take
+    assert torch.equal(got, CCA.plain(masks))
 
 
 def test_wrappers_reject_non_contiguous_and_f64(cuda):

@@ -13,15 +13,18 @@ _PROBE = '''
 import contextlib, io, sys
 import dnncancerannotator_torch
 from dnncancerannotator_torch import convert, engine
+from dnncancerannotator_torch import metrics
 from dnncancerannotator_torch.data import augment, pipeline
-from dnncancerannotator_torch.ops import functions, image, pooling, warp
+from dnncancerannotator_torch.metrics import pixel, region
+from dnncancerannotator_torch.ops import (cca, functions, image, morphology,
+                                          pooling, warp)
 from dnncancerannotator_torch.ops.kernels import (
     conv_chain_bwd, stencil_conv_bwd, tconv2x2_bwd, warp_twopass)
-from dnncancerannotator_torch.runs import predict, train
+from dnncancerannotator_torch.runs import evaluate, predict, train
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
-from dnncancerannotator_torch.utils import dump
-for command in ('predict', 'train'):
+from dnncancerannotator_torch.utils import dump, tboard, viz
+for command in ('predict', 'train', 'evaluate'):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         try:

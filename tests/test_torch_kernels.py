@@ -14,6 +14,7 @@ import torch
 from dnncancerannotator_tpu.models import fastconv as jax_fastconv
 from dnncancerannotator_tpu.ops.pallas import conv_kernel, flatchain, flattconv
 from dnncancerannotator_torch.ops import kernels
+from dnncancerannotator_torch.ops.kernels import cca as CCA
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
 from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
@@ -148,10 +149,11 @@ def test_cpu_tensors_launch_no_kernel():
     SCB.stencil_conv_bwd(x, torch.rand(1, 1, 8, 8), torch.rand(1, 3, 1, 1),
                          ((0, 0), (0, 0)))
     WT.warp_twopass(torch.rand(1, 8, 8, 6), torch.rand(1, 8, 8, 2))
+    CCA.cca_raw_labels(torch.rand(2, 8, 8) > 0.5)
     assert kernels.launch_counts() == {
         'conv_chain': 0, 'conv_chain_bwd': 0, 'tconv2x2': 0,
         'tconv2x2_bwd': 0, 'stencil_conv': 0, 'stencil_conv_bwd': 0,
-        'warp_twopass': 0}
+        'warp_twopass': 0, 'cca': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():

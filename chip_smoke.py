@@ -33,10 +33,37 @@ Phases (each raises on failure, so the process exits non-zero):
    plain (CUDA events, median of 20, in turns), and the train throughput in
    slices/s, measured differentially: the difference of two ``train`` calls
    that differ only in step count, each the minimum of three.
+3c. connected components: the CCA kernel against its plain version, exactly
+   equal, on the thresholded, opened predictions of one real slice at the
+   region PR curve's 100 thresholds ([100, 128, 128]), on 256 x 256 planes
+   of a spiral, a checkerboard, all ones, all zeros and noise at p = 0.6,
+   and on [3, 192, 300] noise (H != W, W not a multiple of 32); timings as
+   in 3;
+3d. input sensitivity: the chain backward with dx at down_0 (which
+   training never asks for) on the first predict batch (B=64, 256 x 256)
+   against its plain version with the same relu masks, to DX_TOL *
+   max|ref|; then d(sum of probabilities)/d(input) through the kernels
+   against plain autograd of the plain forward, where a relu or pool
+   decision rounded the other way may change a few pixels (see
+   sensitivity_site), and the normalized per-channel sensitivity of
+   utils/viz.py to DX_TOL * its max;
+6. evaluation: the ``train`` CLI with metrics.yaml, ``--validate`` on the
+   phase-4 records, ``--early_stop_steps`` and ``--visualize`` for 4 steps
+   (val_loss and every metric in the history); then the ``evaluate`` CLI
+   with metrics.yaml and every export over phase 5's checkpoints on the
+   phase-4 records (160 slices, batch 64). Checks one results.csv row a
+   checkpoint with the loss and the 13 metrics, 160 casewise rows and PNGs
+   a checkpoint, that the event file reads back with the port's record
+   reader, that the CCA kernel ran at least once a batch and checkpoint,
+   and that every region count (the metrics.yaml suite, the casewise rows,
+   the region PR curves) equals the counts from the plain CCA on the same
+   probabilities on the card. Prints the seconds per checkpoint and the
+   evaluated slices/s.
 
-The last three lines of stdout are a JSON object of per-kernel results, the
-card's name and power limit, and {"ok": true, "device": {...}}. Without a
-CUDA device it exits non-zero before printing any of them.
+Each phase's wall time is printed when it ends. The last three lines of
+stdout are a JSON object of per-kernel results, the card's name and power
+limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
+non-zero before printing any of them.
 '''
 
 import contextlib
@@ -83,6 +110,9 @@ DW_TOL = 2e-5
 # own rounding can flip a relu mask where a pre-activation is near 0)
 LOSS_TOL = 1e-5
 STEP_TOL = 1e-4
+# input gradient end to end: the share of values past DX_TOL that relu and
+# max-pool decisions rounded the other way may leave (2.3e-4 measured)
+SENS_FLIP_SHARE = 1e-3
 
 # sites of the unet.yaml prediction path: (module path, JAX kernel there)
 CHAIN_SITES = (
@@ -107,11 +137,22 @@ REPLACES = {
     'stencil_conv': ('conv_kernel.py:84 stencil_conv2d_pallas',),
     'stencil_conv_bwd': ('conv_kernel.py:175 stencil_conv2d_bwd_pallas',),
     'warp_twopass': ('warp_kernel.py:242 dense_image_warp_twopass_pallas',),
+    'cca': ('cca_kernel.py:105 cca_raw_labels_pallas',),
 }
+METRICS_CONFIG = 'configs/additionals/metrics.yaml'
+REGION_THRESHOLDS = [i / 99.0 for i in range(100)]   # the region PR curve
+EVAL_TAG = 'smoke'
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def phase(name):
+    start = time.perf_counter()
+    yield
+    log(f'phase {name}: {time.perf_counter() - start:.2f} s')
 
 
 def spiral_mask(h, w):
@@ -152,7 +193,7 @@ def environment():
          '--format=csv,noheader'], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(f'card: {smi}')
-    for mod in ('yaml', 'PIL'):
+    for mod in ('yaml', 'PIL', 'pandas', 'matplotlib'):
         try:
             __import__(mod)
             log(f'{mod}: importable')
@@ -602,7 +643,8 @@ def _step_grads(eng, ds, raw, draws, plain):
 
 
 def train_slice(device):
-    '''Phase 5; returns the launch counts of the first train CLI call.'''
+    '''Phase 5; returns the launch counts of the first train CLI call, the
+    run's save_path and its data paths.'''
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.data import augment, pipeline
     from dnncancerannotator_torch.ops import kernels
@@ -726,14 +768,320 @@ def train_slice(device):
     log(f'train throughput: {rate:.2f} slices/s ({short}-step calls '
         f'{times[short]} s, {long}-step calls {times[long]} s; '
         f'steps_per_call {STEPS_PER_CALL})')
+    return launches, save_path, data_paths
+
+
+# -- phase 3c ----------------------------------------------------------------
+def _first_batch(eng, data_paths):
+    '''(y, probs) of the first predict batch through the kernels, the
+    raw uint8 batch and its slice types.'''
+    from dnncancerannotator_torch.data import pipeline
+
+    ds = pipeline.eval_ds(data_paths, batch_size=BATCH,
+                          output_size=(SIZE, SIZE))
+    raw = next(ds.batches())['slices']
+    _, probs, y = eng._make_eval_step(ds.slice_types)(raw)
+    return y, probs, raw, ds.slice_types
+
+
+@torch.no_grad()
+def cca_sites(eng, data_paths, results):
+    '''The CCA kernel against its plain version: exactly equal labels.'''
+    from dnncancerannotator_torch.metrics import region
+    from dnncancerannotator_torch.ops.kernels import cca as K
+    from dnncancerannotator_torch.ops.morphology import morph_open
+
+    device = eng.device
+    y, probs, _, _ = _first_batch(eng, data_paths)
+    _, p = region._resized(y[:1], probs[:1], 0.5)
+    thresholds = torch.tensor(REGION_THRESHOLDS, dtype=torch.float32,
+                              device=device)
+    real = morph_open(p, 5)[0] >= thresholds[:, None, None]
+    rng = np.random.default_rng(SEED)
+    ii, jj = np.mgrid[:SIZE, :SIZE]
+    planes = {
+        'thresholded opened predictions': real,
+        'spiral': spiral_mask(SIZE, SIZE)[None],
+        'checkerboard': ((ii + jj) % 2 == 0)[None],
+        'all ones': np.ones((1, SIZE, SIZE), bool),
+        'all zeros': np.zeros((1, SIZE, SIZE), bool),
+        'noise p=0.6': rng.random((4, SIZE, SIZE)) < 0.6,
+        'noise, H != W, W % 32 != 0': rng.random((3, 192, 300)) < 0.55,
+    }
+    log('connected components (CCA kernel vs plain, exact):')
+    for name, masks in planes.items():
+        x = torch.as_tensor(masks, device=device).contiguous()
+        got, want = K.cca_raw_labels(x), K.plain(x)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        n_regions = int((want.reshape(len(x), -1) == torch.arange(
+            x[0].numel(), device=device)).sum())
+        log(f'  cca {name:32s} {list(x.shape)} regions {n_regions:6d}  '
+            f'max|diff| {err}')
+        if not torch.equal(got, want):
+            raise AssertionError(f'cca ({name}) differs from its plain '
+                                 f'version by {err}')
+        ms, plain_ms = _time_pair(lambda: K.cca_raw_labels(x),
+                                  lambda: K.plain(x))
+        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
+        record(results, 'cca', float(err), ms, plain_ms)
+
+
+# -- phase 3d ----------------------------------------------------------------
+def sensitivity_site(eng, data_paths):
+    '''d(sum of probs)/d(input) at B=64 through the kernels (dx at down_0)
+    against plain autograd of the plain forward.
+
+    The chain backward at down_0 is held to DX_TOL * max|ref| on the
+    model's own activations with the same saved relu masks. End to end a
+    relu or max-pool decision can fall the other way where the kernels'
+    forward and the plain one round a value near 0 or a near-tie
+    differently (1 in 10^9 a value, but 10^7 values a batch); the gradient
+    then differs at full size in the few pixels behind that decision (on an
+    H100: 4,827 of 21 M values, all in one slice, 2.2e-3 of max|ref| 0.13;
+    summed over the batch 9.2e-7 relative). So end to end: at most
+    SENS_FLIP_SHARE of the values beyond DX_TOL * max|ref|, the summed
+    absolute difference within DX_TOL of the summed |ref|, and the
+    normalized per-channel sensitivity within DX_TOL * its max.'''
+    from dnncancerannotator_torch.data import augment
+    from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+    from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
+    from dnncancerannotator_torch.utils import viz
+
+    with torch.no_grad():
+        _, _, raw, slice_types = _first_batch(eng, data_paths)
+        images = torch.from_numpy(raw).to(eng.device).float() / 255.0
+        x, _ = augment.to_feature_label(images, slice_types)
+        chain = eng.model.unet.encoder.down_0.convchain
+        w1, w2 = chain.conv_0.weight.detach(), chain.conv_1.weight.detach()
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        c1, c2 = CC.plain(xc, w1, chain.conv_0.bias, w2, chain.conv_1.bias)
+        g = torch.randn(c2.shape, device=eng.device,
+                        generator=torch.Generator(device=eng.device)
+                        .manual_seed(SEED + 5))
+        _check_grads(f'conv_chain_bwd down_0 with dx (B={BATCH})',
+                     CCB.conv_chain_bwd(xc, c1, c2, g, w1, w2),
+                     CCB.plain(xc, c1, c2, g, w1, w2),
+                     CCB.plain(*_f64(xc, c1, c2, g, w1, w2)))
+
+    def input_grad(forward):
+        v = x.detach().requires_grad_()
+        (dx,) = torch.autograd.grad(forward(v).sum(), v)
+        return dx
+
+    got = input_grad(eng.model)
+    want = input_grad(lambda v: plain_forward(eng.model, v))
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    beyond = float((diff > DX_TOL * scale).float().mean())
+    summed = float(diff.sum() / want.abs().sum())
+    log(f'input gradient B={BATCH} {SIZE}x{SIZE}x5 vs plain autograd: '
+        f'max|diff| {float(diff.max()):.3e} (max|ref| {scale:.3e}) in slices '
+        f'{sorted(set(torch.nonzero(diff > DX_TOL * scale)[:, 0].tolist()))}'
+        f'; share beyond {DX_TOL} * max|ref| {beyond:.3e}; summed |diff| / '
+        f'summed |ref| {summed:.3e}')
+    if not (beyond <= SENS_FLIP_SHARE and summed <= DX_TOL):
+        raise AssertionError('input gradient through the kernels disagrees '
+                             'with plain autograd')
+    _, sens = viz.input_sensitivity(eng.model, x)
+    ref = want.abs().sum(dim=(1, 2))
+    ref = ref / ref.sum(dim=1, keepdim=True)
+    sens_err = float((sens - ref).abs().max())
+    log(f'  normalized sensitivity [{BATCH}, 5]: max|diff| {sens_err:.3e}')
+    if not sens_err <= DX_TOL * float(ref.abs().max()):
+        raise AssertionError(f'sensitivity differs by {sens_err}')
+    ms, plain_ms = _time_pair(
+        lambda: input_grad(eng.model),
+        lambda: input_grad(lambda v: plain_forward(eng.model, v)))
+    log(f'    forward + input gradient: kernels {ms:.4f} ms  plain '
+        f'{plain_ms:.4f} ms')
+
+
+# -- phase 6 -----------------------------------------------------------------
+@contextlib.contextmanager
+def _plain_cca():
+    '''Within the block, connected components run the plain version on
+    the card instead of the kernel.'''
+    from dnncancerannotator_torch.ops.kernels import cca as K
+    kernel = K.cca_raw_labels
+    K.cca_raw_labels = K.plain
+    try:
+        yield
+    finally:
+        K.cca_raw_labels = kernel
+
+
+def _read_csv(path):
+    import csv
+    with open(path, newline='') as fh:
+        return list(csv.reader(fh))
+
+
+def _pr_curves(path):
+    '''(number of records, {(step, tag): [6, T] array}) of an event file,
+    read with the port's record reader.'''
+    from dnncancerannotator_torch.data import tfrecord as tfr
+    count, curves = 0, {}
+    for record_bytes in tfr.read_records(path, verify_crc=True):
+        count += 1
+        event = {f: v for f, _, v in tfr.iter_fields(record_bytes)}
+        if 5 not in event:
+            continue
+        for _, _, value in tfr.iter_fields(event[5]):
+            fields = {f: v for f, _, v in tfr.iter_fields(value)}
+            if 8 in fields:
+                curves[(event[2], bytes(fields[1]).decode())] = \
+                    tfr.parse_tensor(fields[8])
+    return count, curves
+
+
+def _check_region_counts(device, run, data_paths, header, rows, casewise,
+                         curves):
+    '''Recompute every region count of the evaluate run with the plain
+    CCA on the card, from the same probabilities, and require equality.'''
+    from dnncancerannotator_torch import engine, metrics
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.utils import config as config_lib
+    from dnncancerannotator_torch.utils import viz
+
+    config = config_lib.load_config(os.path.join(run, 'options.yaml'))[
+        'config']
+    config = config_lib.apply_config(config, config_lib.load_config(
+        os.path.join(REPO, METRICS_CONFIG)))
+    eng = engine.Engine(config, device=device)
+    ds = pipeline.eval_ds(data_paths, **config['data_options']['eval'])
+    eng.build(ds.feature_shape)
+    visualizer = viz.Visualizer('plain', ds, 1, save_dir=WORK)
+    step_fn = eng._make_eval_step(ds.slice_types)
+    region_cols = [i for i, name in enumerate(header)
+                   if name.startswith('region/')]
+    n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    for i, row in enumerate(rows):
+        step = int(row[0])
+        eng.load(os.path.join(run, 'checkpoints', f'ckpt-{step}'))
+        suite = eng._build_metrics()
+        cm = metrics.RegionBasedConfusionMatrix(REGION_THRESHOLDS, 0.3,
+                                                resize_factor=0.5)
+        per_slice = []
+        with _plain_cca():
+            for batch in ds.batches():
+                _, probs, y = step_fn(batch['slices'])
+                for metric in suite:
+                    metric.update_state(y, probs)
+                _, y, probs, _ = visualizer._viz_batch(eng, batch['slices'])
+                per_slice.append(np.concatenate(
+                    cm.update_state_raw(y, probs), axis=1))
+        values = {m.name: float(m.result()) for m in suite}
+        for c in region_cols:
+            if float(row[c]) != values[header[c]]:
+                raise AssertionError(
+                    f'ckpt-{step} {header[c]}: evaluate wrote {row[c]}, the '
+                    f'plain CCA gives {values[header[c]]}')
+        want = np.concatenate(per_slice)
+        got = np.asarray([r[1:-1] for r in casewise[
+            1 + i * n_slices:1 + (i + 1) * n_slices]], np.int64)
+        if not np.array_equal(got, want):
+            raise AssertionError(f'ckpt-{step}: casewise region counts differ '
+                                 'from the plain CCA in '
+                                 f'{int((got != want).sum())} entries')
+        curve = curves[(step, 'region/PR_curve/pr_curves')]
+        result = cm.result_dict()
+        for r, key in ((0, 'true_positive_counts'),
+                       (1, 'false_positive_counts'),
+                       (3, 'false_negative_counts')):
+            if not np.array_equal(curve[r], result[key].astype(np.float32)):
+                raise AssertionError(f'ckpt-{step}: region PR curve {key} '
+                                     'differs from the plain CCA')
+        log(f'  ckpt-{step}: region counts equal the plain CCA\'s: '
+            f'{", ".join(header[c] + "=" + row[c] for c in region_cols[2:5])}'
+            f'; PR curve TP at 0.5 {int(result["true_positive_counts"][50])}')
+
+
+def eval_slice(device, val_paths, train_paths, run):
+    '''Phase 6: train --validate with metrics, then evaluate over the
+    checkpoints of ``run``; returns the launch counts of the evaluate
+    call.'''
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    metrics_config = os.path.join(REPO, METRICS_CONFIG)
+    overlay = os.path.join(WORK, 'validate.json')
+    with open(overlay, 'w') as fh:
+        json.dump({'deploy_options.steps_per_call': 2}, fh)
+    start = time.perf_counter()
+    res = cli(argv=['train', '--config', *[os.path.join(REPO, c)
+                                           for c in CONFIGS],
+                    metrics_config, overlay, '--save_path',
+                    os.path.join(WORK, 'val_run'), '--data_path', *train_paths,
+                    '--save_freq', '2', '--max_steps', '4', '--validate',
+                    '--val_data_path', *val_paths, '--early_stop_steps', '4',
+                    '--visualize', '--seed', str(SEED), '--device',
+                    device.type])
+    seconds = time.perf_counter() - start
+    val_keys = sorted(k for k in res.history if k.startswith('val_'))
+    log(f'train --validate --visualize: steps {res.epoch} in {seconds:.3f} s; '
+        f'val_loss {res.history.get("val_loss")}; {len(val_keys)} val '
+        f'scalars, {len(res.history) - len(val_keys) - 2} train metrics')
+    if res.epoch != [1, 2, 3, 4] or len(res.history.get('val_loss', [])) != 2 \
+            or len(val_keys) != 14 or len(res.history) != 2 + 13 + 14 or \
+            not np.isfinite(res.history['val_loss']).all():
+        raise AssertionError(f'train --validate history: {res.history}')
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result_rows = cli(argv=[
+        'evaluate', '--save_path', run, '--data_path', *val_paths, '--tag',
+        EVAL_TAG, '--config', metrics_config, '--export_csv',
+        '--export_images', '--export_casewise_metrics', '--device',
+        device.type])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+    n_ckpt = len(result_rows)
+    n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    log(f'evaluate: {n_ckpt} checkpoints x {n_slices} slices in '
+        f'{seconds:.3f} s -> {seconds / n_ckpt:.3f} s per checkpoint, '
+        f'{n_ckpt * n_slices / seconds:.2f} slices/s (host clock, the '
+        'metrics pass and the Visualizer pass with every export)')
+    log(f'launches during evaluate: {launches}')
+
+    out = os.path.join(run, 'tfevents', EVAL_TAG)
+    table = _read_csv(os.path.join(out, 'results.csv'))
+    header, rows = table[0], table[1:]
+    n_saved = len(os.listdir(os.path.join(run, 'checkpoints')))
+    if n_ckpt != n_saved or len(rows) != n_ckpt or \
+            header[:2] != ['step', 'loss'] or len(header) != 2 + 13:
+        raise AssertionError(f'results.csv: {header}, {len(rows)} rows for '
+                             f'{n_ckpt} checkpoints')
+    casewise = _read_csv(os.path.join(out, 'casewise_results.csv'))
+    pngs = sum(f.endswith('.png') for _, _, files in
+               os.walk(os.path.join(out, 'images')) for f in files)
+    (events,) = [os.path.join(out, f) for f in os.listdir(out)
+                 if f.startswith('events')]
+    n_records, curves = _pr_curves(events)
+    log(f'  results.csv {len(rows)} rows x {len(header)} columns, '
+        f'casewise_results.csv {len(casewise) - 1} rows, {pngs} PNGs, '
+        f'{n_records} event records')
+    if len(casewise) - 1 != n_slices * n_ckpt or pngs != n_slices * n_ckpt \
+            or n_records != 1 + n_ckpt * (n_slices + 2):
+        raise AssertionError('evaluate exports are incomplete')
+    n_batches = -(-n_slices // BATCH)
+    if launches['cca'] < n_batches * n_ckpt:
+        raise AssertionError(f'cca launched {launches["cca"]} times during '
+                             f'evaluate, want >= {n_batches} x {n_ckpt}')
+    _check_region_counts(device, run, val_paths, header, rows, casewise,
+                         curves)
     return launches
 
 
 def main():
-    smi = environment()
+    with phase('1 environment'):
+        smi = environment()
     from dnncancerannotator_torch import engine
     device = engine.resolve_device('cuda')
-    build()
+    with phase('2 build'):
+        build()
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
@@ -745,20 +1093,35 @@ def main():
         eng = engine.Engine(config, seed=SEED, device=device)
         eng.build((BATCH, SIZE, SIZE, 5))
         eng.load(os.path.join(save_path, 'checkpoints', 'ckpt-1'))
-        kernel_sites(eng.model, device, results)
-        backward_sites(eng.model, device, results)
-        predict_launches = run_slice(eng, data_paths, save_path,
-                                     os.path.join(WORK, 'maps'))
-        launches = train_slice(device)
+        with phase('3 forward kernels'):
+            kernel_sites(eng.model, device, results)
+        with phase('3b backward and warp kernels'):
+            backward_sites(eng.model, device, results)
+        with phase('3c cca kernel'):
+            cca_sites(eng, data_paths, results)
+        with phase('3d input sensitivity'):
+            sensitivity_site(eng, data_paths)
+        with phase('4 predict'):
+            predict_launches = run_slice(eng, data_paths, save_path,
+                                         os.path.join(WORK, 'maps'))
+        with phase('5 train'):
+            launches, train_run, train_paths = train_slice(device)
+        with phase('6 evaluate'):
+            eval_launches = eval_slice(device, data_paths, train_paths,
+                                       train_run)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
+    # each kernel's launches in the run of its path: train for the seven of
+    # the train step, evaluate for the CCA
+    launches['cca'] = eval_launches['cca']
     csrc = 'dnncancerannotator_torch/csrc/'
     kernels_line = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': f'{csrc}{name}.cu',
          'replaces': ', '.join(PALLAS + r for r in REPLACES[name]),
          'launches': launches[name],
          'predict_launches': predict_launches[name],
+         'eval_launches': eval_launches[name],
          'max_abs_err': acc['max_abs_err'], 'ms': acc['ms'],
          'plain_ms': acc['plain_ms'], 'sites': acc['sites']}
         for name, acc in results.items()]}

@@ -147,13 +147,15 @@ class SummaryWriter:
         self._write(_event(step=step,
                            summary_values=[_value_scalar(tag, value)]))
 
-    def image(self, tag, array, step):
-        '''array: [H, W], [H, W, 1] or [H, W, 3], uint8 or [0, 1] float.'''
+    def image(self, tag, array, step, png=None):
+        '''array: [H, W], [H, W, 1] or [H, W, 3], uint8 or [0, 1] float;
+        ``png``: its encode_png bytes, when the caller has them already.'''
         array = np.asarray(array)
         h, w = array.shape[0], array.shape[1]
         colorspace = 1 if array.ndim == 2 or array.shape[-1] == 1 else 3
+        png = encode_png(array) if png is None else png
         self._write(_event(step=step, summary_values=[
-            _value_image(tag, encode_png(array), h, w, colorspace)]))
+            _value_image(tag, png, h, w, colorspace)]))
 
     def pr_curve_raw(self, tag, true_positive_counts, false_positive_counts,
                      true_negative_counts, false_negative_counts, precision,

@@ -160,9 +160,10 @@ class Visualizer:
                 tag = f"path:{meta['path']},sliceID:{meta['sliceID']}"
                 image = self._resize(self._generate_image(x[i], y[i],
                                                           probs[i]))
-                self.writer.image(tag, image, step)
+                png = tboard.encode_png(image)   # once for both outputs
+                self.writer.image(tag, image, step, png=png)
                 self._export_files(
-                    meta, image, step,
+                    meta, png, step,
                     sens[i] if self.show_sensitivity else None,
                     tuple(c[i] for c in casewise) + (region_thresholds, tag)
                     if self.export_casewise_metrics else None)
@@ -197,7 +198,7 @@ class Visualizer:
         img = Image.fromarray(arr).resize((w, h), Image.BILINEAR)
         return np.asarray(img).astype(np.float32) / 255.0
 
-    def _export_files(self, meta, image, step, sensitivity, casewise):
+    def _export_files(self, meta, png, step, sensitivity, casewise):
         parts = meta['path'].split('/')[-self.export_path_depth:]
         slice_dir = os.path.join(*parts, f"{int(meta['sliceID']):02d}")
         stem = f'step_{int(step):08d}'
@@ -207,7 +208,7 @@ class Visualizer:
                                 f'{stem}.png')
             os.makedirs(os.path.dirname(path), exist_ok=True)
             with open(path, 'wb') as f:
-                f.write(tboard.encode_png(image))
+                f.write(png)
             if sensitivity is not None:
                 with open(path[:-4] + '_sensitivity.png', 'wb') as f:
                     f.write(tboard.encode_png(

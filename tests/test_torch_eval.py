@@ -393,3 +393,39 @@ def test_validation_and_evaluate_cli_match_jax(records, tmp_path):
                  if f.startswith('events')]
     assert len(list(tfr.read_records(events, verify_crc=True))) == \
         1 + 2 * (12 + 2)   # version, then a slice image each and 2 curves
+
+
+def test_evaluate_selects_checkpoints_and_tags_as_jax(records, tmp_path):
+    '''The checkpoint and tag rules of the JAX ``eval``: ``step_range``
+    (both ends included), then ``min_interval`` from the last evaluated
+    step; an existing tag raises, or gets '_' appended with
+    ``avoid_overwrite``.'''
+    config = config_lib.load_config([*CONFIGS, _overlay(tmp_path, 1)])
+    save = str(tmp_path / 'run')
+    eng = engine.Engine(config, device='cpu')
+    eng.build((5, 32, 32, 5))
+    for step in (1, 2, 4, 7):
+        eng.save_ckpt(os.path.join(save, 'checkpoints'), step)
+    with open(os.path.join(save, 'options.yaml'), 'w') as fh:
+        json.dump({'config': config}, fh)
+
+    def evaluate(*flags):
+        return main(argv=['evaluate', '--save_path', save, '--data_path',
+                          *records, '--skip_visualization', '--device',
+                          'cpu', *flags])
+
+    assert sorted(evaluate('--tag', 'a', '--step_range', '2', '7')) == \
+        [2, 4, 7]
+    assert sorted(evaluate('--tag', 'b', '--min_interval', '3')) == [1, 4, 7]
+    assert sorted(evaluate('--tag', 'c', '--step_range', '0', '4',
+                           '--min_interval', '2', '--export_csv')) == [1, 4]
+    with pytest.raises(ValueError, match='already exists'):
+        evaluate('--tag', 'c')
+    evaluate('--tag', 'c', '--avoid_overwrite', '--step_range', '7', '7',
+             '--export_csv')
+    frame = pd.read_csv(os.path.join(save, 'tfevents', 'c_', 'results.csv'),
+                        index_col=0)
+    assert list(frame.index) == [7] and frame.index.name == 'step'
+    with open(os.path.join(save, 'tfevents', 'c_',
+                           'casewise_results.csv')) as fh:
+        assert fh.read() == '""\n'   # pandas' empty frame

@@ -100,6 +100,7 @@ def test_stencil_conv_kernel(cuda, ci, co, k, pads, relu):
 
 @pytest.mark.parametrize('ci,cm,co,h,w,k,need_dx', [
     (5, 3, 3, 37, 70, 3, False),   # down_0's class, ragged tiles
+    (5, 3, 3, 37, 70, 3, True),    # down_0 with dx (input sensitivity)
     (24, 12, 12, 16, 16, 3, True),
     (12, 6, 6, 33, 20, 3, True),
     (4, 5, 6, 20, 20, 5, True),    # runtime tap loop

@@ -140,7 +140,6 @@ REPLACES = {
     'cca': ('cca_kernel.py:105 cca_raw_labels_pallas',),
 }
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
-REGION_THRESHOLDS = [i / 99.0 for i in range(100)]   # the region PR curve
 EVAL_TAG = 'smoke'
 
 
@@ -790,11 +789,12 @@ def cca_sites(eng, data_paths, results):
     from dnncancerannotator_torch.metrics import region
     from dnncancerannotator_torch.ops.kernels import cca as K
     from dnncancerannotator_torch.ops.morphology import morph_open
+    from dnncancerannotator_torch.utils.viz import PR_THRESHOLDS
 
     device = eng.device
     y, probs, _, _ = _first_batch(eng, data_paths)
     _, p = region._resized(y[:1], probs[:1], 0.5)
-    thresholds = torch.tensor(REGION_THRESHOLDS, dtype=torch.float32,
+    thresholds = torch.tensor(PR_THRESHOLDS, dtype=torch.float32,
                               device=device)
     real = morph_open(p, 5)[0] >= thresholds[:, None, None]
     rng = np.random.default_rng(SEED)
@@ -960,8 +960,8 @@ def _check_region_counts(device, run, data_paths, header, rows, casewise,
         step = int(row[0])
         eng.load(os.path.join(run, 'checkpoints', f'ckpt-{step}'))
         suite = eng._build_metrics()
-        cm = metrics.RegionBasedConfusionMatrix(REGION_THRESHOLDS, 0.3,
-                                                resize_factor=0.5)
+        cm = metrics.RegionBasedConfusionMatrix(
+            viz.PR_THRESHOLDS, viz.PR_IOU_THRESHOLD, resize_factor=0.5)
         per_slice = []
         with _plain_cca():
             for batch in ds.batches():

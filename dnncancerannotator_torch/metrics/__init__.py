@@ -6,7 +6,7 @@ instance.
 '''
 
 from .pixel import (
-    AUC, FalseNegatives, FalsePositives, FBetaScore, Mean, Precision, Recall,
+    AUC, FalseNegatives, FalsePositives, FBetaScore, Precision, Recall,
     TrueNegatives, TruePositives,
 )
 from .region import (

@@ -63,8 +63,6 @@ class _ConfusionMetric:
         self.tn = np.zeros([n], np.float64)
         self.fn = np.zeros([n], np.float64)
 
-    reset = reset_state
-
     def update_state(self, y_true, y_pred, sample_weight=None):
         # identical-threshold instances fed the same batch share one pass
         key = tuple(self.thresholds.tolist())
@@ -77,8 +75,6 @@ class _ConfusionMetric:
         self.fp = self.fp + fp
         self.tn = self.tn + tn
         self.fn = self.fn + fn
-
-    update = update_state
 
     def _maybe_scalar(self, x):
         x = np.asarray(x, np.float32)
@@ -133,8 +129,6 @@ class FBetaScore:
         self.precision.update_state(y_true, y_pred, sample_weight)
         self.recall.update_state(y_true, y_pred, sample_weight)
 
-    update = update_state
-
     def result(self):
         p = np.asarray(self.precision.result())
         r = np.asarray(self.recall.result())
@@ -145,8 +139,6 @@ class FBetaScore:
     def reset_state(self):
         self.precision.reset_state()
         self.recall.reset_state()
-
-    reset = reset_state
 
 
 class AUC(_ConfusionMetric):
@@ -189,24 +181,3 @@ class AUC(_ConfusionMetric):
 def _div_no_nan(a, b):
     with np.errstate(divide='ignore', invalid='ignore'):
         return np.where(b != 0, a / np.where(b == 0, 1, b), 0.0)
-
-
-class Mean:
-    '''Streaming mean (loss reporting).'''
-
-    def __init__(self, name='mean'):
-        self.name = name
-        self.reset()
-
-    def reset(self):
-        self.total = 0.0
-        self.count = 0
-
-    reset_state = reset
-
-    def update(self, value, n=1):
-        self.total += float(value) * n
-        self.count += n
-
-    def result(self):
-        return self.total / max(self.count, 1)

@@ -273,11 +273,6 @@ class _RegionBasedMetric:
         self.tp_pred_count = self.tp_pred_count + tp_pred.sum(0)
         return tp, fn, fp
 
-    update = update_state
-
-    def reset(self):
-        self.reset_state()
-
     def get_config(self):
         return dict(thresholds=self.thresholds.tolist(),
                     IoU_threshold=self.IoU_threshold, epsilon=self.epsilon,
@@ -368,8 +363,6 @@ class RegionBasedFBetaScore:
         self.precision.update_state(y_true, y_pred, sample_weight)
         self.recall.update_state(y_true, y_pred, sample_weight)
 
-    update = update_state
-
     def result(self):
         p = self.precision.result()
         r = self.recall.result()
@@ -379,5 +372,3 @@ class RegionBasedFBetaScore:
     def reset_state(self):
         self.precision.reset_state()
         self.recall.reset_state()
-
-    reset = reset_state

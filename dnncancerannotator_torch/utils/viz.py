@@ -7,8 +7,8 @@ dnncancerannotator_tpu.utils.viz).
   ``path:<exam path>,sliceID:<n>``, and as a PNG under
   ``save_dir/<tag>/images/<last path parts>/<slice>/step_<step>.png`` when
   ``export_images``;
-- pixel and region PR curves at ``i / (n - 1)`` thresholds (the region curve
-  at ``resize_factor = ratio``) as raw ``pr_curves`` summaries;
+- pixel and region PR curves at the thresholds i / 99 (the region curve at
+  ``resize_factor = ratio``) as raw ``pr_curves`` summaries;
 - input sensitivity, |d(sum of probabilities)/d(input)| summed per channel
   and normalized per slice, by autograd through the model's kernels (the
   chain backward then computes dx at the first chain); as a bar chart PNG
@@ -29,6 +29,11 @@ from ..data import augment as augment_mod
 from ..metrics import pixel as pixel_metrics
 from ..metrics import region as region_metrics
 from . import tboard
+
+# the pixel and the region PR curves' thresholds, i / 99, 0 through 1
+PR_THRESHOLDS = [i / 99.0 for i in range(100)]
+PR_IOU_THRESHOLD = 0.30
+EXPORT_PATH_DEPTH = 3   # trailing parts of an exam's path kept in exports
 
 
 def input_sensitivity(model, x):
@@ -57,15 +62,10 @@ class Visualizer:
         freq,
         save_dir,
         ratio=0.5,
-        prediction_threshold=None,
-        pr_nthreshold=100,
-        pr_region_nthreshold=100,
-        pr_IoU_threshold=0.30,
         ignore_test=True,
         export_images=False,
         export_csv=False,
         visualize_sensitivity=False,
-        export_path_depth=3,
         overlay=False,
         export_casewise_metrics=False,
         casewise_metrics_container=None,
@@ -75,14 +75,9 @@ class Visualizer:
         self.freq = freq
         self.save_dir = save_dir
         self.ratio = ratio
-        self.prediction_threshold = prediction_threshold
-        self.pr_nthreshold = pr_nthreshold
-        self.pr_region_nthreshold = pr_region_nthreshold
-        self.pr_IoU_threshold = pr_IoU_threshold
         self.export_images = export_images
         self.export_csv = export_csv
         self.show_sensitivity = visualize_sensitivity
-        self.export_path_depth = export_path_depth
         self.overlay = overlay
         self.export_casewise_metrics = export_casewise_metrics
         self.casewise_metrics_container = casewise_metrics_container
@@ -111,38 +106,29 @@ class Visualizer:
             sens = torch.zeros(x.shape[0], x.shape[-1])
         return x, y, probs, sens
 
-    def on_step(self, engine, step, logs=None):
+    def on_step(self, engine, step):
         '''The pass at a training step, on the ``freq`` cadence.'''
         if self.freq and step % self.freq != 0:
             return
-        self._run(engine, step, logs)
+        self._run(engine, step)
 
-    def on_test(self, engine, step, logs=None):
+    def on_test(self, engine, step):
         '''The pass at an evaluated checkpoint, unless ``ignore_test``.'''
         if self.ignore_test:
             return
-        self._run(engine, step, logs)
+        self._run(engine, step)
 
-    def _run(self, engine, step, logs=None):
-        pixel_thresholds = [i / float(self.pr_nthreshold - 1)
-                            for i in range(self.pr_nthreshold)]
-        region_thresholds = [i / float(self.pr_region_nthreshold - 1)
-                             for i in range(self.pr_region_nthreshold)]
+    def _run(self, engine, step):
         pixel_suite = {
-            'true_positive_counts': pixel_metrics.TruePositives(
-                pixel_thresholds),
-            'true_negative_counts': pixel_metrics.TrueNegatives(
-                pixel_thresholds),
-            'false_positive_counts': pixel_metrics.FalsePositives(
-                pixel_thresholds),
-            'false_negative_counts': pixel_metrics.FalseNegatives(
-                pixel_thresholds),
-            'recall': pixel_metrics.Recall(pixel_thresholds),
-            'precision': pixel_metrics.Precision(pixel_thresholds),
-        }
+            name: cls(PR_THRESHOLDS) for name, cls in (
+                ('true_positive_counts', pixel_metrics.TruePositives),
+                ('true_negative_counts', pixel_metrics.TrueNegatives),
+                ('false_positive_counts', pixel_metrics.FalsePositives),
+                ('false_negative_counts', pixel_metrics.FalseNegatives),
+                ('recall', pixel_metrics.Recall),
+                ('precision', pixel_metrics.Precision))}
         region_cm = region_metrics.RegionBasedConfusionMatrix(
-            region_thresholds, self.pr_IoU_threshold,
-            resize_factor=self.ratio)
+            PR_THRESHOLDS, PR_IOU_THRESHOLD, resize_factor=self.ratio)
 
         for batch in self.data.batches():
             n = len(batch['meta'])
@@ -165,12 +151,10 @@ class Visualizer:
                 self._export_files(
                     meta, png, step,
                     sens[i] if self.show_sensitivity else None,
-                    tuple(c[i] for c in casewise) + (region_thresholds, tag)
+                    (*(c[i] for c in casewise), tag)
                     if self.export_casewise_metrics else None)
 
         self._record_pr_curves(pixel_suite, region_cm, step)
-        if logs:
-            self.record_logs(logs, step)
         self.writer.flush()
 
     def _generate_image(self, features, label, output):
@@ -178,8 +162,6 @@ class Visualizer:
         horizontal = np.concatenate(
             [features[..., c] for c in range(features.shape[-1])], axis=1)
         pred = output[..., 0]
-        if self.prediction_threshold is not None:
-            pred = (pred > self.prediction_threshold).astype(pred.dtype)
         if self.overlay:
             horizontal = np.tile(horizontal[..., None], [1, 1, 3])
             f0 = features[..., 0]
@@ -199,7 +181,7 @@ class Visualizer:
         return np.asarray(img).astype(np.float32) / 255.0
 
     def _export_files(self, meta, png, step, sensitivity, casewise):
-        parts = meta['path'].split('/')[-self.export_path_depth:]
+        parts = meta['path'].split('/')[-EXPORT_PATH_DEPTH:]
         slice_dir = os.path.join(*parts, f"{int(meta['sliceID']):02d}")
         stem = f'step_{int(step):08d}'
         names = [t for t in meta['slice_types'] if t != 'label']
@@ -219,14 +201,14 @@ class Visualizer:
                       [['', '0']] + [[name, value] for name, value in
                                      zip(names, sensitivity[:len(names)])])
         if casewise is not None:
-            tp, fn, fp, thresholds, tag = casewise
+            tp, fn, fp, tag = casewise
             row = dict(
                 **{f'region_tp@PixelThreshold{t:.2}': int(v)
-                   for t, v in zip(thresholds, tp)},
+                   for t, v in zip(PR_THRESHOLDS, tp)},
                 **{f'region_fn@PixelThreshold{t:.2}': int(v)
-                   for t, v in zip(thresholds, fn)},
+                   for t, v in zip(PR_THRESHOLDS, fn)},
                 **{f'region_fp@PixelThreshold{t:.2}': int(v)
-                   for t, v in zip(thresholds, fp)},
+                   for t, v in zip(PR_THRESHOLDS, fp)},
                 tag=tag,
             )
             if self.casewise_metrics_container is not None:
@@ -256,20 +238,14 @@ class Visualizer:
             'pixel/PR_curve', pixel['true_positive_counts'],
             pixel['false_positive_counts'], pixel['true_negative_counts'],
             pixel['false_negative_counts'], pixel['precision'],
-            pixel['recall'], self.pr_nthreshold, step)
+            pixel['recall'], len(PR_THRESHOLDS), step)
         region = region_cm.result_dict()
         self.writer.pr_curve_raw(
             'region/PR_curve', region['true_positive_counts'],
             region['false_positive_counts'],
-            np.zeros(self.pr_region_nthreshold),
+            np.zeros(len(PR_THRESHOLDS)),
             region['false_negative_counts'], region['precision'],
-            region['recall'], self.pr_region_nthreshold, step)
-
-    def record_logs(self, logs, step):
-        for name, value in logs.items():
-            if np.ndim(value) == 0:
-                self.writer.scalar(name, float(value), step)
-        self.writer.flush()
+            region['recall'], len(PR_THRESHOLDS), step)
 
     def close(self):
         if self._writer is not None:

@@ -132,16 +132,14 @@ def test_input_sensitivity_matches_jax_grad():
         rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize('overlay,threshold,ratio', [
-    (False, None, 0.5), (True, 0.5, 1.0), (False, 0.3, 0.5),
-    (True, None, 0.5)])
-def test_visualizer_image_grid_matches_jax(overlay, threshold, ratio):
+@pytest.mark.parametrize('overlay,ratio', [
+    (False, 0.5), (True, 1.0), (False, 1.0), (True, 0.5)])
+def test_visualizer_image_grid_matches_jax(overlay, ratio):
     rng = np.random.default_rng(4)
     features = rng.random((32, 48, 5), dtype=np.float32)
     label = (rng.random((32, 48)) > 0.8).astype(np.float32)
     output = rng.random((32, 48, 1), dtype=np.float32)
-    kwargs = dict(ratio=ratio, prediction_threshold=threshold,
-                  overlay=overlay)
+    kwargs = dict(ratio=ratio, overlay=overlay)
     want_viz = jax_viz.Visualizer('t', None, 1, 'unused', **kwargs)
     got_viz = viz.Visualizer('t', None, 1, 'unused', **kwargs)
     want = want_viz._resize(want_viz._generate_image(features, label, output))
@@ -255,14 +253,14 @@ def _casewise(batches):
     '''The Visualizer's casewise region counts over numpy batches, one
     [3 * 100] row a slice.'''
     cm = metrics.RegionBasedConfusionMatrix(
-        [i / 99.0 for i in range(100)], 0.3, resize_factor=0.5)
+        viz.PR_THRESHOLDS, viz.PR_IOU_THRESHOLD, resize_factor=0.5)
     rows = [np.concatenate(cm.update_state_raw(y, p), axis=1)
             for y, p in batches]
     return np.concatenate(rows)
 
 
 AUC_THRESHOLDS = jax_metrics.AUC(num_thresholds=150).thresholds
-VIZ_THRESHOLDS = np.asarray([i / 99.0 for i in range(100)], np.float32)
+VIZ_THRESHOLDS = np.asarray(viz.PR_THRESHOLDS, np.float32)
 
 
 def _near_by_column(batches, names):

@@ -59,11 +59,32 @@ Phases (each raises on failure, so the process exits non-zero):
    the region PR curves) equals the counts from the plain CCA on the same
    probabilities on the card. Prints the seconds per checkpoint and the
    evaluated slices/s.
+3e. unet_big kernel sites: a seeded unet_big forward (64 first filters, 4
+   levels, BatchNorm, NHWC, B=8, 256 x 256, train mode) gives the inputs of
+   the NHWC pool (down_1..3) and transposed conv (up_0..2) kernels; each
+   kernel against its plain version there: the pool forward and backward
+   exactly equal, the tconv forward and dx to DX_TOL * max|ref|, dw and db
+   to DW_TOL * max|ref|; timings as in 3;
+7. unet_big training: the ``train`` CLI with the unet_big + f32 +
+   pallas_decoder stack (BIG_CONFIGS; B=8 256 x 256 crops, banked warp,
+   weighted BCE, Adam) for 20 steps in chunks of 10, checkpointing every 10,
+   then a second call that resumes to 30. Checks every loss is finite, each
+   checkpoint holds batch_stats that moved, each of the four NHWC kernels
+   launched at least 3 x steps times and the warp kernel every step,
+   ``predict`` from ckpt-30 equals a plain forward of its weights (BatchNorm
+   on its running statistics), one train step's loss, gradients and
+   updated batch_stats through the kernels equal a plain step on the same
+   batch and draws, and the stack without pallas_decoder.yaml launches none
+   of the four. Times the train step (kernels and plain) and the train
+   throughput as in 5.
 
 Each phase's wall time is printed when it ends. The last three lines of
-stdout are a JSON object of per-kernel results, the card's name and power
-limit, and {"ok": true, "device": {...}}. Without a CUDA device it exits
-non-zero before printing any of them.
+stdout are a JSON object of per-kernel results (with each kernel's bound:
+the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
+f32 outside the tensor cores, from the inputs of this run, and the time of
+one PyTorch call computing the same function where one exists), the card's
+name and power limit, and {"ok": true, "device": {...}}. Without a CUDA
+device it exits non-zero before printing any of them.
 '''
 
 import contextlib
@@ -110,6 +131,8 @@ DW_TOL = 2e-5
 # own rounding can flip a relu mask where a pre-activation is near 0)
 LOSS_TOL = 1e-5
 STEP_TOL = 1e-4
+# the unet_big step's updated BatchNorm statistics, relative to max|ref|
+STATS_TOL = 1e-5
 # input gradient end to end: the share of values past DX_TOL that relu and
 # max-pool decisions rounded the other way may leave (2.3e-4 measured)
 SENS_FLIP_SHARE = 1e-3
@@ -141,6 +164,31 @@ REPLACES = {
 }
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
+REPLACES.update({
+    'pool2x2_nhwc': ('pool_kernel.py:120 max_pool2x2_nhwc',),
+    'pool2x2_nhwc_bwd': ('pool_kernel.py:96 _bwd_call',),
+    'tconv2x2_nhwc': ('tconv_kernel.py:161 conv_transpose2x2_nhwc',),
+    'tconv2x2_nhwc_bwd': ('tconv_kernel.py:123 _bwd_call',),
+})
+# unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
+# after deploy_options.yaml, which replaces the whole deploy_options dict
+BIG_CONFIGS = ('configs/unet_big.yaml',
+               'configs/additionals/data_options.yaml',
+               'configs/additionals/deploy_options.yaml',
+               'configs/additionals/f32.yaml',
+               'configs/additionals/pallas_decoder.yaml')
+BIG_STEPS = 20
+BIG_SAVE_FREQ = 10
+POOL_SITES = ('unet.encoder.down_1', 'unet.encoder.down_2',
+              'unet.encoder.down_3')
+BIG_TCONV_SITES = ('unet.decoder.up_0', 'unet.decoder.up_1',
+                   'unet.decoder.up_2')
+NHWC_KERNELS = ('pool2x2_nhwc', 'pool2x2_nhwc_bwd', 'tconv2x2_nhwc',
+                'tconv2x2_nhwc_bwd')
+# the H100 SXM's published peaks: HBM bytes/s and f32 FLOP/s outside the
+# tensor cores (the port keeps TF32 off)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def log(*args):
@@ -216,15 +264,16 @@ def build():
 
 
 # -- phase 3 -----------------------------------------------------------------
-def _time_pair(kernel_fn, plain_fn):
-    '''Median CUDA-event ms of each, timed in turns after warm-up.'''
+def _time_fns(fns):
+    '''{name: median CUDA-event ms} of each callable, timed in turns after
+    warm-up.'''
     for _ in range(3):
-        kernel_fn()
-        plain_fn()
+        for fn in fns.values():
+            fn()
     torch.cuda.synchronize()
-    times = {'kernel': [], 'plain': []}
+    times = {name: [] for name in fns}
     for _ in range(TIMED_RUNS):
-        for name, fn in (('plain', plain_fn), ('kernel', kernel_fn)):
+        for name, fn in fns.items():
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -232,27 +281,63 @@ def _time_pair(kernel_fn, plain_fn):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    return statistics.median(times['kernel']), statistics.median(
-        times['plain'])
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def _check_close(name, got, want):
+def _time_pair(kernel_fn, plain_fn):
+    '''Median CUDA-event ms of each, timed in turns after warm-up.'''
+    t = _time_fns({'plain': plain_fn, 'kernel': kernel_fn})
+    return t['kernel'], t['plain']
+
+
+def _time_site(kernel_fn, plain_fn, library_fn=None):
+    '''(kernel ms, plain ms, library ms or None), timed in turns.'''
+    fns = {'plain': plain_fn, 'kernel': kernel_fn}
+    if library_fn is not None:
+        fns['library'] = library_fn
+    t = _time_fns(fns)
+    log(f'    kernel {t["kernel"]:.4f} ms  plain {t["plain"]:.4f} ms'
+        + (f'  library {t["library"]:.4f} ms' if library_fn else ''))
+    return t['kernel'], t['plain'], t.get('library')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, flops):
+    '''(ms, what bounds it): the least time the H100 could take to move
+    ``n_bytes`` and do ``flops`` f32 operations.'''
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _check_close(name, got, want, tol=KERNEL_TOL):
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     log(f'  {name:44s} max|diff| {err:.3e}  max|ref| {scale:.3e}')
-    if not err <= KERNEL_TOL * scale:
+    if not err <= tol * scale:
         raise AssertionError(f'{name}: kernel disagrees with its plain '
-                             f'version: {err} > {KERNEL_TOL} * {scale}')
+                             f'version: {err} > {tol} * {scale}')
     return err
 
 
-def record(results, name, err, ms, plain_ms):
-    '''Sum a site's times into its kernel's entry; keep the worst error.'''
-    acc = results.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
-                                        plain_ms=0.0, sites=0))
+def record(results, name, err, times, site_bound):
+    '''Sum a site's times (kernel, plain, library or None) and its bound
+    (ms, what bounds it) into its kernel's entry; keep the worst error. The
+    entry is bound by what bounds the larger share of its summed bound.'''
+    ms, plain_ms, library_ms = times
+    acc = results.setdefault(name, dict(
+        max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+        by={'bytes': 0.0, 'operations': 0.0}, sites=0))
     acc['max_abs_err'] = max(acc['max_abs_err'], err)
     acc['ms'] += ms
     acc['plain_ms'] += plain_ms
+    acc['library_ms'] = (None if library_ms is None or acc['library_ms'] is None
+                         else acc['library_ms'] + library_ms)
+    acc['bound_ms'] += site_bound[0]
+    acc['by'][site_bound[1]] += site_bound[0]
     acc['sites'] += 1
 
 
@@ -273,6 +358,7 @@ def kernel_sites(model, device, results):
     modules = dict(model.named_modules())
 
     log(f'kernels (B={BATCH}, {SIZE}x{SIZE} input):')
+    F = torch.nn.functional
     for path, _ in CHAIN_SITES:
         chain = modules[path + '.convchain']
         w1, b1 = chain.conv_0.weight, chain.conv_0.bias
@@ -285,10 +371,13 @@ def kernel_sites(model, device, results):
         name = (f'conv_chain {path} {w1.shape[1]}->{w1.shape[0]}->'
                 f'{w2.shape[0]} @{hw}')
         err = _check_close(name, got, want)
-        ms, plain_ms = _time_pair(lambda: CC.conv_chain(x, w1, b1, w2, b2),
-                                  lambda: CC.plain(x, w1, b1, w2, b2))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'conv_chain', err, ms, plain_ms)
+        times = _time_site(lambda: CC.conv_chain(x, w1, b1, w2, b2),
+                           lambda: CC.plain(x, w1, b1, w2, b2))
+        taps = w1.shape[2] * w1.shape[3]
+        flops = 2 * x[:, :1].numel() * taps * (w1.shape[0] * w1.shape[1]
+                                               + w2.shape[0] * w2.shape[1])
+        record(results, 'conv_chain', err, times,
+               bound(nbytes(x, w1, b1, w2, b2, got), flops))
     for path in TCONV_SITES:
         tconv = modules[path + '.tconv']
         w, b = tconv.weight, tconv.bias
@@ -298,10 +387,11 @@ def kernel_sites(model, device, results):
         got, want = TC.tconv2x2(x, w, b), TC.plain(x, w, b)
         err = _check_close(
             f'tconv2x2 {path} {w.shape[0]}->{w.shape[1]} @{hw}', got, want)
-        ms, plain_ms = _time_pair(lambda: TC.tconv2x2(x, w, b),
-                                  lambda: TC.plain(x, w, b))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'tconv2x2', err, ms, plain_ms)
+        times = _time_site(lambda: TC.tconv2x2(x, w, b),
+                           lambda: TC.plain(x, w, b),
+                           lambda: F.conv_transpose2d(x, w, b, stride=2))
+        record(results, 'tconv2x2', err, times,
+               bound(nbytes(x, w, b, got), 2 * got.numel() * w.shape[0]))
     head = modules['last_conv']
     w, b = head.weight, head.bias
     pads = ((0, 0), (0, 0))
@@ -310,10 +400,11 @@ def kernel_sites(model, device, results):
     got, want = SC.stencil_conv(x, w, b, pads), SC.plain(x, w, b, pads)
     err = _check_close(f'stencil_conv last_conv 1x1 {w.shape[1]}->1 @{SIZE}',
                        got, want)
-    ms, plain_ms = _time_pair(lambda: SC.stencil_conv(x, w, b, pads),
-                              lambda: SC.plain(x, w, b, pads))
-    log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-    record(results, 'stencil_conv', err, ms, plain_ms)
+    times = _time_site(lambda: SC.stencil_conv(x, w, b, pads),
+                       lambda: SC.plain(x, w, b, pads),
+                       lambda: F.conv2d(x, w, b))
+    record(results, 'stencil_conv', err, times,
+           bound(nbytes(x, w, b, got), 2 * got.numel() * w[0].numel()))
 
 
 # -- phase 3b ----------------------------------------------------------------
@@ -358,6 +449,7 @@ def backward_sites(model, device, results):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     modules = dict(model.named_modules())
+    conv_bwd = torch.ops.aten.convolution_backward
     b = TRAIN_BATCH
     log(f'backward kernels (B={b}, {SIZE}x{SIZE} crops):')
     for path, _ in CHAIN_SITES:
@@ -372,12 +464,17 @@ def backward_sites(model, device, results):
         args = (x, c1, c2, g, w1, w2, need_dx)
         name = (f'conv_chain_bwd {path} {w1.shape[1]}->{w1.shape[0]}->'
                 f'{w2.shape[0]} @{hw}')
-        err = _check_grads(name, CCB.conv_chain_bwd(*args), CCB.plain(*args),
+        got = CCB.conv_chain_bwd(*args)
+        err = _check_grads(name, got, CCB.plain(*args),
                            CCB.plain(*_f64(*args[:-1]), need_dx))
-        ms, plain_ms = _time_pair(lambda: CCB.conv_chain_bwd(*args),
-                                  lambda: CCB.plain(*args))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'conv_chain_bwd', err, ms, plain_ms)
+        times = _time_site(lambda: CCB.conv_chain_bwd(*args),
+                           lambda: CCB.plain(*args))
+        # dc1 and dw2 through conv_1, dw1 (and dx) through conv_0
+        pix = x[:, :1].numel() * w1.shape[2] * w1.shape[3]
+        flops = 2 * pix * (2 * w2.shape[0] * w2.shape[1]
+                           + (2 if need_dx else 1) * w1.shape[0] * w1.shape[1])
+        record(results, 'conv_chain_bwd', err, times,
+               bound(nbytes(*args[:6], *got), flops))
     for path in TCONV_SITES:
         w = modules[path + '.tconv'].weight
         hw = SIZE >> (3 - int(path[-1]))
@@ -385,24 +482,30 @@ def backward_sites(model, device, results):
         g = torch.randn((b, w.shape[1], 2 * hw, 2 * hw), generator=gen,
                         device=device)
         name = f'tconv2x2_bwd {path} {w.shape[0]}->{w.shape[1]} @{hw}'
-        err = _check_grads(name, TCB.tconv2x2_bwd(x, g, w), TCB.plain(x, g, w),
+        got = TCB.tconv2x2_bwd(x, g, w)
+        err = _check_grads(name, got, TCB.plain(x, g, w),
                            TCB.plain(*_f64(x, g, w)))
-        ms, plain_ms = _time_pair(lambda: TCB.tconv2x2_bwd(x, g, w),
-                                  lambda: TCB.plain(x, g, w))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'tconv2x2_bwd', err, ms, plain_ms)
+        times = _time_site(
+            lambda: TCB.tconv2x2_bwd(x, g, w), lambda: TCB.plain(x, g, w),
+            lambda: conv_bwd(g, x, w, [w.shape[1]], [2, 2], [0, 0], [1, 1],
+                             True, [0, 0], 1, [True, True, True]))
+        record(results, 'tconv2x2_bwd', err, times,
+               bound(nbytes(x, g, w, *got), 4 * g.numel() * w.shape[0]))
     w = modules['last_conv'].weight
     pads = ((0, 0), (0, 0))
     x = torch.rand((b, w.shape[1], SIZE, SIZE), generator=gen, device=device)
     g = torch.randn((b, 1, SIZE, SIZE), generator=gen, device=device)
     name = f'stencil_conv_bwd last_conv 1x1 {w.shape[1]}->1 @{SIZE}'
-    err = _check_grads(name, SCB.stencil_conv_bwd(x, g, w, pads),
-                       SCB.plain(x, g, w, pads),
+    got = SCB.stencil_conv_bwd(x, g, w, pads)
+    err = _check_grads(name, got, SCB.plain(x, g, w, pads),
                        SCB.plain(*_f64(x, g, w), pads))
-    ms, plain_ms = _time_pair(lambda: SCB.stencil_conv_bwd(x, g, w, pads),
-                              lambda: SCB.plain(x, g, w, pads))
-    log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-    record(results, 'stencil_conv_bwd', err, ms, plain_ms)
+    times = _time_site(
+        lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+        lambda: SCB.plain(x, g, w, pads),
+        lambda: conv_bwd(g, x, w, [w.shape[0]], [1, 1], [0, 0], [1, 1],
+                         False, [0, 0], 1, [True, True, True]))
+    record(results, 'stencil_conv_bwd', err, times,
+           bound(nbytes(x, g, w, *got), 4 * g.numel() * w[0].numel()))
 
     # the warp: a dense flow from a real bank, and a random one past +-d
     bank = augment.build_warp_bank(
@@ -424,10 +527,11 @@ def backward_sites(model, device, results):
         if not torch.equal(got, want):   # same rounded operations: exact
             raise AssertionError(f'warp_twopass ({label}) differs from its '
                                  f'plain version by {err}')
-        ms, plain_ms = _time_pair(lambda: WT.warp_twopass(image, flow, d),
-                                  lambda: WT.plain(image, flow, d))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'warp_twopass', err, ms, plain_ms)
+        times = _time_site(lambda: WT.warp_twopass(image, flow, d),
+                           lambda: WT.plain(image, flow, d))
+        # about 12 operations an output value (two clamped bilinear passes)
+        record(results, 'warp_twopass', err, times,
+               bound(nbytes(image, flow, got), 12 * got.numel()))
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -527,11 +631,13 @@ def plain_forward(model, x):
     return torch.sigmoid(plain_logits(model, x))
 
 
-def _check_maps(model, data_paths, out_dir, n_slices):
+def _check_maps(model, data_paths, out_dir, n_slices, reference=None):
     '''The predict CLI's maps: one file per slice, finite, in [0, 1], and
-    within MAP_TOL of the plain forward of ``model`` on the card.'''
+    within MAP_TOL of the plain forward of ``model`` on the card (or of
+    ``reference``, NHWC features -> probabilities).'''
     from dnncancerannotator_torch.data import pipeline
 
+    reference = reference or (lambda x: plain_forward(model, x))
     device = next(model.parameters()).device
     ds = pipeline.predict_ds(data_paths, output_size=(SIZE, SIZE),
                              batch_size=BATCH)
@@ -539,7 +645,7 @@ def _check_maps(model, data_paths, out_dir, n_slices):
     with torch.no_grad():
         for batch in ds.batches():
             x = torch.from_numpy(batch['slices']).to(device).float() / 255.0
-            ref = plain_forward(model, x[..., :5]).cpu().numpy()
+            ref = reference(x[..., :5]).cpu().numpy()
             for i, meta in enumerate(batch['meta']):
                 path = os.path.join(out_dir, *meta['path'].split('/')[-3:],
                                     f"{meta['sliceID']:02d}.npy")
@@ -609,16 +715,25 @@ TRAIN_SITES = {'conv_chain': 6, 'conv_chain_bwd': 6, 'tconv2x2': 3,
 
 
 @contextlib.contextmanager
+def _plain_versions(*modules):
+    '''Within the block each kernel module's wrapper (the function named as
+    the module) runs the module's plain version instead of the kernel.'''
+    saved = [(mod, mod.__name__.rsplit('.', 1)[-1]) for mod in modules]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, _ in saved:
+        setattr(mod, name, mod.plain)
+    try:
+        yield
+    finally:
+        for mod, name, kernel in saved:
+            setattr(mod, name, kernel)
+
+
 def _plain_warp():
     '''Within the block, the augmentation's resample runs its plain
     version instead of the kernel.'''
     from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
-    kernel = WT.warp_twopass
-    WT.warp_twopass = WT.plain
-    try:
-        yield
-    finally:
-        WT.warp_twopass = kernel
+    return _plain_versions(WT)
 
 
 def _step_grads(eng, ds, raw, draws, plain):
@@ -821,10 +936,10 @@ def cca_sites(eng, data_paths, results):
         if not torch.equal(got, want):
             raise AssertionError(f'cca ({name}) differs from its plain '
                                  f'version by {err}')
-        ms, plain_ms = _time_pair(lambda: K.cca_raw_labels(x),
-                                  lambda: K.plain(x))
-        log(f'    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms')
-        record(results, 'cca', float(err), ms, plain_ms)
+        times = _time_site(lambda: K.cca_raw_labels(x), lambda: K.plain(x))
+        # a few integer operations a pixel (runs, unions, flattening)
+        record(results, 'cca', float(err), times,
+               bound(nbytes(x, got), 4 * x.numel()))
 
 
 # -- phase 3d ----------------------------------------------------------------
@@ -1075,6 +1190,331 @@ def eval_slice(device, val_paths, train_paths, run):
     return launches
 
 
+# -- phase 3e ----------------------------------------------------------------
+def _big_config(gates_on=True):
+    '''The unet_big stack, with or without pallas_decoder.yaml.'''
+    from dnncancerannotator_torch.utils import config as config_lib
+    configs = BIG_CONFIGS if gates_on else BIG_CONFIGS[:-1]
+    return config_lib.load_config([os.path.join(REPO, c) for c in configs])
+
+
+def _nhwc_modules():
+    from dnncancerannotator_torch.ops.kernels import (
+        pool2x2_nhwc, pool2x2_nhwc_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd)
+    return pool2x2_nhwc, pool2x2_nhwc_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd
+
+
+@torch.no_grad()
+def big_kernel_sites(device, results):
+    '''The four NHWC kernels against their plain versions at their
+    unet_big sites, on the activations of a seeded unet_big forward.'''
+    from dnncancerannotator_torch import engine
+    PN, PNB, TN, TNB = _nhwc_modules()
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    eng = engine.Engine(_big_config(), seed=SEED, device=device)
+    eng.build((TRAIN_BATCH, SIZE, SIZE, 5))
+    modules = dict(eng.model.named_modules())
+    seen = {}
+    hooks = [modules[path + '.convchain'].register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, out))
+        for path in POOL_SITES]
+    hooks += [modules[path + '.tconv'].register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, args[0]))
+        for path in BIG_TCONV_SITES]
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    with eng.scope(training=True):
+        eng.model(torch.rand((TRAIN_BATCH, SIZE, SIZE, 5), generator=gen,
+                             device=device))
+    for hook in hooks:
+        hook.remove()
+
+    log(f'unet_big NHWC kernels (B={TRAIN_BATCH}, {SIZE}x{SIZE} input, '
+        'activations of a train-mode forward):')
+    for path in POOL_SITES:
+        x = seen[path].contiguous()
+        b, h, w, c = x.shape
+        got, want = PN.pool2x2_nhwc(x), PN.plain(x)
+        g = torch.randn(want.shape, generator=gen, device=device)
+        dx, dx_want = PNB.pool2x2_nhwc_bwd(x, g), PNB.plain(x, g)
+        torch.cuda.synchronize()
+        tied = float(((x.view(b, h // 2, 2, w // 2, 2, c)
+                       == want[:, :, None, :, None]).sum((2, 4)) > 1)
+                     .float().mean())
+        errs = []
+        for name, k, ref in (('pool2x2_nhwc', got, want),
+                             ('pool2x2_nhwc_bwd', dx, dx_want)):
+            errs.append(float((k - ref).abs().max()))
+            log(f'  {name} {path} {list(x.shape)} max|diff| {errs[-1]:.3e} '
+                f'(windows with a tie {tied:.3%})')
+            if not torch.equal(k, ref):   # maxima, g * {1, 0.5, 0.25}: exact
+                raise AssertionError(f'{name} at {path} differs from its '
+                                     f'plain version by {errs[-1]}')
+        times = _time_site(lambda: PN.pool2x2_nhwc(x), lambda: PN.plain(x),
+                           lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2))
+        record(results, 'pool2x2_nhwc', errs[0], times,
+               bound(nbytes(x, got), 3 * got.numel()))
+        # no library call: max_pool2d's backward sends a tie to one input
+        times = _time_site(lambda: PNB.pool2x2_nhwc_bwd(x, g),
+                           lambda: PNB.plain(x, g))
+        record(results, 'pool2x2_nhwc_bwd', errs[1], times,
+               bound(nbytes(x, g, dx), 12 * g.numel()))
+    for path in BIG_TCONV_SITES:
+        tconv = modules[path + '.tconv']
+        x, w, bias = seen[path].contiguous(), tconv.weight, tconv.bias
+        site = f'{path} {w.shape[0]}->{w.shape[1]} @{x.shape[1]}'
+        got = TN.tconv2x2_nhwc(x, w, bias)
+        err = _check_close(f'tconv2x2_nhwc {site}', got,
+                           TN.plain(x, w, bias), DX_TOL)
+        times = _time_site(
+            lambda: TN.tconv2x2_nhwc(x, w, bias),
+            lambda: TN.plain(x, w, bias),
+            lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), w, bias,
+                                       stride=2))
+        record(results, 'tconv2x2_nhwc', err, times,
+               bound(nbytes(x, w, bias, got), 2 * got.numel() * w.shape[0]))
+        g = torch.randn(got.shape, generator=gen, device=device)
+        grads = TNB.tconv2x2_nhwc_bwd(x, g, w)
+        err = _check_grads(f'tconv2x2_nhwc_bwd {site}', grads,
+                           TNB.plain(x, g, w), TNB.plain(*_f64(x, g, w)))
+        times = _time_site(
+            lambda: TNB.tconv2x2_nhwc_bwd(x, g, w),
+            lambda: TNB.plain(x, g, w),
+            lambda: conv_bwd(g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w,
+                             [w.shape[1]], [2, 2], [0, 0], [1, 1], True,
+                             [0, 0], 1, [True, True, True]))
+        record(results, 'tconv2x2_nhwc_bwd', err, times,
+               bound(nbytes(x, g, w, *grads), 4 * g.numel() * w.shape[0]))
+
+
+# -- phase 7 -----------------------------------------------------------------
+def _batch_stats(path):
+    with np.load(os.path.join(path, 'params.npz')) as npz:
+        return {k: npz[k] for k in npz.files if k.startswith('batch_stats/')}
+
+
+def _big_step(eng, ds, raw, draws, plain):
+    '''Loss, parameter gradients and updated BatchNorm statistics of one
+    train-mode step on ``raw`` with the given draws, through the kernels or
+    their plain versions; the statistics are put back after.'''
+    from dnncancerannotator_torch.data import augment
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+
+    start = {n: b.clone() for n, b in eng.model.named_buffers()}
+    with (_plain_versions(*_nhwc_modules(), WT) if plain
+          else contextlib.nullcontext()):
+        images = augment.apply_chain(ds.augment_methods, raw.float() / 255.0,
+                                     draws, eng._warp_bank(ds))
+        x, y = augment.to_feature_label(images, ds.slice_types)
+        eng.model.zero_grad(set_to_none=True)
+        with eng.scope(training=True):
+            logits = eng.model(x, return_logits=True)
+        loss = eng.loss(y, logits)
+        loss.backward()
+    grads = {n: p.grad.clone() for n, p in eng.model.named_parameters()}
+    stats = {}
+    for n, b in eng.model.named_buffers():
+        stats[n] = b.clone()
+        b.copy_(start[n])
+    return float(loss.detach()), grads, stats
+
+
+def _compare_step(got, want):
+    '''One step through the kernels against the plain step: the loss to
+    LOSS_TOL relative, each gradient to STEP_TOL and each statistic to
+    STATS_TOL of max|ref|. A bias right before a BatchNorm (the tconv
+    biases) has an exact gradient of 0, so both sides hold rounding noise
+    there: a bias is held on the scale of its layer's weight gradient.'''
+    (loss, grads, stats), (plain_loss, plain_grads, plain_stats) = got, want
+    log(f'one unet_big train step: loss {loss:.7f} kernels, {plain_loss:.7f} '
+        'plain')
+    if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
+        raise AssertionError(f'train-step loss {loss} vs plain {plain_loss}')
+    worst = {'grad': 0.0, 'stat': 0.0}
+    for kind, tol, ours, ref in (('grad', STEP_TOL, grads, plain_grads),
+                                 ('stat', STATS_TOL, stats, plain_stats)):
+        for name, w in ref.items():
+            layer = name.rsplit('.', 1)[0]
+            scale = max(float(w.abs().max()), float(
+                ref.get(layer + '.weight', w).abs().max()))
+            err = float((ours[name] - w).abs().max())
+            worst[kind] = max(worst[kind], err / scale)
+            if not err <= tol * scale:
+                raise AssertionError(f'{name}: {err} > {tol} * {scale} from '
+                                     'the plain train step')
+    log(f'  {len(grads)} parameter gradients within {worst["grad"]:.3e} and '
+        f'{len(stats)} BatchNorm statistics within {worst["stat"]:.3e} of '
+        'max|ref| of the plain step')
+
+
+def big_train_slice(device, data_paths):
+    '''Phase 7; returns the launch counts of the first train call and of
+    the predict call.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import augment, pipeline
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    overlay = os.path.join(WORK, 'big_steps_per_call.json')
+    with open(overlay, 'w') as fh:
+        json.dump({'deploy_options.steps_per_call': BIG_SAVE_FREQ}, fh)
+    save_path = os.path.join(WORK, 'big_run')
+    ckpt_dir = os.path.join(save_path, 'checkpoints')
+
+    def argv(configs, save, save_freq, steps):
+        return ['train', '--config', *[os.path.join(REPO, c) for c in configs],
+                overlay, '--save_path', save, '--data_path', *data_paths,
+                '--save_freq', str(save_freq), '--seed', str(SEED),
+                '--device', device.type, '--max_steps', str(steps)]
+
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = cli(argv=argv(BIG_CONFIGS, save_path, BIG_SAVE_FREQ, BIG_STEPS))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+    losses = res.history['loss']
+    log(f'unet_big train: {BIG_STEPS} steps of B={TRAIN_BATCH} in '
+        f'{seconds:.3f} s (host clock; bank solve, data load and checkpoints '
+        f'included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak device '
+        f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    log(f'launches during unet_big train: {launches}')
+    if res.epoch != list(range(1, BIG_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'train steps {res.epoch}, losses {losses}')
+    for name in NHWC_KERNELS:
+        if launches[name] < 3 * BIG_STEPS:
+            raise AssertionError(f'{name} launched {launches[name]} times, '
+                                 f'want >= 3 x {BIG_STEPS}')
+    if launches['warp_twopass'] < BIG_STEPS:
+        raise AssertionError('the warp kernel did not run every step')
+    for step in range(BIG_SAVE_FREQ, BIG_STEPS + 1, BIG_SAVE_FREQ):
+        path = os.path.join(ckpt_dir, f'ckpt-{step}')
+        with np.load(os.path.join(path, 'opt_state.npz')) as npz:
+            if any('batch_stats' in k for k in npz.files):
+                raise AssertionError('optimizer state for batch_stats')
+        stats = _batch_stats(path)
+        still = [k for k, v in stats.items()
+                 if np.array_equal(v, np.full_like(v, k.endswith('/var')))]
+        # mean and var of 24 BatchNorms: 4 levels x (bn_0, bn_1 and pool_bn
+        # down, tconv_bn, bn_0 and bn_1 up)
+        if len(stats) != 2 * 4 * 6 or still:
+            raise AssertionError(f'ckpt-{step}: {len(stats)} batch_stats, '
+                                 f'unmoved {still}')
+    last = BIG_STEPS + BIG_SAVE_FREQ
+    res = cli(argv=argv(BIG_CONFIGS, save_path, BIG_SAVE_FREQ, last))
+    if res.epoch != list(range(BIG_STEPS + 1, last + 1)):
+        raise AssertionError(f'the second train call ran steps {res.epoch}')
+    before, after = (_batch_stats(os.path.join(ckpt_dir, f'ckpt-{s}'))
+                     for s in (BIG_STEPS, last))
+    moved = sum(not np.array_equal(before[k], after[k]) for k in before)
+    log(f'unet_big train resumed at step {BIG_STEPS}: steps {res.epoch[0]}-'
+        f'{res.epoch[-1]}, loss {res.history["loss"][-1]:.4f}; '
+        f'{len(before)} batch_stats in each checkpoint, {moved} moved from '
+        f'ckpt-{BIG_STEPS} to ckpt-{last}')
+    if moved != len(before):
+        raise AssertionError('batch_stats did not move after the resume')
+
+    # predict from ckpt-30 against the plain forward in eval mode
+    config = config_lib.load_config(
+        os.path.join(save_path, 'options.yaml'))['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
+    eng._setup_training(ds)
+    eng.load(os.path.join(ckpt_dir, f'ckpt-{last}'))
+    out_dir = os.path.join(WORK, 'big_maps')
+    kernels.reset_launches()
+    count = cli(argv=['predict', '--save_path', save_path, '--data_path',
+                      *data_paths, '--output_path', out_dir, '--batch_size',
+                      str(BATCH), '--output_format', 'npy', '--device',
+                      device.type])
+    predict_launches = kernels.launch_counts()
+    log(f'predict from unet_big ckpt-{last}: {count} maps; launches '
+        f'{predict_launches}')
+    if min(predict_launches['pool2x2_nhwc'],
+           predict_launches['tconv2x2_nhwc']) < 3:
+        raise AssertionError('predict did not run the NHWC kernels')
+
+    def reference(x):
+        with _plain_versions(*_nhwc_modules()), eng.scope():
+            return eng.model(x)
+
+    _check_maps(eng.model, data_paths, out_dir,
+                sum(TRAIN_EXAMS) * TRAIN_SLICES, reference)
+
+    # one step: the kernels against a plain step, same batch and draws
+    resident = eng._resident(ds)
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    raw = eng.sample_batch(resident, TRAIN_BATCH, gen)
+    draws = augment.draw_chain(ds.augment_methods, TRAIN_BATCH, gen,
+                               eng._warp_bank(ds))
+    _compare_step(_big_step(eng, ds, raw, draws, plain=False),
+                  _big_step(eng, ds, raw, draws, plain=True))
+
+    # the stack without pallas_decoder.yaml: the NHWC kernels stay off
+    kernels.reset_launches()
+    cli(argv=argv(BIG_CONFIGS[:-1], os.path.join(WORK, 'big_run_off'), 2, 2))
+    off = kernels.launch_counts()
+    log(f'unet_big without pallas_decoder.yaml, 2 steps: launches {off}')
+    if any(off[name] for name in NHWC_KERNELS) or off['warp_twopass'] < 2:
+        raise AssertionError('a gate that is off launched a kernel')
+
+    # the train step's time, kernels vs plain (the same engine)
+    def plain_step():
+        with _plain_versions(*_nhwc_modules(), WT):
+            eng.train_step(raw, last, gen)
+
+    ms, plain_ms = _time_pair(lambda: eng.train_step(raw, last, gen),
+                              plain_step)
+    log(f'unet_big train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
+        f'{plain_ms:.4f} ms (CUDA events, median of {TIMED_RUNS})')
+
+    # where the step's device time goes: five steps under torch.profiler
+    steps = 5
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            eng.train_step(raw, last, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    busy_us = sum(e.self_device_time_total for e in device)
+    log(f'unet_big train step under torch.profiler: {wall * 1e3 / steps:.3f} '
+        f'ms a step, device busy {busy_us / 1e3 / steps:.3f} ms a step '
+        f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time); by kernel:')
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
+            f'{e.count // steps:4d}x  {e.key[:90]}')
+
+    # throughput: train calls that differ only in step count, min of three
+    short, long = 10, 40
+    eng.train(ds, max_steps=eng.current_step + 5, save_freq=1 << 30)
+    times = {}
+    for n in (short, long):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
+            torch.cuda.synchronize()
+            times.setdefault(n, []).append(time.perf_counter() - start)
+    rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
+                                           min(times[short]))
+    log(f'unet_big train throughput: {rate:.2f} slices/s ({short}-step calls '
+        f'{times[short]} s, {long}-step calls {times[long]} s; '
+        f'steps_per_call {BIG_SAVE_FREQ})')
+    return launches, predict_launches
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -1101,6 +1541,8 @@ def main():
             cca_sites(eng, data_paths, results)
         with phase('3d input sensitivity'):
             sensitivity_site(eng, data_paths)
+        with phase('3e unet_big kernels'):
+            big_kernel_sites(device, results)
         with phase('4 predict'):
             predict_launches = run_slice(eng, data_paths, save_path,
                                          os.path.join(WORK, 'maps'))
@@ -1109,12 +1551,18 @@ def main():
         with phase('6 evaluate'):
             eval_launches = eval_slice(device, data_paths, train_paths,
                                        train_run)
+        with phase('7 unet_big train'):
+            big_launches, big_predict = big_train_slice(device, train_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     # each kernel's launches in the run of its path: train for the seven of
-    # the train step, evaluate for the CCA
+    # the unet.yaml train step, evaluate for the CCA, the unet_big train and
+    # predict for the four NHWC kernels
     launches['cca'] = eval_launches['cca']
+    for name in NHWC_KERNELS:
+        launches[name] = big_launches[name]
+        predict_launches[name] = big_predict[name]
     csrc = 'dnncancerannotator_torch/csrc/'
     kernels_line = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': f'{csrc}{name}.cu',
@@ -1123,7 +1571,9 @@ def main():
          'predict_launches': predict_launches[name],
          'eval_launches': eval_launches[name],
          'max_abs_err': acc['max_abs_err'], 'ms': acc['ms'],
-         'plain_ms': acc['plain_ms'], 'sites': acc['sites']}
+         'plain_ms': acc['plain_ms'], 'bound_ms': acc['bound_ms'],
+         'bound_by': max(acc['by'], key=acc['by'].get),
+         'library_ms': acc['library_ms'], 'sites': acc['sites']}
         for name, acc in results.items()]}
     log(json.dumps(kernels_line))
     log(smi)

@@ -14,14 +14,24 @@ Layouts:
   takes k[kh-1-dy, kw-1-dx]) <-> PyTorch ConvTranspose2d [Ci, Co, kh, kw],
   applied unflipped (phase (dy, dx) takes w[:, :, dy, dx]). So the flip
   happens here, once: w = k[::-1, ::-1].transpose(2, 3, 0, 1);
-- biases are the same vector in both.
+- biases are the same vector in both; so are BatchNorm's ``scale`` and
+  ``bias`` (flax ``params``) and its running ``mean`` and ``var`` (flax
+  ``batch_stats``, buffers in the port).
 
-A PyTorch state_dict key is the flax path without ``params/``, with dots,
-and ``weight`` for ``kernel``.
+A PyTorch state_dict key is the flax path without its collection
+(``params/`` or ``batch_stats/``), with dots, and ``weight`` for
+``kernel``.
 '''
 
 import numpy as np
 import torch
+
+
+# the leaves of each flax collection the port carries
+_LEAVES = {'params': ('kernel', 'bias', 'scale'),
+           'batch_stats': ('mean', 'var')}
+_COLLECTION = {leaf: col for col, leaves in _LEAVES.items()
+               for leaf in leaves}
 
 
 def _is_tconv(module_path):
@@ -32,15 +42,15 @@ def torch_state_from_flax(flat, expected=None):
     '''Convert a flat flax-keyed dict into a PyTorch state_dict.
 
     Every leaf is consumed exactly once. Keys that are not
-    ``params/.../kernel`` or ``params/.../bias`` raise KeyError. With
-    ``expected`` (a model's state_dict), keys missing from ``flat``, keys
-    the model does not have, and shape mismatches raise too.
+    ``params/.../{kernel,bias,scale}`` or ``batch_stats/.../{mean,var}``
+    raise KeyError. With ``expected`` (a model's state_dict, or its
+    parameters alone), keys missing from ``flat``, keys the model does not
+    have, and shape mismatches raise too.
     '''
     state = {}
     for key, value in flat.items():
         parts = key.split('/')
-        if len(parts) < 3 or parts[0] != 'params' or \
-                parts[-1] not in ('kernel', 'bias'):
+        if len(parts) < 3 or parts[-1] not in _LEAVES.get(parts[0], ()):
             raise KeyError(f'unknown checkpoint key {key!r}')
         module_path, leaf = parts[1:-1], parts[-1]
         arr = np.asarray(value, np.float32)
@@ -82,8 +92,8 @@ def flax_from_torch_state(state):
             else:
                 arr = arr.transpose(2, 3, 1, 0)
             leaf = 'kernel'
-        elif leaf != 'bias':
+        elif leaf not in _COLLECTION:
             raise KeyError(f'unknown state_dict key {name!r}')
-        flat['/'.join(['params', *module_path, leaf])] = \
+        flat['/'.join([_COLLECTION[leaf], *module_path, leaf])] = \
             np.ascontiguousarray(arr)
     return flat

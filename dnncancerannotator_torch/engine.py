@@ -22,6 +22,10 @@ Training (``train``) follows the JAX engine's device-resident path:
   when ``val_loss`` has not improved for ``early_stop_steps`` steps;
 - the logs go to ``save_path/tfevents/train`` as scalars; a new ``train``
   call resumes from the newest checkpoint.
+The kernel gates come from ``deploy_options`` (ops/gates.py) and are in
+scope wherever the Engine runs its model (``Engine.scope``): in training
+mode for the train step, in eval mode (BatchNorm on its running statistics)
+for validation, evaluation, prediction and the Visualizer.
 The warp bank is solved once per Engine. The sampler and the augmentation
 draw from device generators reseeded at every step from (seed, step), so a
 resumed run draws what an unbroken one would. Not ported yet (they raise or
@@ -33,13 +37,16 @@ every checkpoint of a run, and writes ``results.csv`` and
 ``casewise_results.csv``.
 
 A checkpoint directory holds ``params.npz`` (the flax parameter paths with
-HWIO kernels, convert.py) and, once trained, ``opt_state.npz``: the
-optimizer's moments under optax's names by flax path (``mu/<path>``,
+HWIO kernels, and a BatchNorm model's ``batch_stats/...`` running
+statistics, convert.py) and, once trained, ``opt_state.npz``: the
+optimizer's moments under optax's names by flax parameter path
+(``mu/<path>``,
 ``nu/<path>`` for Adam, ``trace/<path>`` for SGD momentum) in the same
 layout, and ``step``. numpy reads both without JAX; reading the JAX
 package's Orbax checkpoints is not ported yet.
 '''
 
+import contextlib
 import copy
 import logging
 import math
@@ -56,6 +63,7 @@ from . import convert
 from . import metrics as metrics_lib
 from . import models as models_lib
 from .data import augment as augment_mod
+from .ops import gates as gates_lib
 from .train import losses as losses_lib
 from .train import optimizers as optimizers_lib
 from .train import schedules as schedules_lib
@@ -138,6 +146,7 @@ class Engine:
         self.metric_specs = deploy.get('metrics') or []
         self.max_checkpoints_to_keep = deploy.get('max_checkpoints_to_keep')
         self.warp_bank_size = int(deploy.get('warp_bank_size', 512))
+        self.gates = gates_lib.KernelGates.from_deploy_options(deploy)
         self.model_name = model_config['model']
         self.device = resolve_device(device)
         self.model = None
@@ -159,6 +168,24 @@ class Engine:
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info('Initialized %s: %d params on %s', self.model_name,
                     n_params, self.device)
+
+    def gate(self, name):
+        '''This Engine's kernel gate ``name`` (env override first).'''
+        with gates_lib.active(self.gates):
+            return gates_lib.enabled(name)
+
+    @contextlib.contextmanager
+    def scope(self, training=False):
+        '''Within the block the model is in training (or eval) mode and
+        reads this Engine's kernel gates; its previous mode comes back
+        after.'''
+        was_training = self.model.training
+        self.model.train(training)
+        try:
+            with gates_lib.active(self.gates):
+                yield
+        finally:
+            self.model.train(was_training)
 
     # -- checkpointing ---------------------------------------------------
     def get_ckpts(self, base_path):
@@ -215,6 +242,7 @@ class Engine:
 
     def _load_opt_state(self, path):
         params = dict(self.model.named_parameters())
+        expected = {name: p.detach() for name, p in params.items()}
         with np.load(path) as npz:
             flat = {key: npz[key] for key in npz.files}
         step = float(flat.pop('step'))
@@ -223,8 +251,7 @@ class Engine:
                      if k.split('/', 1)[0] == optax_name}
             if not group:
                 continue
-            state = convert.torch_state_from_flax(
-                group, expected=self.model.state_dict())
+            state = convert.torch_state_from_flax(group, expected=expected)
             for name, value in state.items():
                 entry = self.optimizer.state[params[name]]
                 entry[key] = value.to(self.device)
@@ -262,7 +289,7 @@ class Engine:
         chain for ``dataset``; raises for what the port does not run.'''
         deploy = self.model_config['deploy_options']
         unported = [name for name, on in (
-            ('fused_aug', deploy.get('fused_aug')),
+            ('fused_aug', self.gate('fused_aug')),
             ('kernel_regularizer',
              self.model_config['model_options'].get('kernel_regularizer')))
             if on]
@@ -270,7 +297,6 @@ class Engine:
             raise NotImplementedError(
                 f'{", ".join(unported)} {_NOT_PORTED}')
         self.build(dataset.feature_shape)
-        self.model.train()
         self._solve_loss()
         if self.optimizer is None:
             self.optimizer, self.schedule = optimizers_lib.solve_optimizer(
@@ -291,16 +317,16 @@ class Engine:
         return [metrics_lib.solve_metric(s) for s in self.metric_specs]
 
     def _warp_bank(self, dataset):
-        '''The warp bank (solved once per Engine and chain) when
-        ``deploy_options.warp_bank`` is on (the default) and the chain crops
+        '''The warp bank (solved once per Engine and chain) when the
+        ``warp_bank`` gate is on (the default) and the chain crops
         before a two-pass warp, else None.'''
         methods = dataset.augment_methods
         key = repr(methods)
         if key not in self._bank_cache:
             bank = None
             names = [n for n, _ in methods]
-            if (self.model_config['deploy_options'].get('warp_bank', True)
-                    and 'random_warp' in names and 'random_crop' in names
+            if (self.gate('warp_bank') and 'random_warp' in names
+                    and 'random_crop' in names
                     and names.index('random_crop') < names.index(
                         'random_warp')):
                 crop_o = methods[names.index('random_crop')][1]
@@ -357,7 +383,8 @@ class Engine:
         for group in self.optimizer.param_groups:
             group['lr'] = self.schedule(step)
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(x, return_logits=True)
+        with self.scope(training=True):
+            logits = self.model(x, return_logits=True)
         loss = self.loss(y, logits)
         loss.backward()
         self.optimizer.step()
@@ -484,7 +511,8 @@ class Engine:
             images = torch.from_numpy(np.asarray(raw_batch)).to(device)
             images = images.to(torch.float32) / 255.0
             x, y = augment_mod.to_feature_label(images, slice_types)
-            logits = model(x, return_logits=True)
+            with self.scope():
+                logits = model(x, return_logits=True)
             return loss.per_sample(y, logits), torch.sigmoid(logits), y
 
         return step

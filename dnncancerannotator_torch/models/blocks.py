@@ -1,19 +1,22 @@
-'''U-Net building blocks, NCHW (counterpart of
+'''U-Net building blocks, NCHW or NHWC (counterpart of
 dnncancerannotator_tpu.models.blocks). Gradients flow through the kernels'
-autograd Functions (ops/functions.py); the pool, the skip crop and concat
-are plain autograd.
+autograd Functions (ops/functions.py); the skip crop and concat are plain
+autograd.
 
-- ``Downsample``: conv chain -> (skip, max-pooled);
-- ``Upsample``: 2x2 tconv -> center-crop the skip to the upsampled size ->
-  channel concat ``[up, skip]`` -> conv chain;
+- ``ConvChain``: ``n_conv`` convs, each ``conv -> relu [-> bn_i]``;
+- ``Downsample``: conv chain -> (skip, max-pooled [-> pool_bn]);
+- ``Upsample``: 2x2 tconv [-> tconv_bn] -> center-crop the skip to the
+  upsampled size -> ``[up, skip]`` (a channel concat in NCHW, a tuple the
+  first conv takes part by part in NHWC) -> conv chain;
 - ``Encoder``: ``n_downsample`` Downsample blocks, filters scaled by
   ``rate`` per level (``int(rate * filters)``);
 - ``Decoder``: Upsample blocks over the reversed skips, each with the skip's
   channel count as its filters.
 
 Submodules carry the flax names (``down_0``, ``convchain``, ``conv_0``,
-``tconv``, ...) so a state_dict key is the flax parameter path with dots.
-BatchNorm is not ported yet.
+``bn_0``, ``pool_bn``, ``tconv``, ``tconv_bn``, ...) so a state_dict key is
+the flax parameter path with dots. BatchNorm (models/fastbn.py) normalizes
+the last axis, so a BN model runs NHWC, as in the JAX package.
 '''
 
 import collections.abc
@@ -24,9 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import functions, pooling
-from . import fastconv
-
-_BN_NOT_PORTED = 'BatchNorm is not ported yet (ROADMAP.md queue 2)'
+from . import fastbn, fastconv
 
 
 def solve_activation(identifier):
@@ -67,28 +68,35 @@ def solve_activation(identifier):
     raise ValueError(f'Failed to resolve activation: {identifier}')
 
 
-def center_crop_to(x, target_h, target_w):
-    '''Center-crop an NCHW tensor spatially to (target_h, target_w).'''
-    h, w = x.shape[2], x.shape[3]
-    top = (h - target_h) // 2
-    left = (w - target_w) // 2
-    return x[:, :, top:top + target_h, left:left + target_w]
+def center_crop_to(x, target_h, target_w, data_format='NCHW'):
+    '''Center-crop a batched image tensor spatially to (target_h,
+    target_w).'''
+    ay, ax = (2, 3) if data_format == 'NCHW' else (1, 2)
+    top = (x.shape[ay] - target_h) // 2
+    left = (x.shape[ax] - target_w) // 2
+    if data_format == 'NCHW':
+        return x[:, :, top:top + target_h, left:left + target_w]
+    return x[:, top:top + target_h, left:left + target_w]
+
+
+def _bn(bn, features):
+    return fastbn.BatchNormFast(features) if bn else None
 
 
 class ConvChain(nn.Module):
-    '''``n_conv`` stacked convs. A relu chain of two stride-1 SAME convs
+    '''``n_conv`` stacked convs, each followed by its BatchNorm ``bn_i``
+    when ``bn``. A relu chain of two stride-1 SAME convs without BN in NCHW
     runs whole as one conv_chain kernel; otherwise each conv runs on its
     own. The parameters are the same either way.'''
 
     def __init__(self, in_channels, filters, kernel_size, conv_stride, bn,
                  n_conv=2, padding='VALID', activation='relu',
-                 generator=None):
+                 data_format='NCHW', generator=None):
         super().__init__()
-        if bn:
-            raise NotImplementedError(_BN_NOT_PORTED)
         self.fuse_relu = activation in ('relu', 'ReLU')
         self.act = None if self.fuse_relu else solve_activation(activation)
-        self.fused = (self.fuse_relu and n_conv == 2 and conv_stride == 1
+        self.fused = (self.fuse_relu and not bn and n_conv == 2
+                      and conv_stride == 1 and data_format == 'NCHW'
                       and fastconv.chain_ok(in_channels, filters,
                                             kernel_size, padding))
         ci = in_channels
@@ -97,9 +105,12 @@ class ConvChain(nn.Module):
                 ci, filters, (kernel_size, kernel_size),
                 strides=(conv_stride, conv_stride), padding=padding,
                 activation='relu' if self.fuse_relu else None,
-                generator=generator))
+                data_format=data_format, generator=generator))
+            if bn:
+                self.add_module(f'bn_{i}', _bn(bn, filters))
             ci = filters
         self.n_conv = n_conv
+        self.bn = bn
 
     def forward(self, x):
         if self.fused:
@@ -110,49 +121,62 @@ class ConvChain(nn.Module):
             x = getattr(self, f'conv_{i}')(x)
             if self.act is not None:
                 x = self.act(x)
+            if self.bn:
+                x = getattr(self, f'bn_{i}')(x)
         return x
 
 
 class Downsample(nn.Module):
-    '''Downsampling block: conv chain -> (skip, max-pooled).'''
+    '''Downsampling block: conv chain -> (skip, max-pooled [-> pool_bn]).'''
 
     def __init__(self, in_channels, filters, rate, kernel_size, conv_stride,
                  bn, n_conv=2, padding='VALID', activation='relu',
-                 generator=None):
+                 data_format='NCHW', generator=None):
         super().__init__()
         self.rate = rate
+        self.data_format = data_format
         self.convchain = ConvChain(
             in_channels, filters, kernel_size, conv_stride, bn,
             n_conv=n_conv, padding=padding, activation=activation,
-            generator=generator)
+            data_format=data_format, generator=generator)
+        self.pool_bn = _bn(bn, filters)
 
     def forward(self, x):
         conv = self.convchain(x)
-        return conv, pooling.max_pool2d(conv, self.rate)
+        pooled = pooling.max_pool2d(conv, self.rate, self.data_format)
+        if self.pool_bn is not None:
+            pooled = self.pool_bn(pooled)
+        return conv, pooled
 
 
 class Upsample(nn.Module):
-    '''Upsampling block: tconv -> center-crop skip -> concat -> conv chain.'''
+    '''Upsampling block: tconv [-> tconv_bn] -> center-crop skip ->
+    [up, skip] -> conv chain.'''
 
     def __init__(self, in_channels, filters, rate, kernel_size, conv_stride,
                  bn, n_conv=2, padding='VALID', activation='relu',
-                 generator=None):
+                 data_format='NCHW', generator=None):
         super().__init__()
-        if bn:
-            raise NotImplementedError(_BN_NOT_PORTED)
+        self.data_format = data_format
         self.tconv = fastconv.ConvTranspose2DFast(
             in_channels, filters, (rate, rate), (rate, rate),
-            generator=generator)
+            data_format=data_format, generator=generator)
+        self.tconv_bn = _bn(bn, filters)
         # the chain sees [up, skip]: the up channels come first
         self.convchain = ConvChain(
             2 * filters, filters, kernel_size, conv_stride, bn,
             n_conv=n_conv, padding=padding, activation=activation,
-            generator=generator)
+            data_format=data_format, generator=generator)
 
     def forward(self, x, reference):
         up = self.tconv(x)
-        cropped = center_crop_to(reference, up.shape[2], up.shape[3])
-        return self.convchain(torch.cat([up, cropped], dim=1))
+        if self.tconv_bn is not None:
+            up = self.tconv_bn(up)
+        if self.data_format == 'NCHW':
+            cropped = center_crop_to(reference, up.shape[2], up.shape[3])
+            return self.convchain(torch.cat([up, cropped], dim=1))
+        cropped = center_crop_to(reference, up.shape[1], up.shape[2], 'NHWC')
+        return self.convchain((up, cropped))
 
 
 class Encoder(nn.Module):
@@ -160,7 +184,7 @@ class Encoder(nn.Module):
 
     def __init__(self, in_channels, filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn, n_conv=2, padding='VALID',
-                 activation='relu', generator=None):
+                 activation='relu', data_format='NCHW', generator=None):
         super().__init__()
         self.n_downsample = n_downsample
         self.skip_channels = []
@@ -169,7 +193,7 @@ class Encoder(nn.Module):
             self.add_module(f'down_{i}', Downsample(
                 ci, filters, rate, kernel_size, conv_stride, bn,
                 n_conv=n_conv, padding=padding, activation=activation,
-                generator=generator))
+                data_format=data_format, generator=generator))
             self.skip_channels.append(filters)
             ci = filters
             filters = int(rate * filters)
@@ -187,7 +211,7 @@ class Decoder(nn.Module):
 
     def __init__(self, in_channels, skip_channels, rate, kernel_size,
                  conv_stride, bn, n_conv=2, padding='VALID',
-                 activation='relu', generator=None):
+                 activation='relu', data_format='NCHW', generator=None):
         super().__init__()
         self.n_up = len(skip_channels)
         ci = in_channels
@@ -195,7 +219,7 @@ class Decoder(nn.Module):
             self.add_module(f'up_{i}', Upsample(
                 ci, filters, rate, kernel_size, conv_stride, bn,
                 n_conv=n_conv, padding=padding, activation=activation,
-                generator=generator))
+                data_format=data_format, generator=generator))
             ci = filters
 
     def forward(self, x, skips):

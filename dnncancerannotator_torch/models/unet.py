@@ -1,9 +1,11 @@
 '''UNet annotator (counterpart of dnncancerannotator_tpu.models.unet),
 differentiable through the kernels' autograd Functions.
 
-``UNetAnnotator`` takes NHWC input like the JAX model, runs the U-Net body
-and its 1x1 logits head channel-major (NCHW, the layout the JAX model picks
-when BatchNorm is off), and returns [B, H, W, 1] logits or probabilities.
+``UNetAnnotator`` takes NHWC input like the JAX model and returns
+[B, H, W, 1] logits or probabilities. Its ``data_format='auto'`` picks the
+JAX model's layout (unet.py:132-135): channel-major NCHW for the body and
+the 1x1 logits head when BatchNorm is off, NHWC with BatchNorm (which
+normalizes the last axis).
 '''
 
 import torch
@@ -13,15 +15,16 @@ from . import blocks, fastconv
 
 
 class UNet(nn.Module):
-    '''Plain U-Net body (no head), NCHW.'''
+    '''Plain U-Net body (no head), NCHW or NHWC.'''
 
     def __init__(self, in_channels, filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn=False, padding='valid',
-                 activation='relu', generator=None):
+                 activation='relu', data_format='NCHW', generator=None):
         super().__init__()
         common = dict(rate=rate, kernel_size=kernel_size,
                       conv_stride=conv_stride, bn=bn, padding=padding,
-                      activation=activation, generator=generator)
+                      activation=activation, data_format=data_format,
+                      generator=generator)
         self.encoder = blocks.Encoder(in_channels, filters_first,
                                       n_downsample, **common)
         skips = self.encoder.skip_channels
@@ -36,9 +39,10 @@ class UNet(nn.Module):
 class UNetAnnotator(nn.Module):
     '''U-Net + 1x1 conv head -> [B, H, W, 1] probabilities (or logits).
 
-    Accepts the JAX model's options. f32 only: ``dtype`` bfloat16 and
-    BatchNorm are not ported yet; ``f32_head``/``f32_level0`` are no-ops
-    under f32, as they are in the JAX model.
+    Accepts the JAX model's options. f32 only: ``dtype`` bfloat16 is not
+    ported yet; ``f32_head``/``f32_level0`` are no-ops under f32, as they
+    are in the JAX model. ``train()`` / ``eval()`` select the BatchNorm
+    batch or running statistics (the JAX model's ``training``).
     '''
 
     def __init__(self, in_channels, n_filters_first, n_downsample, rate,
@@ -52,19 +56,29 @@ class UNetAnnotator(nn.Module):
             raise NotImplementedError(
                 f'dtype {dtype}: bf16 compute is not ported yet '
                 '(ROADMAP.md queue 2)')
-        if data_format not in ('auto', 'NCHW'):
-            raise NotImplementedError(
-                f'data_format {data_format}: the port runs NCHW only')
+        if data_format == 'auto':
+            data_format = 'NHWC' if bn else 'NCHW'
+        if data_format not in ('NCHW', 'NHWC'):
+            raise ValueError(f'data_format must be auto, NCHW or NHWC, got '
+                             f'{data_format!r}')
+        if bn and data_format != 'NHWC':
+            raise ValueError('BatchNorm models run NHWC (BatchNorm normalizes '
+                             'the last axis)')
+        self.data_format = data_format
         self.unet = UNet(in_channels, n_filters_first, n_downsample, rate,
                          kernel_size, conv_stride, bn=bn, padding=padding,
-                         activation=activation, generator=generator)
+                         activation=activation, data_format=data_format,
+                         generator=generator)
         self.last_conv = fastconv.Conv2DFast(
             self.unet.out_channels, 1, (1, 1), padding=padding,
-            generator=generator)
+            data_format=data_format, generator=generator)
 
     def forward(self, x, return_logits=False):
-        x = x.permute(0, 3, 1, 2).contiguous()
-        logits = self.last_conv(self.unet(x)).permute(0, 2, 3, 1)
+        if self.data_format == 'NHWC':
+            logits = self.last_conv(self.unet(x))
+        else:
+            x = x.permute(0, 3, 1, 2).contiguous()
+            logits = self.last_conv(self.unet(x)).permute(0, 2, 3, 1)
         if return_logits:
             return logits
         return torch.sigmoid(logits)

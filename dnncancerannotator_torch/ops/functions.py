@@ -14,10 +14,14 @@ import torch
 
 from .kernels import conv_chain as chain_mod
 from .kernels import conv_chain_bwd as chain_bwd_mod
+from .kernels import pool2x2_nhwc as pool_mod
+from .kernels import pool2x2_nhwc_bwd as pool_bwd_mod
 from .kernels import stencil_conv as stencil_mod
 from .kernels import stencil_conv_bwd as stencil_bwd_mod
 from .kernels import tconv2x2 as tconv_mod
 from .kernels import tconv2x2_bwd as tconv_bwd_mod
+from .kernels import tconv2x2_nhwc as tconv_nhwc_mod
+from .kernels import tconv2x2_nhwc_bwd as tconv_nhwc_bwd_mod
 
 
 def _recording(*tensors):
@@ -57,6 +61,35 @@ class TConv2x2Fn(torch.autograd.Function):
                                           need_dx=ctx.needs_input_grad[0])
 
 
+class Pool2x2NHWCFn(torch.autograd.Function):
+    '''2x2 / stride-2 max pool, NHWC, with the JAX tie rule backward.'''
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return pool_mod.pool2x2_nhwc(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return pool_bwd_mod.pool2x2_nhwc_bwd(x, g.contiguous())
+
+
+class TConv2x2NHWCFn(torch.autograd.Function):
+    '''ConvTranspose(kernel=2, stride=2) + bias, NHWC, w [Ci, Co, 2, 2].'''
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return tconv_nhwc_mod.tconv2x2_nhwc(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return tconv_nhwc_bwd_mod.tconv2x2_nhwc_bwd(
+            x, g.contiguous(), w, need_dx=ctx.needs_input_grad[0])
+
+
 class StencilConvFn(torch.autograd.Function):
     '''Stride-1 conv with explicit pads, bias and an optional fused relu;
     with the relu, the backward masks g by the saved output first.'''
@@ -94,3 +127,15 @@ def stencil_conv(x, w, b, pads, relu=False):
     if _recording(x, w, b):
         return StencilConvFn.apply(x, w, b, pads, relu)
     return stencil_mod.stencil_conv(x, w, b, pads, relu)
+
+
+def pool2x2_nhwc(x):
+    if _recording(x):
+        return Pool2x2NHWCFn.apply(x)
+    return pool_mod.pool2x2_nhwc(x)
+
+
+def tconv2x2_nhwc(x, w, b):
+    if _recording(x, w, b):
+        return TConv2x2NHWCFn.apply(x, w, b)
+    return tconv_nhwc_mod.tconv2x2_nhwc(x, w, b)

@@ -98,12 +98,13 @@ class Visualizer:
         images = torch.from_numpy(np.asarray(raw)).to(engine.device)
         x, y = augment_mod.to_feature_label(images.float() / 255.0,
                                             self.data.slice_types)
-        if self.show_sensitivity:
-            probs, sens = input_sensitivity(engine.model, x)
-        else:
-            with torch.no_grad():
-                probs = engine.model(x)
-            sens = torch.zeros(x.shape[0], x.shape[-1])
+        with engine.scope():
+            if self.show_sensitivity:
+                probs, sens = input_sensitivity(engine.model, x)
+            else:
+                with torch.no_grad():
+                    probs = engine.model(x)
+                sens = torch.zeros(x.shape[0], x.shape[-1])
         return x, y, probs, sens
 
     def on_step(self, engine, step):

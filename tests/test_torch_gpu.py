@@ -16,10 +16,14 @@ from dnncancerannotator_torch.ops import kernels
 from dnncancerannotator_torch.ops.kernels import cca as CCA
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
 from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
+from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc as PN
+from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc_bwd as PNB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
 from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
+from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc_bwd as TNB
 from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 pytestmark = pytest.mark.gpu
@@ -177,6 +181,40 @@ def test_cca_kernel(cuda, case):
     torch.cuda.synchronize()
     # integer labels, the same fixed point whatever order the atomics take
     assert torch.equal(got, CCA.plain(masks))
+
+
+@pytest.mark.parametrize('b,h,w,c,ties', [
+    (2, 16, 16, 128, False), (1, 6, 10, 256, True), (2, 4, 8, 4, True)])
+def test_pool2x2_nhwc_kernels(cuda, b, h, w, c, ties):
+    gen = torch.Generator().manual_seed(8)
+    x = _rand(gen, b, h, w, c)
+    if ties:   # relu zeros and a tied plane
+        x = x.clamp(min=0)
+        x[0, :, :, 0] = 0.5
+    g = _rand(gen, b, h // 2, w // 2, c)
+    before = (PN.launches, PNB.launches)
+    got, dx = PN.pool2x2_nhwc(x), PNB.pool2x2_nhwc_bwd(x, g)
+    assert (PN.launches, PNB.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    # maxima and g * {1, 0.5, 0.25}: bit for bit
+    assert torch.equal(got, PN.plain(x))
+    assert torch.equal(dx, PNB.plain(x, g))
+
+
+@pytest.mark.parametrize('b,h,w,ci,co,need_dx', [
+    (2, 8, 8, 128, 128, True),
+    (1, 3, 5, 256, 128, True),    # a ragged last row tile
+    (2, 4, 4, 128, 256, False),
+    (1, 33, 7, 128, 128, True),   # several wgrad chunks, ragged
+])
+def test_tconv2x2_nhwc_kernels(cuda, b, h, w, ci, co, need_dx):
+    gen = torch.Generator().manual_seed(9)
+    x, wk, bias = _rand(gen, b, h, w, ci), _rand(gen, ci, co, 2, 2), \
+        _rand(gen, co)
+    g = _rand(gen, b, 2 * h, 2 * w, co)
+    _assert_close(TN.tconv2x2_nhwc(x, wk, bias), TN.plain(x, wk, bias))
+    _assert_grads(TNB.tconv2x2_nhwc_bwd(x, g, wk, need_dx),
+                  TNB.plain(x, g, wk, need_dx))
 
 
 def test_wrappers_reject_non_contiguous_and_f64(cuda):

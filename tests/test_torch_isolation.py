@@ -16,10 +16,12 @@ from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import metrics
 from dnncancerannotator_torch.data import augment, pipeline
 from dnncancerannotator_torch.metrics import pixel, region
-from dnncancerannotator_torch.ops import (cca, functions, image, morphology,
-                                          pooling, warp)
+from dnncancerannotator_torch.models import fastbn
+from dnncancerannotator_torch.ops import (cca, functions, gates, image,
+                                          morphology, pooling, warp)
 from dnncancerannotator_torch.ops.kernels import (
-    conv_chain_bwd, stencil_conv_bwd, tconv2x2_bwd, warp_twopass)
+    conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd, stencil_conv_bwd,
+    tconv2x2_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_twopass)
 from dnncancerannotator_torch.runs import evaluate, predict, train
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules

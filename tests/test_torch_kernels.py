@@ -17,10 +17,14 @@ from dnncancerannotator_torch.ops import kernels
 from dnncancerannotator_torch.ops.kernels import cca as CCA
 from dnncancerannotator_torch.ops.kernels import conv_chain as CC
 from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
+from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc as PN
+from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc_bwd as PNB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
 from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
+from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc_bwd as TNB
 from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 _REL_TOL = 2e-5
@@ -150,10 +154,15 @@ def test_cpu_tensors_launch_no_kernel():
                          ((0, 0), (0, 0)))
     WT.warp_twopass(torch.rand(1, 8, 8, 6), torch.rand(1, 8, 8, 2))
     CCA.cca_raw_labels(torch.rand(2, 8, 8) > 0.5)
+    xn = torch.rand(1, 4, 4, 128)
+    PNB.pool2x2_nhwc_bwd(xn, PN.pool2x2_nhwc(xn))
+    wn = torch.rand(128, 128, 2, 2)
+    TNB.tconv2x2_nhwc_bwd(xn, TN.tconv2x2_nhwc(xn, wn, torch.rand(128)), wn)
     assert kernels.launch_counts() == {
         'conv_chain': 0, 'conv_chain_bwd': 0, 'tconv2x2': 0,
         'tconv2x2_bwd': 0, 'stencil_conv': 0, 'stencil_conv_bwd': 0,
-        'warp_twopass': 0, 'cca': 0}
+        'warp_twopass': 0, 'cca': 0, 'pool2x2_nhwc': 0,
+        'pool2x2_nhwc_bwd': 0, 'tconv2x2_nhwc': 0, 'tconv2x2_nhwc_bwd': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():

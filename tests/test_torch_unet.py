@@ -134,6 +134,7 @@ def test_unported_models_raise():
     for name in ('MulmoUNetAnnotator', 'MultiResUnet'):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             torch_models.build_model(name, {}, in_channels=5)
-    with pytest.raises(NotImplementedError, match='BatchNorm'):
+    with pytest.raises(NotImplementedError, match='bf16'):
         torch_models.build_model('UNetAnnotator',
-                                 dict(UNET_OPTIONS, bn=True), in_channels=5)
+                                 dict(UNET_OPTIONS, dtype='bfloat16'),
+                                 in_channels=5)

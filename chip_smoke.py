@@ -161,15 +161,13 @@ REPLACES = {
     'stencil_conv_bwd': ('conv_kernel.py:175 stencil_conv2d_bwd_pallas',),
     'warp_twopass': ('warp_kernel.py:242 dense_image_warp_twopass_pallas',),
     'cca': ('cca_kernel.py:105 cca_raw_labels_pallas',),
-}
-METRICS_CONFIG = 'configs/additionals/metrics.yaml'
-EVAL_TAG = 'smoke'
-REPLACES.update({
     'pool2x2_nhwc': ('pool_kernel.py:120 max_pool2x2_nhwc',),
     'pool2x2_nhwc_bwd': ('pool_kernel.py:96 _bwd_call',),
     'tconv2x2_nhwc': ('tconv_kernel.py:161 conv_transpose2x2_nhwc',),
     'tconv2x2_nhwc_bwd': ('tconv_kernel.py:123 _bwd_call',),
-})
+}
+METRICS_CONFIG = 'configs/additionals/metrics.yaml'
+EVAL_TAG = 'smoke'
 # unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
 # after deploy_options.yaml, which replaces the whole deploy_options dict
 BIG_CONFIGS = ('configs/unet_big.yaml',

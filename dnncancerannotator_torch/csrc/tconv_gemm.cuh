@@ -18,7 +18,8 @@
 // runs). Plain f32 FMAs, not TF32: the JAX kernel this replaces accumulates
 // in f32 and is held against lax.conv_transpose at full precision. Two
 // shared-memory stages: the next tile's global loads are in flight in
-// registers while the current tile is multiplied.
+// registers while the current tile is multiplied. At most 128 registers a
+// thread, so that two blocks share an SM.
 //
 // Needs Ci % 128 == 0 and Co % 128 == 0 (the JAX kernel's eligibility): then
 // a 128-column tile lies inside one phase and every 8-deep slice of K does
@@ -124,7 +125,7 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 }
 
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 gemm_kernel(Params q) {
   __shared__ __align__(16) float as[2][kBK * kLda];
   __shared__ __align__(16) float bs[2][kBK * kBN];

@@ -40,9 +40,8 @@ A checkpoint directory holds ``params.npz`` (the flax parameter paths with
 HWIO kernels, and a BatchNorm model's ``batch_stats/...`` running
 statistics, convert.py) and, once trained, ``opt_state.npz``: the
 optimizer's moments under optax's names by flax parameter path
-(``mu/<path>``,
-``nu/<path>`` for Adam, ``trace/<path>`` for SGD momentum) in the same
-layout, and ``step``. numpy reads both without JAX; reading the JAX
+(``mu/<path>``, ``nu/<path>`` for Adam, ``trace/<path>`` for SGD momentum)
+in the same layout, and ``step``. numpy reads both without JAX; reading the JAX
 package's Orbax checkpoints is not ported yet.
 '''
 

@@ -80,6 +80,7 @@ def center_crop_to(x, target_h, target_w, data_format='NCHW'):
 
 
 def _bn(bn, features):
+    '''A block's BatchNorm over ``features`` channels, or None without BN.'''
     return fastbn.BatchNormFast(features) if bn else None
 
 
@@ -107,7 +108,7 @@ class ConvChain(nn.Module):
                 activation='relu' if self.fuse_relu else None,
                 data_format=data_format, generator=generator))
             if bn:
-                self.add_module(f'bn_{i}', _bn(bn, filters))
+                self.add_module(f'bn_{i}', fastbn.BatchNormFast(filters))
             ci = filters
         self.n_conv = n_conv
         self.bn = bn

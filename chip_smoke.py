@@ -77,9 +77,31 @@ Phases (each raises on failure, so the process exits non-zero):
    batch and draws, and the stack without pallas_decoder.yaml launches none
    of the four. Times the train step (kernels and plain) and the train
    throughput as in 5.
+3f. crop-fused warp: the warp_crop kernel against its plain version, exactly
+   equal, on [8, 268, 268, 6] windows (256 + 2 x 6 of crop jitter) cropped
+   to 256 x 256 at d = 8 (data_options.yaml's warp) and d = 18
+   (augment_options.yaml's), at the flows of a real per-step solve
+   (ops/warp.py:cropped_twopass_flows) and at a random flow past +-d, with
+   crop offsets 0, in - out and mirrored ones; timings as in 3;
+8. fused augmentation: the ``train`` CLI with the unet.yaml stack and an
+   overlay ``deploy_options.fused_aug: true`` after deploy_options.yaml
+   (which replaces the whole dict) for 50 steps in chunks of 25 on the
+   phase-5 exams: every loss finite, warp_crop launched once a step,
+   warp_twopass never, no warp bank solved; then 4 steps with
+   ``deploy_options.warp_bank: false`` (the composed per-step solve,
+   warp_twopass once a step) and 4 with intra_channelwarp_std5.yaml
+   stacked (the exact per-group warps beside the banked warp). On one
+   smooth batch and one draw list the fused route against the composed
+   per-step route within tests/test_augment_fused.py's bounds (mean |diff|
+   < 5e-3, max < 0.25, 99.9th percentile < 0.1); both routes against an f64
+   oracle with the rule of tools/chip_fusedaug_parity.py (B=4, 268 -> 256, 6
+   channels, 100 points); the augmentation's ms a step on the banked, the
+   per-step composed and the fused route (CUDA events, median of 20, in
+   turns); the fused chain's train throughput as in 5.
 
 Each phase's wall time is printed when it ends. The last three lines of
-stdout are a JSON object of per-kernel results (with each kernel's bound:
+stdout are a JSON object of per-kernel results for all thirteen kernels
+(with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
 f32 outside the tensor cores, from the inputs of this run, and the time of
 one PyTorch call computing the same function where one exists), the card's
@@ -165,6 +187,7 @@ REPLACES = {
     'pool2x2_nhwc_bwd': ('pool_kernel.py:96 _bwd_call',),
     'tconv2x2_nhwc': ('tconv_kernel.py:161 conv_transpose2x2_nhwc',),
     'tconv2x2_nhwc_bwd': ('tconv_kernel.py:123 _bwd_call',),
+    'warp_crop': ('warp_kernel.py:194 dense_image_warp_crop_pallas',),
 }
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
@@ -183,6 +206,20 @@ BIG_TCONV_SITES = ('unet.decoder.up_0', 'unet.decoder.up_1',
                    'unet.decoder.up_2')
 NHWC_KERNELS = ('pool2x2_nhwc', 'pool2x2_nhwc_bwd', 'tconv2x2_nhwc',
                 'tconv2x2_nhwc_bwd')
+# the fused augmentation chain: 268 x 268 host windows (256 + 2 x 6 of crop
+# jitter, data/pipeline.py:host_crop) cropped to 256 x 256, with the warp
+# options of data_options.yaml (d = 8) and of augment_options.yaml (d = 18)
+CROP_IN = SIZE + 12
+CROP_WARPS = (dict(n_points=100, max_diff=5, stddev=2.0),
+              dict(n_points=150, max_diff=15, stddev=20.0))
+FUSED_STEPS = 50
+ROUTE_STEPS = 4
+INTRA_CONFIG = 'configs/additionals/intra_channelwarp_std5.yaml'
+# the fused route against the composed per-step route on the same draws and
+# smooth images (tests/test_augment_fused.py:76-80): their stride-4 coarse
+# grids differ by the crop shift, which can move a sample ~0.3 px
+FUSED_MEAN, FUSED_MAX, FUSED_Q999 = 5e-3, 0.25, 0.1
+ORACLE_BATCH = 4
 # the H100 SXM's published peaks: HBM bytes/s and f32 FLOP/s outside the
 # tensor cores (the port keeps TF32 off)
 HBM_BYTES_PER_S = 3.35e12
@@ -828,7 +865,7 @@ def train_slice(device):
     resident = eng._resident(ds)
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     raw = eng.sample_batch(resident, TRAIN_BATCH, gen)
-    draws = augment.draw_chain(ds.augment_methods, TRAIN_BATCH, gen,
+    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
                                eng._warp_bank(ds))
     loss, grads = _step_grads(eng, ds, raw, draws, plain=False)
     plain_loss, plain_grads = _step_grads(eng, ds, raw, draws, plain=True)
@@ -1287,6 +1324,31 @@ def big_kernel_sites(device, results):
 
 
 # -- phase 7 -----------------------------------------------------------------
+def _profile_steps(label, step, steps=5, top=12):
+    '''Where a step's device time goes: ``steps`` calls of ``step`` under
+    torch.profiler, the device's busy share of the wall time and the
+    ``top`` kernels by device time.'''
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    busy_us = sum(e.self_device_time_total for e in device)
+    log(f'{label} under torch.profiler: {wall * 1e3 / steps:.3f} ms a step, '
+        f'device busy {busy_us / 1e3 / steps:.3f} ms a step '
+        f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time); by kernel:')
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
+            f'{e.count // steps:4d}x  {e.key[:90]}')
+
+
 def _batch_stats(path):
     with np.load(os.path.join(path, 'params.npz')) as npz:
         return {k: npz[k] for k in npz.files if k.startswith('batch_stats/')}
@@ -1449,7 +1511,7 @@ def big_train_slice(device, data_paths):
     resident = eng._resident(ds)
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     raw = eng.sample_batch(resident, TRAIN_BATCH, gen)
-    draws = augment.draw_chain(ds.augment_methods, TRAIN_BATCH, gen,
+    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
                                eng._warp_bank(ds))
     _compare_step(_big_step(eng, ds, raw, draws, plain=False),
                   _big_step(eng, ds, raw, draws, plain=True))
@@ -1472,27 +1534,8 @@ def big_train_slice(device, data_paths):
     log(f'unet_big train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
         f'{plain_ms:.4f} ms (CUDA events, median of {TIMED_RUNS})')
 
-    # where the step's device time goes: five steps under torch.profiler
-    steps = 5
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
-        start = time.perf_counter()
-        for _ in range(steps):
-            eng.train_step(raw, last, gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, 'is_user_annotation', False)]
-    busy_us = sum(e.self_device_time_total for e in device)
-    log(f'unet_big train step under torch.profiler: {wall * 1e3 / steps:.3f} '
-        f'ms a step, device busy {busy_us / 1e3 / steps:.3f} ms a step '
-        f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time); by kernel:')
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
-            f'{e.count // steps:4d}x  {e.key[:90]}')
+    _profile_steps('unet_big train step',
+                   lambda: eng.train_step(raw, last, gen))
 
     # throughput: train calls that differ only in step count, min of three
     short, long = 10, 40
@@ -1511,6 +1554,318 @@ def big_train_slice(device, data_paths):
         f'{times[short]} s, {long}-step calls {times[long]} s; '
         f'steps_per_call {BIG_SAVE_FREQ})')
     return launches, predict_launches
+
+# -- phase 3f ----------------------------------------------------------------
+@torch.no_grad()
+def crop_kernel_sites(device, results):
+    '''The crop-fused warp kernel against its plain version on [8, 268, 268,
+    6] windows cropped to 256 x 256 at d = 8 and 18: at the flows of a real
+    per-step solve and at a random flow past +-d; offsets 0, in - out and
+    mirrored ones (w_in - w_out - ox). Exactly equal.'''
+    from dnncancerannotator_torch.data import augment
+    from dnncancerannotator_torch.ops import warp
+    from dnncancerannotator_torch.ops.kernels import warp_crop as WC
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    b, span = TRAIN_BATCH, CROP_IN - SIZE
+    image = torch.rand((b, CROP_IN, CROP_IN, 6), generator=gen, device=device)
+    oy = (0, span, 6, 3, span, 0, 9, 6)
+    ox = (0, span, span - 6, span - 2, 0, span, span - 9, 6)
+    off = torch.tensor(list(zip(oy, ox)), dtype=torch.int32, device=device)
+    log(f'crop-fused warp (B={b}, {CROP_IN}x{CROP_IN}x6 -> {SIZE}x{SIZE}, '
+        f'offsets {off.tolist()}):')
+    for opts in CROP_WARPS:
+        d = augment._max_displacement(opts['max_diff'])
+        src, dst = augment.draw_warp(gen, b, SIZE, **opts)
+        flows = {
+            'per-step solve': warp.cropped_twopass_flows(
+                src, dst, off, (CROP_IN, CROP_IN), (SIZE, SIZE),
+                max_displacement=d),
+            'random flow past +-d': tuple(torch.randn(
+                shape, generator=gen, device=device) * 1.5 * d
+                for shape in ((b, SIZE, CROP_IN), (b, SIZE, SIZE))),
+        }
+        for label, (fy, fx) in flows.items():
+            fy, fx = fy.contiguous(), fx.contiguous()
+            got = WC.warp_crop(image, fy, fx, off, d)
+            want = WC.plain(image, fy, fx, off, d)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            log(f'  warp_crop d={d:2d} {label:22s} max|diff| {err:.3e}  '
+                f'max|ref| {float(want.abs().max()):.3e}')
+            if not torch.equal(got, want):   # same rounded operations: exact
+                raise AssertionError(f'warp_crop ({label}, d={d}) differs '
+                                     f'from its plain version by {err}')
+            times = _time_site(lambda: WC.warp_crop(image, fy, fx, off, d),
+                               lambda: WC.plain(image, fy, fx, off, d))
+            # reads the crop region (as large as the output) and the flows,
+            # writes the output; about 12 operations an output value
+            record(results, 'warp_crop', err, times,
+                   bound(2 * nbytes(got) + nbytes(fy, fx, off),
+                         12 * got.numel()))
+
+
+# -- phase 8 -----------------------------------------------------------------
+def smooth_batch(b, size, c, seed):
+    '''[b, size, size, c] f32 Gaussian blobs in [0, 1] (the batch of
+    tools/chip_fusedaug_parity.py): the fused and composed routes differ by
+    where their coarse flow grids fall, so they are compared on smooth
+    content.'''
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    imgs = np.zeros((b, size, size, c), np.float32)
+    for i in range(b):
+        for _ in range(6):
+            cy, cx = rng.uniform(10, size - 10, 2)
+            imgs[i, ..., rng.integers(0, c)] += np.exp(
+                -(((yy - cy) ** 2 + (xx - cx) ** 2) / (0.02 * size * size))
+            ).astype(np.float32)
+    return np.clip(imgs, 0, 1)
+
+
+def _phi(r2):
+    return 0.5 * r2 * np.log(np.maximum(r2, 1e-10))
+
+
+def _spline(q, tp, vals):
+    '''The thin-plate spline through (tp, vals) at q, in f64.'''
+    n = tp.shape[0]
+    a = _phi(((tp[:, None, :] - tp[None, :, :]) ** 2).sum(-1))
+    bm = np.concatenate([np.ones((n, 1)), tp], axis=1)
+    sol = np.linalg.solve(np.block([[a, bm], [bm.T, np.zeros((3, 3))]]),
+                          np.concatenate([vals, np.zeros((3, 2))], axis=0))
+    d2 = ((q[:, None, :] - tp[None, :, :]) ** 2).sum(-1)
+    return _phi(d2) @ sol[:n] + np.concatenate(
+        [np.ones((q.shape[0], 1)), q], axis=1) @ sol[n:]
+
+
+def _resample(img, q, axis):
+    '''Bilinear resample of [h, w, c] along ``axis`` at positions q [h, w]
+    (clipped to the image), taps clamped to the edge.'''
+    n = img.shape[axis]
+    q0 = np.floor(q).astype(int)
+    r = (q - q0)[..., None]
+    rows, cols = np.mgrid[:img.shape[0], :img.shape[1]]
+    lo = np.clip(q0, 0, n - 1)
+    hi = np.clip(q0 + 1, 0, n - 1)
+    if axis == 0:
+        return img[lo, cols] * (1.0 - r) + img[hi, cols] * r
+    return img[rows, lo] * (1.0 - r) + img[rows, hi] * r
+
+
+def oracle_chain(images, off, flip, factors, src, dst, out_size, tmask,
+                 max_diff):
+    '''The fused chain in f64 with the spline evaluated at every output
+    pixel (no coarse grid): crop, flip, contrast on the crop's mean, the
+    clamped flow with fy at the source column, the two-pass resample (a
+    copy of tools/chip_fusedaug_parity.py:oracle_chain, which imports
+    JAX).'''
+    th, tw = out_size
+    d = float(int(np.ceil(max_diff)) + 3)
+    scale = 1.0 / float(max(th, tw))
+    gy, gx = np.mgrid[:th, :tw].astype(np.float64)
+    out = np.empty((images.shape[0], th, tw, images.shape[-1]))
+    for i in range(images.shape[0]):
+        oy, ox = int(off[i, 0]), int(off[i, 1])
+        win = images[i, oy:oy + th, ox:ox + tw].astype(np.float64)
+        if flip[i]:
+            win = win[:, ::-1]
+        m = win.mean(axis=(0, 1))
+        win = np.where(tmask[None, None, :], (win - m) * float(factors[i]) + m,
+                       win)
+        tp = dst[i].astype(np.float64) * scale
+        vals = (dst[i] - src[i]).astype(np.float64)
+        q = np.stack([gy.ravel(), gx.ravel()], axis=-1) * scale
+        fl = np.clip(_spline(q, tp, vals).reshape(th, tw, 2), -d, d)
+        q2 = np.stack([gy.ravel(), (gx + fl[..., 1]).ravel()], axis=-1) * scale
+        fy = np.clip(_spline(q2, tp, vals)[:, 0].reshape(th, tw), -d, d)
+        qy = np.clip(gy - fy, 0.0, th - 1.0)
+        qx = np.clip(gx - fl[..., 1], 0.0, tw - 1.0)
+        out[i] = _resample(_resample(win, qy, 0), qx, 1)
+    return out
+
+
+def _routes(augment, methods, images, draws):
+    '''(fused, composed per-step) outputs of one batch and draw list, and
+    the launches of the two resample kernels.'''
+    from dnncancerannotator_torch.ops import kernels
+    kernels.reset_launches()
+    fused = augment.apply_fused_chain(methods, images, draws)
+    composed = augment.apply_chain(methods, images, draws)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if (counts['warp_crop'], counts['warp_twopass']) != (1, 1):
+        raise AssertionError(f'the two routes launched {counts}')
+    return fused, composed
+
+
+def fused_aug_slice(device, data_paths):
+    '''Phase 8; returns the launch counts of the fused train call.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import augment, pipeline
+    from dnncancerannotator_torch.ops import gates, kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    def overlay(name, options):
+        path = os.path.join(WORK, f'{name}.json')
+        with open(path, 'w') as fh:
+            json.dump({'deploy_options.steps_per_call': STEPS_PER_CALL,
+                       **options}, fh)
+        return path
+
+    solved = []
+    build_bank = augment.build_warp_bank
+
+    def counted_bank(*args, **kwargs):
+        solved.append(args[1])
+        return build_bank(*args, **kwargs)
+
+    def train(name, configs, steps):
+        '''One train CLI call: (history, launches, banks solved).'''
+        solved.clear()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        res = cli(argv=['train', '--config', *configs, '--save_path',
+                        os.path.join(WORK, name), '--data_path', *data_paths,
+                        '--save_freq', str(min(steps, SAVE_FREQ)), '--seed',
+                        str(SEED), '--device', device.type, '--max_steps',
+                        str(steps)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = kernels.launch_counts()
+        losses = res.history['loss']
+        log(f'train {name}: {steps} steps in {seconds:.3f} s (host clock, '
+            f'data load and checkpoints included); loss {losses[0]:.4f} -> '
+            f'{losses[-1]:.4f}; banks solved {solved}; warp_crop '
+            f'{launches["warp_crop"]}, warp_twopass '
+            f'{launches["warp_twopass"]} launches')
+        if res.epoch != list(range(1, steps + 1)) or \
+                not np.isfinite(losses).all():
+            raise AssertionError(f'{name}: steps {res.epoch}, losses {losses}')
+        return launches, list(solved)
+
+    base = [os.path.join(REPO, c) for c in CONFIGS]
+    fused_configs = base + [overlay('fused', {'deploy_options.fused_aug':
+                                              True})]
+    augment.build_warp_bank = counted_bank
+    try:
+        launches, banks = train('fused_run', fused_configs, FUSED_STEPS)
+        if (launches['warp_crop'], launches['warp_twopass'], banks) != (
+                FUSED_STEPS, 0, []):
+            raise AssertionError('the fused train run did not launch '
+                                 'warp_crop once a step, and only it, or '
+                                 'solved a bank')
+        step_launches, banks = train(
+            'per_step_run', base + [overlay('per_step', {
+                'deploy_options.warp_bank': False})], ROUTE_STEPS)
+        if (step_launches['warp_crop'], step_launches['warp_twopass'],
+                banks) != (0, ROUTE_STEPS, []):
+            raise AssertionError('the per-step train run did not launch '
+                                 'warp_twopass once a step')
+        intra_launches, banks = train(
+            'intra_run', base + [os.path.join(REPO, INTRA_CONFIG),
+                                 overlay('intra', {})], ROUTE_STEPS)
+        if (intra_launches['warp_crop'], intra_launches['warp_twopass'],
+                len(banks)) != (0, ROUTE_STEPS, 1):
+            raise AssertionError('the intra-channel train run did not take '
+                                 'the banked warp once a step')
+    finally:
+        augment.build_warp_bank = build_bank
+
+    # the two routes on one batch and one draw list
+    config = config_lib.load_config(fused_configs)
+    ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
+    methods = ds.augment_methods
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    images = torch.from_numpy(smooth_batch(
+        TRAIN_BATCH, CROP_IN, 6, SEED)).to(device)
+    fused, composed = _routes(augment, methods, images, augment.draw_chain(
+        methods, images.shape, gen))
+    err = (fused - composed).abs()
+    mean, worst = float(err.mean()), float(err.max())
+    q999 = float(torch.quantile(err.reshape(-1), 0.999))
+    log(f'fused vs composed per-step route [{TRAIN_BATCH},{CROP_IN},'
+        f'{CROP_IN},6] -> {SIZE}: mean|diff| {mean:.3e}, max {worst:.3e}, '
+        f'99.9th percentile {q999:.3e}')
+    if not (mean < FUSED_MEAN and worst < FUSED_MAX and q999 < FUSED_Q999):
+        raise AssertionError('the fused route strays from the composed one')
+
+    # both routes against the f64 oracle (tools/chip_fusedaug_parity.py's
+    # production case and rule)
+    images = torch.from_numpy(smooth_batch(
+        ORACLE_BATCH, CROP_IN, 6, SEED + 1)).to(device)
+    draws = augment.draw_chain(methods, images.shape, gen)
+    fused, composed = (t.cpu().numpy() for t in _routes(
+        augment, methods, images, draws))
+    diff, flips, factors, (src, dst) = draws
+    top, left = augment._crop_offsets(diff, images.shape[1:3], (SIZE, SIZE))
+    tmask = np.zeros(6, bool)
+    tmask[list(methods[2][1]['target_channels'])] = True
+    oracle = oracle_chain(
+        images.cpu().numpy(), torch.stack([top, left], 1).cpu().numpy(),
+        flips.cpu().numpy(), factors.cpu().numpy(), src.cpu().numpy(),
+        dst.cpu().numpy(), (SIZE, SIZE), tmask,
+        methods[3][1].get('max_diff', 5))
+    e_c, e_f = np.abs(composed - oracle), np.abs(fused - oracle)
+    log(f'f64 oracle [{ORACLE_BATCH},{CROP_IN},{CROP_IN},6] -> {SIZE}, '
+        f'{src.shape[1]} points: composed mean {e_c.mean():.3e} max '
+        f'{e_c.max():.3e}; fused mean {e_f.mean():.3e} max {e_f.max():.3e}')
+    # the fused route as close to the truth as the composed one, and both
+    # within the interpolation envelope
+    if not (e_f.mean() <= 1.5 * e_c.mean() + 2e-3
+            and e_f.max() <= 1.5 * e_c.max() + 2e-2
+            and e_f.mean() < 2e-2 and e_c.mean() < 2e-2):
+        raise AssertionError('the f64 oracle adjudication failed')
+
+    # the augmentation's time a step on each route
+    raw = torch.randint(0, 256, (TRAIN_BATCH, CROP_IN, CROP_IN, 6),
+                        generator=gen, device=device, dtype=torch.uint8)
+    bank = augment.build_warp_bank(
+        torch.Generator(device=device).manual_seed(SEED + 10),
+        int(config['deploy_options'].get('warp_bank_size', 512)),
+        (SIZE, SIZE), **methods[3][1])
+
+    def route(fused_gate, warp_bank):
+        fn = augment.build_augment_fn(methods, warp_bank)
+
+        def run():
+            with gates.active(gates.KernelGates(fused_aug=fused_gate)):
+                return fn(raw.float() / 255.0, gen)
+        return run
+
+    t = _time_fns({'banked': route(False, bank),
+                   'per-step composed': route(False, None),
+                   'fused': route(True, bank)})
+    log(f'augmentation a step, B={TRAIN_BATCH} {CROP_IN}x{CROP_IN}x6 uint8 -> '
+        f'{SIZE}x{SIZE}: ' + ', '.join(
+        f'{name} {ms:.4f} ms' for name, ms in t.items())
+        + f' (CUDA events, median of {TIMED_RUNS}, in turns)')
+
+    # throughput of the fused chain: train calls that differ only in step
+    # count, min of three (as phase 5)
+    eng = engine.Engine(config, seed=SEED, device=device)
+    short, long = 25, 100
+    eng.train(ds, max_steps=10, save_freq=1 << 30)
+    batch = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
+    _profile_steps('fused-chain train step',
+                   lambda: eng.train_step(batch, eng.current_step, gen),
+                   top=8)
+    times = {}
+    for n in (short, long):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
+            torch.cuda.synchronize()
+            times.setdefault(n, []).append(time.perf_counter() - start)
+    rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
+                                           min(times[short]))
+    log(f'fused-chain train throughput: {rate:.2f} slices/s ({short}-step '
+        f'calls {times[short]} s, {long}-step calls {times[long]} s; '
+        f'steps_per_call {STEPS_PER_CALL})')
+    return launches
 
 
 def main():
@@ -1541,6 +1896,8 @@ def main():
             sensitivity_site(eng, data_paths)
         with phase('3e unet_big kernels'):
             big_kernel_sites(device, results)
+        with phase('3f crop-fused warp kernel'):
+            crop_kernel_sites(device, results)
         with phase('4 predict'):
             predict_launches = run_slice(eng, data_paths, save_path,
                                          os.path.join(WORK, 'maps'))
@@ -1551,13 +1908,17 @@ def main():
                                        train_run)
         with phase('7 unet_big train'):
             big_launches, big_predict = big_train_slice(device, train_paths)
+        with phase('8 fused augmentation'):
+            fused_launches = fused_aug_slice(device, train_paths)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     # each kernel's launches in the run of its path: train for the seven of
     # the unet.yaml train step, evaluate for the CCA, the unet_big train and
-    # predict for the four NHWC kernels
+    # predict for the four NHWC kernels, the fused-chain train for the crop
+    # warp
     launches['cca'] = eval_launches['cca']
+    launches['warp_crop'] = fused_launches['warp_crop']
     for name in NHWC_KERNELS:
         launches[name] = big_launches[name]
         predict_launches[name] = big_predict[name]

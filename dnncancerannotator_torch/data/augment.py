@@ -13,47 +13,54 @@ Ported, with the JAX package's semantics:
 - random_flip: left-right flip with p = 0.5;
 - random_contrast: one factor per image in [lower, upper), on the feature
   channels only (``target_channels``), so the label is untouched;
-- random_warp through a warp bank (``build_warp_bank``, the default
-  ``deploy_options.warp_bank``): a random bank field per image with random
-  up/down and left/right mirrors, resampled by the two-pass warp. Crop,
-  flip and warp move the label with the image; after the warp it is no
-  longer binary, and the loss takes it as it is.
-
-Not ported yet, and raising NotImplementedError: random_warp's per-step
-spline solve (``warp_bank: false``, or a bank whose size differs from the
-images at that point of the chain), random_intrachannelwarp and the fused
-chain (``fused_aug``).
+- random_warp: a thin-plate-spline warp with ``n_points`` uniform control
+  points (over the image width at that point of the chain) and clipped
+  Gaussian displacements, the flow clamped to +-(ceil(max_diff) + 3). It
+  runs through a warp bank (``build_warp_bank``, the default
+  ``deploy_options.warp_bank``) of the image size at that point: a random
+  bank field per image with random up/down and left/right mirrors; else
+  through the per-step spline solve (``method`` two_pass or exact);
+- random_intrachannelwarp: an exact, unclamped warp per channel group
+  (``paired`` groups first, then every other channel alone), each group
+  with its own control points; no bank serves it;
+- the fused chain (the ``fused_aug`` gate): crop -> flip -> contrast ->
+  two-pass warp in one crop-fused resample (``apply_fused_chain``), with
+  the same draws as the composed per-step chain.
+Crop, flip and the warps move the label with the image; after a warp it is
+no longer binary, and the loss takes it as it is.
 '''
 
 import numpy as np
 import torch
 
+from ..ops import gates as gates_lib
 from ..ops import image as image_ops
 from ..ops import warp as warp_ops
 
-_NOT_PORTED_WARP = ('random_warp runs only through a warp bank of the '
-                    'image size at that point of the chain; the per-step '
-                    'spline solve is not ported yet (ROADMAP.md queue 1)')
 
-
-# -- random_crop ---------------------------------------------------------------
+# -- random_crop --------------------------------------------------------------
 def draw_crop(gen, b, stddev=4, max_=6, min_=-6):
     '''Integer jitter [B, 2]: trunc(N(0, stddev)) clipped to [min_, max_].'''
     noise = torch.randn(b, 2, generator=gen, device=gen.device) * stddev
     return noise.to(torch.int32).clamp(int(min_), int(max_)).long()
 
 
+def _crop_offsets(diff, in_size, output_size):
+    '''(top [B], left [B]): the center offset plus ``diff``, clipped into
+    the image.'''
+    (h, w), (th, tw) = in_size, output_size
+    return ((diff[:, 0] + (h - th) // 2).clamp(0, h - th),
+            (diff[:, 1] + (w - tw) // 2).clamp(0, w - tw))
+
+
 def apply_crop(images, diff, output_size):
     '''Crop [B, H, W, C] to output_size at the center offset plus ``diff``,
     clipped into the image.'''
-    _, h, w, _ = images.shape
-    th, tw = output_size
-    top = (diff[:, 0] + (h - th) // 2).clamp(0, h - th)
-    left = (diff[:, 1] + (w - tw) // 2).clamp(0, w - tw)
-    return image_ops.crop_to_bounding_box(images, top, left, th, tw)
+    top, left = _crop_offsets(diff, images.shape[1:3], output_size)
+    return image_ops.crop_to_bounding_box(images, top, left, *output_size)
 
 
-# -- random_flip -------------------------------------------------------------------
+# -- random_flip --------------------------------------------------------------
 def draw_flip(gen, b):
     '''[B] bool, each True with probability 0.5.'''
     return torch.rand(b, generator=gen, device=gen.device) < 0.5
@@ -63,7 +70,7 @@ def apply_flip(images, flips):
     return image_ops.flip_left_right(images, flips)
 
 
-# -- random_contrast -----------------------------------------------------------
+# -- random_contrast ----------------------------------------------------------
 def draw_contrast(gen, b, lower=0.8, upper=1.2):
     '''[B] contrast factors, uniform in [lower, upper).'''
     u = torch.rand(b, generator=gen, device=gen.device)
@@ -74,7 +81,7 @@ def apply_contrast(images, factors, target_channels=None):
     return image_ops.adjust_contrast(images, factors, target_channels)
 
 
-# -- random_warp through a warp bank -----------------------------------------------
+# -- random_warp --------------------------------------------------------------
 def _warp_points(gen, n_images, n_points, size, stddev, max_diff):
     '''Control points: uniform locations in [0, size)^2 and clipped
     Gaussian displacements; returns (source, dest) [n, n_points, 2].'''
@@ -82,6 +89,28 @@ def _warp_points(gen, n_images, n_points, size, stddev, max_diff):
     raw = torch.rand(shape, generator=gen, device=gen.device) * float(size)
     diff = torch.randn(shape, generator=gen, device=gen.device) * stddev
     return raw, raw + diff.clamp(-float(max_diff), float(max_diff))
+
+
+def draw_warp(gen, b, size, n_points=100, max_diff=5, stddev=2.0):
+    '''The per-step warp's control points (source, dest) [B, n_points, 2]
+    over images ``size`` wide.'''
+    return _warp_points(gen, b, n_points, size, stddev, max_diff)
+
+
+def _max_displacement(max_diff):
+    return int(np.ceil(max_diff)) + 3
+
+
+def apply_warp(images, points, max_diff=5, method='two_pass',
+               flow_grid_stride=4):
+    '''The per-step warp of [B, H, W, C] at control points (source, dest):
+    one spline solve per image, the flow clamped to
+    +-(ceil(max_diff) + 3).'''
+    src, dst = points
+    return warp_ops.sparse_image_warp(
+        images, src, dst, method=method,
+        max_displacement=_max_displacement(max_diff), clamp_flow=True,
+        flow_grid_stride=flow_grid_stride if method == 'two_pass' else 1)
 
 
 def build_warp_bank(gen, n_bank, out_size, n_points=100, max_diff=5,
@@ -95,7 +124,7 @@ def build_warp_bank(gen, n_bank, out_size, n_points=100, max_diff=5,
     if method != 'two_pass':
         raise ValueError('warp_bank requires the two_pass warp method')
     th, tw = int(out_size[0]), int(out_size[1])
-    md = int(np.ceil(max_diff)) + 3
+    md = _max_displacement(max_diff)
     src, dst = _warp_points(gen, int(n_bank), n_points, tw, stddev, max_diff)
     flows = torch.cat([
         warp_ops.coarse_twopass_flow(
@@ -129,9 +158,50 @@ def apply_banked_warp(images, bank, draws):
         flow_grid_stride=bank['stride'])
 
 
-# -- the chain -------------------------------------------------------------------
+def _banked(options, size, warp_bank):
+    '''Whether ``warp_bank`` serves a random_warp of ``size`` images.'''
+    return (warp_bank is not None
+            and options.get('method', 'two_pass') == 'two_pass'
+            and tuple(size) == warp_bank['out_size'])
+
+
+# -- random_intrachannelwarp --------------------------------------------------
+def _channel_groups(c, paired):
+    '''The ``paired`` groups (negative channels resolved), then every other
+    channel alone.'''
+    paired = [[ch if ch >= 0 else c + ch for ch in group] for group in paired]
+    grouped = {ch for group in paired for ch in group}
+    return paired + [[ch] for ch in range(c) if ch not in grouped]
+
+
+def draw_intrachannelwarp(gen, b, c, size, n_points=100, max_diff=5,
+                          stddev=2.0, paired=((0, -1),)):
+    '''One draw of control points (source, dest) per channel group.'''
+    return [_warp_points(gen, b, n_points, size, stddev, max_diff)
+            for _ in _channel_groups(c, paired)]
+
+
+def apply_intrachannelwarp(images, draws, paired=((0, -1),)):
+    '''Warp each channel group of [B, H, W, C] at its own control points,
+    exact and unclamped.'''
+    c = images.shape[-1]
+    out = [None] * c
+    for group, (src, dst) in zip(_channel_groups(c, paired), draws):
+        warped = warp_ops.sparse_image_warp(images[..., group], src, dst)
+        for j, ch in enumerate(group):
+            out[ch] = warped[..., j]
+    return torch.stack(out, dim=-1)
+
+
+# -- the chain ----------------------------------------------------------------
 _KNOWN = ('random_crop', 'random_flip', 'random_contrast', 'random_warp',
           'random_intrachannelwarp', 'random_hue')
+_WARP_KEYS = ('max_diff', 'method', 'flow_grid_stride')
+_POINT_KEYS = ('n_points', 'max_diff', 'stddev')
+
+
+def _pick(options, keys):
+    return {k: options[k] for k in keys if k in options}
 
 
 def parse_augment_options(augment_options, slice_types, output_size=(256, 256)):
@@ -164,36 +234,37 @@ def parse_augment_options(augment_options, slice_types, output_size=(256, 256)):
     return resolved
 
 
-def draw_chain(methods, b, gen, warp_bank=None):
-    '''The random draws of one batch of size b, one entry per method.'''
+def draw_chain(methods, shape, gen, warp_bank=None):
+    '''The random draws of one batch of images of ``shape`` [B, H, W, C],
+    one entry per method: random_warp draws bank indices and mirrors where
+    ``warp_bank`` serves it, else control points over the image width at
+    that point of the chain.'''
+    b, h, w, c = shape
     draws = []
     for name, o in methods:
         if name == 'random_crop':
             draws.append(draw_crop(gen, b, o.get('stddev', 4),
                                    o.get('max_', 6), o.get('min_', -6)))
+            h, w = o['output_size']
         elif name == 'random_flip':
             draws.append(draw_flip(gen, b))
         elif name == 'random_contrast':
             draws.append(draw_contrast(gen, b, o.get('lower', 0.8),
                                        o.get('upper', 1.2)))
+        elif name == 'random_warp':
+            draws.append(
+                draw_banked_warp(gen, b, warp_bank['flows'].shape[0])
+                if _banked(o, (h, w), warp_bank)
+                else draw_warp(gen, b, w, **_pick(o, _POINT_KEYS)))
         else:
-            _check_portable(name, o, warp_bank)
-            draws.append(draw_banked_warp(gen, b, warp_bank['flows'].shape[0]))
+            draws.append(draw_intrachannelwarp(
+                gen, b, c, w, **_pick(o, _POINT_KEYS + ('paired',))))
     return draws
 
 
-def _check_portable(name, options, warp_bank):
-    if name == 'random_warp':
-        if warp_bank is None or options.get('method',
-                                            'two_pass') != 'two_pass':
-            raise NotImplementedError(_NOT_PORTED_WARP)
-    elif name not in ('random_crop', 'random_flip', 'random_contrast'):
-        raise NotImplementedError(
-            f'{name} is not ported yet (ROADMAP.md queue 1)')
-
-
 def apply_chain(methods, images, draws, warp_bank=None):
-    '''Apply the chain to [B, H, W, C] float images with given draws.'''
+    '''Apply the composed chain to [B, H, W, C] float images with given
+    draws (``draw_chain`` with the same ``warp_bank``).'''
     for (name, o), draw in zip(methods, draws):
         if name == 'random_crop':
             images = apply_crop(images, draw, o['output_size'])
@@ -201,24 +272,81 @@ def apply_chain(methods, images, draws, warp_bank=None):
             images = apply_flip(images, draw)
         elif name == 'random_contrast':
             images = apply_contrast(images, draw, o.get('target_channels'))
-        elif (name == 'random_warp' and warp_bank is not None
-              and o.get('method', 'two_pass') == 'two_pass'
-              and tuple(images.shape[1:3]) == warp_bank['out_size']):
-            images = apply_banked_warp(images, warp_bank, draw)
+        elif name == 'random_warp':
+            images = (apply_banked_warp(images, warp_bank, draw)
+                      if _banked(o, images.shape[1:3], warp_bank)
+                      else apply_warp(images, draw, **_pick(o, _WARP_KEYS)))
         else:
-            raise NotImplementedError(_NOT_PORTED_WARP)
+            images = apply_intrachannelwarp(images, draw,
+                                            o.get('paired', ((0, -1),)))
     return images
+
+
+# -- the fused chain ----------------------------------------------------------
+_FUSED_PATTERN = ('random_crop', 'random_flip', 'random_contrast',
+                  'random_warp')
+
+
+def fused_chain_eligible(methods):
+    '''The fused chain takes exactly crop -> flip -> contrast (on a
+    non-empty ``target_channels``) -> two-pass warp.'''
+    if tuple(n for n, _ in methods) != _FUSED_PATTERN:
+        return False
+    if not methods[2][1].get('target_channels'):
+        return False
+    return methods[3][1].get('method', 'two_pass') == 'two_pass'
+
+
+def routes_fused(methods, shape):
+    '''Whether the chain on [B, H, W, C] windows of ``shape`` runs fused:
+    the ``fused_aug`` gate on (read in the caller's gate scope), the chain
+    eligible and the crop within the window. The JAX package also asks for
+    a single device and a VMEM budget, and on the CPU runs the composed
+    chain; neither applies here.'''
+    if not (gates_lib.enabled('fused_aug') and fused_chain_eligible(methods)):
+        return False
+    th, tw = methods[0][1]['output_size']
+    return th <= shape[1] and tw <= shape[2]
+
+
+def apply_fused_chain(methods, images, draws):
+    '''Crop, flip, contrast and the two-pass warp of [B, h_in, w_in, C]
+    windows in one resample, with the composed per-step chain's draws
+    (``draw_chain`` without a bank). The identities: contrast with the crop
+    window's mean commutes with the crop, the flip and the convex bilinear
+    resample, so it runs on the whole window; crop-then-flip is
+    flip-the-window-then-crop at the mirrored offset w_in - w_out - ox; the
+    crop offsets ride the resample's addresses
+    (ops/warp.py:sparse_image_warp_cropped).'''
+    crop_o, _, con_o, warp_o = (o for _, o in methods)
+    diff, flips, factors, (src, dst) = draws
+    th, tw = crop_o['output_size']
+    w_in = images.shape[2]
+    top, left = _crop_offsets(diff, images.shape[1:3], (th, tw))
+    means = image_ops.crop_to_bounding_box(images, top, left, th, tw).mean(
+        dim=(1, 2), keepdim=True)   # the crop window's
+    images = image_ops.adjust_contrast(images, factors,
+                                       con_o['target_channels'], means)
+    images = image_ops.flip_left_right(images, flips)
+    left = torch.where(flips, (w_in - tw) - left, left)
+    return warp_ops.sparse_image_warp_cropped(
+        images, src, dst, torch.stack([top, left], dim=1), (th, tw),
+        max_displacement=_max_displacement(warp_o.get('max_diff', 5)),
+        clamp_flow=True, flow_grid_stride=warp_o.get('flow_grid_stride', 4))
 
 
 def build_augment_fn(methods, warp_bank=None):
     '''Compose [(name, options)] into ``fn(images [B,H,W,C] float, gen) ->
-    images``; ``warp_bank`` (build_warp_bank) serves random_warp. Raises
-    NotImplementedError for a chain the port cannot run.'''
-    for name, options in methods:
-        _check_portable(name, options, warp_bank)
+    images``, routed as in the JAX package: the fused chain where
+    ``routes_fused`` holds (even when a bank exists), else the composed
+    chain, with ``warp_bank`` (build_warp_bank) serving a random_warp of
+    its size and the per-step solve any other.'''
 
     def apply_all(images, gen):
-        draws = draw_chain(methods, images.shape[0], gen, warp_bank)
+        if routes_fused(methods, images.shape):
+            return apply_fused_chain(methods, images,
+                                     draw_chain(methods, images.shape, gen))
+        draws = draw_chain(methods, images.shape, gen, warp_bank)
         return apply_chain(methods, images, draws, warp_bank)
 
     return apply_all

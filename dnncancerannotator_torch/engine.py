@@ -26,11 +26,13 @@ The kernel gates come from ``deploy_options`` (ops/gates.py) and are in
 scope wherever the Engine runs its model (``Engine.scope``): in training
 mode for the train step, in eval mode (BatchNorm on its running statistics)
 for validation, evaluation, prediction and the Visualizer.
-The warp bank is solved once per Engine. The sampler and the augmentation
-draw from device generators reseeded at every step from (seed, step), so a
-resumed run draws what an unbroken one would. Not ported yet (they raise or
-are not offered): the profiler window, SIGTERM draining, host streaming,
-the kernel regularizer, ``fused_aug``.
+The augmentation routes by the gates in that scope too (``fused_aug``: the
+crop-fused chain; else the warp bank, solved once per Engine, or the
+per-step spline solve). The sampler and the augmentation draw from device
+generators reseeded at every step from (seed, step), so a resumed run draws
+what an unbroken one would. Not ported yet (they raise or are not offered):
+the profiler window, SIGTERM draining, host streaming, the kernel
+regularizer.
 
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
@@ -287,14 +289,8 @@ class Engine:
         '''Build the model, loss, optimizer, warp bank and augmentation
         chain for ``dataset``; raises for what the port does not run.'''
         deploy = self.model_config['deploy_options']
-        unported = [name for name, on in (
-            ('fused_aug', self.gate('fused_aug')),
-            ('kernel_regularizer',
-             self.model_config['model_options'].get('kernel_regularizer')))
-            if on]
-        if unported:
-            raise NotImplementedError(
-                f'{", ".join(unported)} {_NOT_PORTED}')
+        if self.model_config['model_options'].get('kernel_regularizer'):
+            raise NotImplementedError(f'kernel_regularizer {_NOT_PORTED}')
         self.build(dataset.feature_shape)
         self._solve_loss()
         if self.optimizer is None:
@@ -318,8 +314,15 @@ class Engine:
     def _warp_bank(self, dataset):
         '''The warp bank (solved once per Engine and chain) when the
         ``warp_bank`` gate is on (the default) and the chain crops
-        before a two-pass warp, else None.'''
+        before a two-pass warp, else None. None too when the chain will run
+        fused (the ``fused_aug`` gate on and the chain eligible), which
+        reads no bank: the JAX engine solves one there all the same and
+        never uses it. The bank draws from its own generator stream, so
+        skipping it changes no other draw.'''
         methods = dataset.augment_methods
+        with gates_lib.active(self.gates):
+            if augment_mod.routes_fused(methods, dataset.element_shape):
+                return None
         key = repr(methods)
         if key not in self._bank_cache:
             bank = None
@@ -377,12 +380,12 @@ class Engine:
         with the augmentation drawn from ``gen``; returns the loss (a
         device scalar), and with ``outputs`` also the step's probabilities
         and labels [B, h, w] (for the train metrics).'''
-        images = self._augment(raw.float() / 255.0, gen)
-        x, y = augment_mod.to_feature_label(images, self._slice_types)
         for group in self.optimizer.param_groups:
             group['lr'] = self.schedule(step)
         self.optimizer.zero_grad(set_to_none=True)
         with self.scope(training=True):
+            images = self._augment(raw.float() / 255.0, gen)
+            x, y = augment_mod.to_feature_label(images, self._slice_types)
             logits = self.model(x, return_logits=True)
         loss = self.loss(y, logits)
         loss.backward()

@@ -17,12 +17,13 @@ def crop_to_bounding_box(images, top, left, target_h, target_w):
     return images[batch, rows[:, :, None], cols[:, None, :]]
 
 
-def adjust_contrast(images, factors, target_channels=None):
+def adjust_contrast(images, factors, target_channels=None, means=None):
     '''``(x - mean_c) * factor + mean_c`` per image of [B, H, W, C], with the
-    per-channel spatial mean and one factor per image ([B]); channels
-    outside ``target_channels`` pass through untouched
+    per-channel spatial mean (or ``means`` [B, 1, 1, C]) and one factor per
+    image ([B]); channels outside ``target_channels`` pass through untouched
     (``tf.image.adjust_contrast`` on selected channels).'''
-    means = images.mean(dim=(1, 2), keepdim=True)
+    if means is None:
+        means = images.mean(dim=(1, 2), keepdim=True)
     adjusted = (images - means) * factors[:, None, None, None] + means
     if target_channels is None:
         return adjusted

@@ -62,6 +62,9 @@ _SIGNATURES = {
     'dnnca_stencil_conv_bwd': [_P] * 6 + [_I] * 13 + [_P],
     # img, flow, out, B, H, W, C, max_displacement, device, stream
     'dnnca_warp_twopass': [_P] * 3 + [_I] * 6 + [_P],
+    # img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,
+    # max_displacement, device, stream
+    'dnnca_warp_crop': [_P] * 5 + [_I] * 8 + [_P],
     # masks, labels, N, H, W, device, stream
     'dnnca_cca': [_P] * 2 + [_I] * 4 + [_P],
     # x, out, B, H, W, C, device, stream

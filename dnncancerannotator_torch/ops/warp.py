@@ -1,22 +1,26 @@
-'''Thin-plate-spline warp of the augmentation chain (counterpart of the
-two-pass parts of dnncancerannotator_tpu.ops.warp).
+'''Thin-plate-spline warp of the augmentation chain (counterpart of
+dnncancerannotator_tpu.ops.warp).
 
 A polyharmonic (thin-plate, order 2) spline interpolates a flow field from
-control-point displacements; the image is resampled at ``grid - flow`` by
-the two-pass bilinear resample (ops/kernels/warp_twopass.py). As in the JAX
-package:
+control-point displacements; the image is resampled at ``grid - flow``. As
+in the JAX package:
 
 - the spline is solved in f32 in [0, 1]-normalised coordinates (the
   pixel-scale kernel matrix is catastrophically ill-conditioned in f32);
   displacement values stay in pixels;
-- the flow is evaluated on a coarse grid of stride ``flow_grid_stride``,
-  clamped to +-max_displacement, and corrected for the two-pass
-  composition (the vertical pass takes fy at the source column, so fy is
-  evaluated there), then upsampled bilinearly by two small matmuls.
+- ``method='two_pass'``: the flow is evaluated on a coarse grid of stride
+  ``flow_grid_stride``, clamped to +-max_displacement, and corrected for
+  the two-pass composition (the vertical pass takes fy at the source
+  column, so fy is evaluated there), then upsampled bilinearly by two
+  small matmuls and resampled by the two-pass kernel
+  (ops/kernels/warp_twopass.py);
+- ``method='exact'``: the flow is evaluated at every pixel and the image
+  resampled by a bilinear gather with edge clamping (``dense_image_warp``).
 
-``coarse_twopass_flow`` is the warp-bank solve; ``warp_with_coarse_flow``
-resamples a batch at bank flows. The per-step ``sparse_image_warp`` and the
-gather-based exact resample are not ported yet.
+``sparse_image_warp`` is the per-step warp; ``coarse_twopass_flow`` is the
+warp-bank solve and ``warp_with_coarse_flow`` resamples a batch at bank
+flows; ``sparse_image_warp_cropped`` is the fused chain's warp, with the
+crop folded into the resample (ops/kernels/warp_crop.py).
 '''
 
 import functools
@@ -24,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from .kernels import warp_crop as warp_crop_mod
 from .kernels import warp_twopass as warp_mod
 
 
@@ -149,3 +154,130 @@ def warp_with_coarse_flow(image, coarse_flow, max_displacement=8,
         flow = _upsample_flow(flow, h, w, stride)
     return warp_mod.warp_twopass(image.contiguous(), flow.contiguous(),
                                  max_displacement)
+
+
+def dense_image_warp(image, flow):
+    '''Resample [B, H, W, C] at ``grid - flow`` (flow [B, H, W, 2] as (dy,
+    dx)) bilinearly, each tap index clamped to the edge: JAX's
+    ``map_coordinates(order=1, mode='nearest')`` per channel, with its
+    weights (wy * wx) and its order of summation.'''
+    b, h, w, c = image.shape
+    gy = torch.arange(h, dtype=torch.float32, device=image.device)[:, None]
+    gx = torch.arange(w, dtype=torch.float32, device=image.device)[None, :]
+
+    def taps(q, n):
+        q0 = torch.floor(q)
+        r = q - q0
+        i = q0.long()
+        return ((i.clamp(0, n - 1), 1 - r), ((i + 1).clamp(0, n - 1), r))
+
+    flat = image.reshape(b, h * w, c)
+    out = None
+    for yi, wy in taps(gy - flow[..., 0], h):
+        for xi, wx in taps(gx - flow[..., 1], w):
+            idx = (yi * w + xi).reshape(b, -1, 1).expand(-1, -1, c)
+            term = (wy * wx)[..., None] * torch.gather(flat, 1, idx).reshape(
+                b, h, w, c)
+            out = term if out is None else out + term
+    return out
+
+
+def sparse_image_warp(image, source_control_points, dest_control_points,
+                      regularization=0.0, method='exact', max_displacement=8,
+                      clamp_flow=False, flow_grid_stride=1):
+    '''Warp [B, H, W, C] so that the pixels at the source control points
+    ([B, N, 2], (y, x)) land on the dest points. ``method``: 'exact' (the
+    flow at every pixel, ``dense_image_warp``) or 'two_pass' (the coarse,
+    composition-corrected flow of stride ``flow_grid_stride`` and the
+    two-pass resample, which clamps to +-max_displacement); ``clamp_flow``
+    clips the interpolated flow to +-max_displacement for both.'''
+    if method not in ('exact', 'two_pass'):
+        raise ValueError(f"method must be 'exact' or 'two_pass', got "
+                         f'{method!r}')
+    image = image.float()
+    _, h, w, _ = image.shape
+    stride = int(flow_grid_stride) if method == 'two_pass' else 1
+    values = (dest_control_points - source_control_points).float()
+    gy, gx = _coarse_grid(h, w, stride, values.device)
+    flow = _flow_from_points(dest_control_points, values, gy, gx,
+                             1.0 / float(max(h, w)), regularization,
+                             clamp_flow, float(max_displacement),
+                             method == 'two_pass')
+    if method == 'two_pass':
+        return warp_with_coarse_flow(image, flow, max_displacement, stride)
+    return dense_image_warp(image, flow)
+
+
+def _upsample_plane(plane, h, w, stride):
+    '''Bilinearly upsample one coarse flow component [B, hc, wc] to
+    [B, h, w].'''
+    my = _interp_matrix(h, stride, plane.shape[1], plane.device)
+    mx = _interp_matrix(w, stride, plane.shape[2], plane.device)
+    plane = torch.einsum('yh,bhw->byw', my, plane)
+    return torch.einsum('xw,byw->byx', mx, plane)
+
+
+def cropped_twopass_flows(source_control_points, dest_control_points,
+                          crop_offset, in_size, out_size, regularization=0.0,
+                          max_displacement=8, clamp_flow=True,
+                          flow_grid_stride=4):
+    '''The flows of the crop-fused two-pass warp of in_size windows cropped
+    at ``crop_offset`` ([B, 2], (oy, ox)) to out_size, for control points in
+    the crop frame: (fy_ext [B, h_out, w_in] in the window's column frame,
+    fx [B, h_out, w_out] in the crop frame). One spline solve per image
+    serves three evaluations: both components on the window's coarse
+    columns at crop x = j - ox (E1), fy at the source column j - ox + fx
+    there (E2, the two-pass composition correction), fx on the crop's own
+    coarse grid (E3).'''
+    h_out, w_out = out_size
+    b = dest_control_points.shape[0]
+    stride = int(flow_grid_stride)
+    d = float(max_displacement)
+    values = (dest_control_points - source_control_points).float()
+    scale = 1.0 / float(max(h_out, w_out))   # the crop frame
+    gy_e, gx_e = _coarse_grid(h_out, int(in_size[1]), stride, values.device)
+    gy_c, gx_c = _coarse_grid(h_out, w_out, stride, values.device)
+    tp = dest_control_points.float() * scale
+    wgt, v = _solve_spline(tp, values, regularization)
+
+    hc, wce = gy_e.shape
+    gy_b = gy_e.expand(b, hc, wce)
+    gx_b = gx_e - crop_offset[:, 1].float()[:, None, None]
+    q = torch.stack([gy_b, gx_b], dim=-1).reshape(b, -1, 2) * scale
+    fl = _evaluate_spline(q, tp, wgt, v).reshape(b, hc, wce, 2)
+    if clamp_flow:
+        fl = fl.clamp(-d, d)
+    q = torch.stack([gy_b, gx_b + fl[..., 1]], dim=-1).reshape(b, -1, 2)
+    q = q * scale
+    fy = _evaluate_spline(q, tp, wgt, v)[..., 0].reshape(b, hc, wce)
+    q = torch.stack([gy_c, gx_c], dim=-1).reshape(1, -1, 2) * scale
+    fx = _evaluate_spline(q.expand(b, -1, -1), tp, wgt, v)[..., 1].reshape(
+        b, *gy_c.shape)
+    if clamp_flow:
+        fx = fx.clamp(-d, d)
+    if stride > 1:
+        fy = _upsample_plane(fy, h_out, int(in_size[1]), stride)
+        fx = _upsample_plane(fx, h_out, w_out, stride)
+    return fy, fx
+
+
+def sparse_image_warp_cropped(image, source_control_points,
+                              dest_control_points, crop_offset, out_size,
+                              regularization=0.0, max_displacement=8,
+                              clamp_flow=True, flow_grid_stride=4):
+    '''Crop [B, h_in, w_in, C] windows at per-image integer ``crop_offset``
+    ([B, 2], (oy, ox), 0 <= off <= in - out) to out_size and warp the crops
+    as ``sparse_image_warp(method='two_pass')`` would, in one resample that
+    never writes the crop (ops/kernels/warp_crop.py). Control points are in
+    the crop frame. At stride 1 the flow equals the composed path's; at
+    stride > 1 the coarse grids of the two differ by the crop shift mod
+    stride, and both approximate the same spline within the sub-0.15 px
+    interpolation bound.'''
+    image = image.float()
+    fy, fx = cropped_twopass_flows(
+        source_control_points, dest_control_points, crop_offset,
+        image.shape[1:3], out_size, regularization, max_displacement,
+        clamp_flow, flow_grid_stride)
+    return warp_crop_mod.warp_crop(
+        image.contiguous(), fy.contiguous(), fx.contiguous(),
+        crop_offset.to(torch.int32).contiguous(), max_displacement)

@@ -28,6 +28,14 @@ from dnncancerannotator_torch.data import augment
 from dnncancerannotator_torch.ops import warp
 from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
+# the per-step and intra-channel warps on smooth images: both packages solve
+# the spline in f32 with different LU code, so their flows differ a little
+# (test_coarse_flow_matches_jax), and a sample moves by that times the
+# image's gradient: 3.0e-6 measured for random_warp's options, 1.0e-4 for
+# the intra-channel options (stddev 5, max_diff 100: larger, unclamped
+# flows); each bound is about 10x that
+WARP_ATOL = 3e-5
+INTRA_ATOL = 1e-3
 SLICE_TYPES = ('TRA', 'ADC', 'DWI', 'DCEE', 'DCEL', 'label')
 CHAIN = {'random_crop': None, 'random_flip': None, 'random_contrast': None,
          'random_warp': None}
@@ -56,6 +64,20 @@ def test_twopass_resample_matches_pallas(d, scale):
     got = WT.warp_twopass(_t(image), _t(flow), d)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
+
+
+def _smooth_images(b, size, c, seed):
+    '''Gaussian blobs in [0, 1] (tests/test_augment_fused.py's batch).'''
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    images = np.zeros((b, size, size, c), np.float32)
+    for i in range(b):
+        for _ in range(4):
+            cy, cx = rng.uniform(10, size - 10, 2)
+            images[i, ..., rng.integers(0, c)] += np.exp(
+                -(((yy - cy) ** 2 + (xx - cx) ** 2) / 60.0)
+            ).astype(np.float32)
+    return np.clip(images, 0, 1)
 
 
 def _jax_points(n, n_points, size, seed):
@@ -184,12 +206,91 @@ def test_warp_bank():
 
 
 def test_unported_chains_raise():
-    methods = augment.parse_augment_options(CHAIN, SLICE_TYPES, (32, 32))
-    with pytest.raises(NotImplementedError, match='per-step'):
-        augment.build_augment_fn(methods, warp_bank=None)
-    methods = augment.parse_augment_options(
-        {'random_intrachannelwarp': None}, SLICE_TYPES, (32, 32))
-    with pytest.raises(NotImplementedError, match='random_intrachannelwarp'):
-        augment.build_augment_fn(methods)
     with pytest.raises(NotImplementedError, match='RGB'):
         augment.parse_augment_options({'random_hue': None}, SLICE_TYPES)
+
+
+@pytest.mark.parametrize('method,stride', [('two_pass', 4), ('two_pass', 1),
+                                           ('exact', 1)])
+def test_sparse_image_warp_matches_jax(method, stride):
+    '''The per-step warp, both methods, on the same points and images
+    (the flow clamped, as random_warp asks).'''
+    src, dst = _jax_points(2, 20, 48, seed=6)
+    image = _smooth_images(2, 48, 6, seed=6)
+    kwargs = dict(method=method, max_displacement=8, clamp_flow=True,
+                  flow_grid_stride=stride)
+    want = jax_warp.sparse_image_warp(jnp.asarray(image), jnp.asarray(src),
+                                      jnp.asarray(dst), **kwargs)
+    got = warp.sparse_image_warp(_t(image), _t(src), _t(dst), **kwargs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=WARP_ATOL)
+
+
+def test_dense_image_warp_matches_jax():
+    '''map_coordinates' bilinear gather with edge clamping, at a flow that
+    reaches past every edge.'''
+    rng = np.random.default_rng(8)
+    image = _images(2, 24, seed=8)
+    flow = (rng.standard_normal((2, 24, 24, 2)) * 9).astype(np.float32)
+    want = jax_warp.dense_image_warp(jnp.asarray(image), jnp.asarray(flow))
+    got = warp.dense_image_warp(_t(image), _t(flow))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+def test_intrachannelwarp_matches_jax():
+    '''random_intrachannelwarp with JAX's per-group draws: the label
+    paired with channel 0, every other channel alone.'''
+    images = _smooth_images(2, 40, 6, seed=6)
+    key = jax.random.PRNGKey(6)
+    opts = dict(n_points=20, max_diff=100, stddev=5.0)
+    want = jax_augment.random_intrachannelwarp_batch(jnp.asarray(images), key,
+                                                     **opts)
+    groups = augment._channel_groups(6, ((0, -1),))
+    assert groups == [[0, 5], [1], [2], [3], [4]]
+    draws = [tuple(map(_t, jax_augment._warp_points(k, 2, 20, 40, 5.0, 100)))
+             for k in jax.random.split(key, len(groups))]
+    got = augment.apply_intrachannelwarp(_t(images), draws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=INTRA_ATOL)
+
+
+def test_bank_serves_only_random_warp():
+    '''With a bank of the crop size random_warp draws bank fields, and
+    random_intrachannelwarp after it still draws its own points per
+    group.'''
+    methods = augment.parse_augment_options(
+        {'random_crop': None, 'random_warp': None,
+         'random_intrachannelwarp': {'n_points': 10}}, SLICE_TYPES, (32, 32))
+    gen = torch.Generator().manual_seed(4)
+    bank = augment.build_warp_bank(gen, 4, (32, 32), n_points=10)
+    images = _t(_images(2, 44, seed=9))
+    draws = augment.draw_chain(methods, images.shape, gen, bank)
+    assert [d.shape for d in draws[1]] == [(2,)] * 3        # index, mirrors
+    assert len(draws[2]) == 5 and all(
+        s.shape == d.shape == (2, 10, 2) for s, d in draws[2])
+    want = augment.apply_intrachannelwarp(augment.apply_banked_warp(
+        augment.apply_crop(images, draws[0], (32, 32)), bank, draws[1]),
+        draws[2])
+    assert torch.equal(augment.apply_chain(methods, images, draws, bank),
+                       want)
+
+
+def test_per_step_warp_draws():
+    '''The per-step warp draws its points over the image width at its
+    place in the chain (the crop's, not the window's).'''
+    methods = augment.parse_augment_options(
+        {'random_crop': None, 'random_warp': {'n_points': 50},
+         'random_intrachannelwarp': {'paired': [[1, 2]], 'n_points': 7}},
+        SLICE_TYPES, (32, 32))
+    gen = torch.Generator().manual_seed(2)
+    _, (src, dst), groups = augment.draw_chain(methods, (400, 44, 44, 6), gen)
+    assert src.shape == (400, 50, 2)
+    assert 0 <= src.min() and src.max() < 32
+    assert abs(src.double().mean() - 16) < 0.1
+    assert abs(src.double().std() - 32 / 12 ** 0.5) < 0.05
+    d = (dst - src).double()
+    assert d.abs().max() <= 5 + 1e-4 and abs(d.std() - 2.0) < 0.05
+    assert abs(d.mean()) < 0.04      # 4 standard errors
+    # groups [1, 2], then 0, 3, 4, 5 alone
+    assert len(groups) == 5 and groups[0][0].shape == (400, 7, 2)

@@ -24,6 +24,7 @@ from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc_bwd as TNB
+from dnncancerannotator_torch.ops.kernels import warp_crop as WC
 from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 pytestmark = pytest.mark.gpu
@@ -160,6 +161,44 @@ def test_warp_twopass_kernel(cuda, b, h, w, c, d, scale):
     torch.cuda.synchronize()
     # rounded, uncontracted blends: the same floats as the plain version
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('b,h_in,w_in,h_out,w_out,c,d,scale', [
+    (2, 44, 50, 32, 37, 6, 8, 4.0),
+    (3, 30, 31, 30, 31, 3, 3, 10.0),   # no margin; flows past +-d
+    (4, 76, 76, 64, 64, 1, 18, 25.0),
+])
+def test_warp_crop_kernel(cuda, b, h_in, w_in, h_out, w_out, c, d, scale):
+    gen = torch.Generator().manual_seed(10)
+    img = _rand(gen, b, h_in, w_in, c)
+    fy = _rand(gen, b, h_out, w_in) * scale
+    fx = _rand(gen, b, h_out, w_out) * scale
+    off = torch.stack([
+        torch.randint(0, h_in - h_out + 1, (b,), generator=gen),
+        torch.randint(0, w_in - w_out + 1, (b,), generator=gen)], 1)
+    off[0] = 0
+    off[-1] = torch.tensor([h_in - h_out, w_in - w_out])
+    off = off.int().cuda()
+    before = WC.launches
+    got = WC.warp_crop(img, fy, fx, off, d)
+    assert WC.launches == before + 1
+    want = WC.plain(img, fy, fx, off, d)
+    torch.cuda.synchronize()
+    # rounded, uncontracted blends: the same floats as the plain version
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def test_warp_crop_rejects_bad_inputs(cuda):
+    img = torch.zeros(1, 10, 10, 2, device=cuda)
+    fy, fx = torch.zeros(1, 8, 10, device=cuda), torch.zeros(1, 8, 8,
+                                                           device=cuda)
+    off = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match='int32'):
+        WC.warp_crop(img, fy, fx, off.long(), 8)
+    with pytest.raises(ValueError, match='contiguous'):
+        WC.warp_crop(img.transpose(1, 2), fy, fx, off, 8)
+    with pytest.raises(TypeError, match='float32'):
+        WC.warp_crop(img.double(), fy.double(), fx.double(), off, 8)
 
 
 @pytest.mark.parametrize('case', ['spiral', 'checkerboard', 'full', 'empty',

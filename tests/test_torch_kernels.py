@@ -25,6 +25,7 @@ from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc_bwd as TNB
+from dnncancerannotator_torch.ops.kernels import warp_crop as WC
 from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
 _REL_TOL = 2e-5
@@ -153,6 +154,8 @@ def test_cpu_tensors_launch_no_kernel():
     SCB.stencil_conv_bwd(x, torch.rand(1, 1, 8, 8), torch.rand(1, 3, 1, 1),
                          ((0, 0), (0, 0)))
     WT.warp_twopass(torch.rand(1, 8, 8, 6), torch.rand(1, 8, 8, 2))
+    WC.warp_crop(torch.rand(1, 10, 10, 6), torch.rand(1, 8, 10),
+                 torch.rand(1, 8, 8), torch.zeros(1, 2, dtype=torch.int32))
     CCA.cca_raw_labels(torch.rand(2, 8, 8) > 0.5)
     xn = torch.rand(1, 4, 4, 128)
     PNB.pool2x2_nhwc_bwd(xn, PN.pool2x2_nhwc(xn))
@@ -162,7 +165,8 @@ def test_cpu_tensors_launch_no_kernel():
         'conv_chain': 0, 'conv_chain_bwd': 0, 'tconv2x2': 0,
         'tconv2x2_bwd': 0, 'stencil_conv': 0, 'stencil_conv_bwd': 0,
         'warp_twopass': 0, 'cca': 0, 'pool2x2_nhwc': 0,
-        'pool2x2_nhwc_bwd': 0, 'tconv2x2_nhwc': 0, 'tconv2x2_nhwc_bwd': 0}
+        'pool2x2_nhwc_bwd': 0, 'tconv2x2_nhwc': 0, 'tconv2x2_nhwc_bwd': 0,
+        'warp_crop': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():

@@ -7,7 +7,10 @@ Phases (each raises on failure, so the process exits non-zero):
 3. forward kernels: at every site of the unet.yaml prediction path (B=64,
    256 x 256) each kernel against its plain PyTorch version on the same
    inputs, TF32 off, to max|diff| <= 1e-4 * max|ref|, and the median of 20
-   CUDA-event timings of each, taken in turns;
+   CUDA-event timings of each around the Python call, taken in turns, and
+   its device time alone (torch.profiler's summed kernel time of 10 calls,
+   over 10; the larger of two such windows), for the kernel, its plain
+   version and the library call;
 3b. backward and warp kernels: at every site of the training step (B=8,
    256 x 256 crops) each backward kernel against its plain version (the
    data and weight gradients of the plain forward, with the same saved relu
@@ -64,7 +67,9 @@ Phases (each raises on failure, so the process exits non-zero):
    the NHWC pool (down_1..3) and transposed conv (up_0..2) kernels; each
    kernel against its plain version there: the pool forward and backward
    exactly equal, the tconv forward and dx to DX_TOL * max|ref|, dw and db
-   to DW_TOL * max|ref|; timings as in 3;
+   to DW_TOL * max|ref|, each no further from its f64 plain version than
+   F64_RATIO times the plain f32 version (the 3xTF32 tensor-core GEMM), the
+   backward bit-equal across two calls; timings as in 3;
 7. unet_big training: the ``train`` CLI with the unet_big + f32 +
    pallas_decoder stack (BIG_CONFIGS; B=8 256 x 256 crops, banked warp,
    weighted BCE, Adam) for 20 steps in chunks of 10, checkpointing every 10,
@@ -99,12 +104,19 @@ Phases (each raises on failure, so the process exits non-zero):
    per-step composed and the fused route (CUDA events, median of 20, in
    turns); the fused chain's train throughput as in 5.
 
+9. profiler windows: torch.profiler slows every later CUDA call on the host,
+   so the device times of phases 3-3f and the train-step profiles of
+   phases 7 and 8 are taken last, after every host-clock and CUDA-event
+   measurement.
+
 Each phase's wall time is printed when it ends. The last three lines of
 stdout are a JSON object of per-kernel results for all thirteen kernels
 (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
-f32 outside the tensor cores, from the inputs of this run, and the time of
-one PyTorch call computing the same function where one exists), the card's
+f32 outside the tensor cores, from the inputs of this run, for the 3xTF32
+tconv GEMM also 3 x its FLOPs over the 495 TFLOP/s of TF32, the device
+times, and the time of one PyTorch call computing the same function where
+one exists), the card's
 name and power limit, and {"ok": true, "device": {...}}. Without a CUDA
 device it exits non-zero before printing any of them.
 '''
@@ -118,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -220,10 +233,18 @@ INTRA_CONFIG = 'configs/additionals/intra_channelwarp_std5.yaml'
 # grids differ by the crop shift, which can move a sample ~0.3 px
 FUSED_MEAN, FUSED_MAX, FUSED_Q999 = 5e-3, 0.25, 0.1
 ORACLE_BATCH = 4
-# the H100 SXM's published peaks: HBM bytes/s and f32 FLOP/s outside the
-# tensor cores (the port keeps TF32 off)
+# the H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s outside the
+# tensor cores (the port keeps TF32 off but in the 3xTF32 tconv GEMM) and
+# dense TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# device time: calls under torch.profiler per kernel, plain version or
+# library call
+DEVICE_RUNS = 10
+# the 3xTF32 tconv GEMM's error against f64, at most this many times the
+# plain f32 version's (the dropped small*small term, ~2^-22 a product)
+F64_RATIO = 4.0
 
 
 def log(*args):
@@ -294,8 +315,10 @@ def build():
     log(f'build: {_build.build_seconds:.2f} s -> {_build.library_path()}')
     with open(os.path.join(_build.BUILD_DIR, 'nvcc.log')) as fh:
         for line in fh:
-            if 'registers' in line or 'spill' in line:
-                log('  nvcc:', line.strip())
+            if 'Compiling entry function' in line:
+                log('  nvcc:', line.split("'")[1][:72])
+            elif 'registers' in line or 'spill' in line:
+                log('  nvcc:   ', line.strip())
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -325,27 +348,92 @@ def _time_pair(kernel_fn, plain_fn):
     return t['kernel'], t['plain']
 
 
+# torch.profiler's tracing can leave later CUDA calls of the process slower
+# on the host (a call that took device times in phases 3-3f measured the
+# unet.yaml train throughput 40% below the call before it), so every
+# profiler window is queued here and run after the last host-clock or
+# CUDA-event measurement
+_DEFERRED = []
+
+
+def _frozen(fn):
+    '''A copy of ``fn`` whose free variables keep the values they have now:
+    the sites' lambdas close over their loops' variables, and a queued call
+    must see its own site's tensors.'''
+    cells = []
+    for cell in fn.__closure__ or ():
+        try:
+            cells.append(types.CellType(cell.cell_contents))
+        except ValueError:   # not bound yet
+            cells.append(cell)
+    return types.FunctionType(fn.__code__, fn.__globals__, fn.__name__,
+                              fn.__defaults__, tuple(cells) or None)
+
+
+def _device_ms(fn, runs=DEVICE_RUNS):
+    '''Device time of one call of ``fn``: the device time of every kernel,
+    copy and fill that ``runs`` calls launched, summed by torch.profiler,
+    over ``runs``; no host time.'''
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, cuda]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, 'is_user_annotation', False))
+    return us / 1e3 / runs
+
+
 def _time_site(kernel_fn, plain_fn, library_fn=None):
-    '''(kernel ms, plain ms, library ms or None), timed in turns.'''
-    fns = {'plain': plain_fn, 'kernel': kernel_fn}
+    '''{ms, plain_ms, library_ms}: median CUDA-event ms around each call
+    (host time included), timed in turns; and {device_ms, plain_device_ms,
+    library_device_ms}: the device time alone (``_device_ms``); the
+    library's None without a library call.'''
+    fns = {'': kernel_fn, 'plain_': plain_fn}
     if library_fn is not None:
-        fns['library'] = library_fn
+        fns['library_'] = library_fn
     t = _time_fns(fns)
-    log(f'    kernel {t["kernel"]:.4f} ms  plain {t["plain"]:.4f} ms'
-        + (f'  library {t["library"]:.4f} ms' if library_fn else ''))
-    return t['kernel'], t['plain'], t.get('library')
+    times = {'library_ms': None, 'library_device_ms': None}
+    for key in fns:
+        times[key + 'ms'] = t[key]
+    log('    ' + '  '.join(f'{key or "kernel_"}ms {t[key]:.4f}' for key in fns))
+
+    frozen = {key: _frozen(fn) for key, fn in fns.items()}
+
+    def device_times():
+        for key, fn in frozen.items():
+            # the larger of two windows: now and then a window misses the
+            # records of some kernels (seen once or twice a run, as a time
+            # near 0)
+            times[key + 'device_ms'] = max(_device_ms(fn), _device_ms(fn))
+        log(f'  {times["label"]:44s} ' + '  '.join(
+            f'{key or "kernel_"}device_ms {times[key + "device_ms"]:.4f}'
+            for key in fns))
+    _DEFERRED.append(device_times)
+    return times
 
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, rate=F32_FLOP_PER_S):
     '''(ms, what bounds it): the least time the H100 could take to move
-    ``n_bytes`` and do ``flops`` f32 operations.'''
+    ``n_bytes`` and do ``flops`` operations at ``rate`` (f32 FMAs outside
+    the tensor cores by default).'''
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def tf32x3_bound(n_bytes, flops):
+    '''``bound`` of a 3xTF32 product: three TF32 products for each f32
+    one, on the tensor cores.'''
+    return bound(n_bytes, 3 * flops, TF32_FLOP_PER_S)
 
 
 def _check_close(name, got, want, tol=KERNEL_TOL):
@@ -358,22 +446,34 @@ def _check_close(name, got, want, tol=KERNEL_TOL):
     return err
 
 
-def record(results, name, err, times, site_bound):
-    '''Sum a site's times (kernel, plain, library or None) and its bound
-    (ms, what bounds it) into its kernel's entry; keep the worst error. The
-    entry is bound by what bounds the larger share of its summed bound.'''
-    ms, plain_ms, library_ms = times
+def record(results, name, err, times, site_bound, tc_bound=None):
+    '''Sum a site's times (``_time_site``) and its bound (ms, what bounds
+    it; and for a tensor-core kernel its ``tf32x3_bound`` as well) into its
+    kernel's entry; keep the worst error. The entry is bound by what bounds
+    the larger share of its summed bound.'''
     acc = results.setdefault(name, dict(
-        max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+        max_abs_err=0.0, site_times=[], bound_ms=0.0,
         by={'bytes': 0.0, 'operations': 0.0}, sites=0))
     acc['max_abs_err'] = max(acc['max_abs_err'], err)
-    acc['ms'] += ms
-    acc['plain_ms'] += plain_ms
-    acc['library_ms'] = (None if library_ms is None or acc['library_ms'] is None
-                         else acc['library_ms'] + library_ms)
+    times['label'] = f'{name} site {acc["sites"] + 1}'
+    acc['site_times'].append(times)
     acc['bound_ms'] += site_bound[0]
     acc['by'][site_bound[1]] += site_bound[0]
+    if tc_bound is not None:
+        acc['tf32x3_bound_ms'] = acc.get('tf32x3_bound_ms', 0.0) + tc_bound[0]
     acc['sites'] += 1
+
+
+def summed_times(acc):
+    '''A kernel's times (``_time_site``) summed over its sites; None where
+    a site has no library call.'''
+    out = {}
+    for times in acc['site_times']:
+        for key, value in times.items():
+            if key != 'label':
+                out[key] = (None if value is None or out.get(key, 0.0) is None
+                            else out.get(key, 0.0) + value)
+    return out
 
 
 def _site_hw(path, size):
@@ -443,10 +543,25 @@ def kernel_sites(model, device, results):
 
 
 # -- phase 3b ----------------------------------------------------------------
-def _check_grads(name, got, want, want64):
+def _f64_errors(name, got, want, want64, ratio=None):
+    '''Prints the kernel's and the plain f32 version's max|diff| from the
+    f64 plain version and their ratio; with ``ratio``, raises where the
+    kernel's is more than ``ratio`` times the plain version's.'''
+    err = float((got.double() - want64).abs().max())
+    plain_err = float((want.double() - want64).abs().max())
+    share = err / plain_err if plain_err else float('inf') if err else 1.0
+    log(f'  {"":44s} vs f64: kernel {err:.3e}  plain f32 {plain_err:.3e}  '
+        f'ratio {share:.2f}')
+    if ratio is not None and not err <= ratio * plain_err:
+        raise AssertionError(f'{name}: the kernel is {share:.2f}x as far from '
+                             f'f64 as the plain f32 version (> {ratio})')
+
+
+def _check_grads(name, got, want, want64, ratio=None):
     '''(dx or None, weight and bias gradients...) of a backward kernel
     against its plain version: dx to DX_TOL, the rest to DW_TOL, relative
-    to max|ref|; prints the plain f32 version's own error against f64.'''
+    to max|ref|; prints the kernel's and the plain f32 version's error
+    against f64 (``_f64_errors``, ``ratio`` as there).'''
     worst = 0.0
     for label, g, w, w64 in zip(('dx', 'dw1', 'db1', 'dw2', 'db2')
                                 if len(got) == 5 else ('dx', 'dw', 'db'),
@@ -455,10 +570,10 @@ def _check_grads(name, got, want, want64):
             continue
         err = float((g - w).abs().max())
         scale = float(w.abs().max())
-        f64_err = float((w.double() - w64).abs().max())
         tol = DX_TOL if label == 'dx' else DW_TOL
         log(f'  {name:40s} {label:3s} max|diff| {err:.3e}  max|ref| '
-            f'{scale:.3e}  plain f32 vs f64 {f64_err:.3e}')
+            f'{scale:.3e}')
+        _f64_errors(f'{name} {label}', g, w, w64, ratio)
         if not err <= tol * scale:
             raise AssertionError(f'{name} {label}: kernel disagrees with its '
                                  f'plain version: {err} > {tol} * {scale}')
@@ -1299,28 +1414,39 @@ def big_kernel_sites(device, results):
         tconv = modules[path + '.tconv']
         x, w, bias = seen[path].contiguous(), tconv.weight, tconv.bias
         site = f'{path} {w.shape[0]}->{w.shape[1]} @{x.shape[1]}'
-        got = TN.tconv2x2_nhwc(x, w, bias)
-        err = _check_close(f'tconv2x2_nhwc {site}', got,
-                           TN.plain(x, w, bias), DX_TOL)
+        got, want = TN.tconv2x2_nhwc(x, w, bias), TN.plain(x, w, bias)
+        name = f'tconv2x2_nhwc {site}'
+        err = _check_close(name, got, want, DX_TOL)
+        _f64_errors(name, got, want, TN.plain(*_f64(x, w, bias)), F64_RATIO)
+        # the forward as predict calls it (the weight packed in the call)
         times = _time_site(
             lambda: TN.tconv2x2_nhwc(x, w, bias),
             lambda: TN.plain(x, w, bias),
             lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), w, bias,
                                        stride=2))
-        record(results, 'tconv2x2_nhwc', err, times,
-               bound(nbytes(x, w, bias, got), 2 * got.numel() * w.shape[0]))
+        work = (nbytes(x, w, bias, got), 2 * got.numel() * w.shape[0])
+        record(results, 'tconv2x2_nhwc', err, times, bound(*work),
+               tf32x3_bound(*work))
         g = torch.randn(got.shape, generator=gen, device=device)
-        grads = TNB.tconv2x2_nhwc_bwd(x, g, w)
+        # the backward as training calls it: the weight packed by the
+        # forward; two calls give the same bits
+        wpt = TN.pack(w)
+        grads = TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt)
+        again = TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f'tconv2x2_nhwc_bwd {site}: two calls differ')
         err = _check_grads(f'tconv2x2_nhwc_bwd {site}', grads,
-                           TNB.plain(x, g, w), TNB.plain(*_f64(x, g, w)))
+                           TNB.plain(x, g, w), TNB.plain(*_f64(x, g, w)),
+                           F64_RATIO)
         times = _time_site(
-            lambda: TNB.tconv2x2_nhwc_bwd(x, g, w),
+            lambda: TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt),
             lambda: TNB.plain(x, g, w),
             lambda: conv_bwd(g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w,
                              [w.shape[1]], [2, 2], [0, 0], [1, 1], True,
                              [0, 0], 1, [True, True, True]))
-        record(results, 'tconv2x2_nhwc_bwd', err, times,
-               bound(nbytes(x, g, w, *grads), 4 * g.numel() * w.shape[0]))
+        work = (nbytes(x, g, w, *grads), 4 * g.numel() * w.shape[0])
+        record(results, 'tconv2x2_nhwc_bwd', err, times, bound(*work),
+               tf32x3_bound(*work))
 
 
 # -- phase 7 -----------------------------------------------------------------
@@ -1354,39 +1480,61 @@ def _batch_stats(path):
         return {k: npz[k] for k in npz.files if k.startswith('batch_stats/')}
 
 
-def _big_step(eng, ds, raw, draws, plain):
+def _big_step(eng, ds, raw, draws, plain, f64=False):
     '''Loss, parameter gradients and updated BatchNorm statistics of one
     train-mode step on ``raw`` with the given draws, through the kernels or
-    their plain versions; the statistics are put back after.'''
+    their plain versions; the statistics are put back after. With ``f64``
+    the plain step's model and loss run in f64 on the same augmented f32
+    batch (the kernels take f32 only, so none routes), and the model is
+    put back in f32 after: an exact reference for ``_compare_step``.'''
     from dnncancerannotator_torch.data import augment
     from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
     start = {n: b.clone() for n, b in eng.model.named_buffers()}
-    with (_plain_versions(*_nhwc_modules(), WT) if plain
-          else contextlib.nullcontext()):
-        images = augment.apply_chain(ds.augment_methods, raw.float() / 255.0,
-                                     draws, eng._warp_bank(ds))
-        x, y = augment.to_feature_label(images, ds.slice_types)
-        eng.model.zero_grad(set_to_none=True)
-        with eng.scope(training=True):
-            logits = eng.model(x, return_logits=True)
-        loss = eng.loss(y, logits)
-        loss.backward()
-    grads = {n: p.grad.clone() for n, p in eng.model.named_parameters()}
-    stats = {}
-    for n, b in eng.model.named_buffers():
-        stats[n] = b.clone()
-        b.copy_(start[n])
+    try:
+        with (_plain_versions(*_nhwc_modules(), WT) if plain
+              else contextlib.nullcontext()):
+            images = augment.apply_chain(
+                ds.augment_methods, raw.float() / 255.0, draws,
+                eng._warp_bank(ds))
+            x, y = augment.to_feature_label(images, ds.slice_types)
+            if f64:
+                eng.model.double()
+                x = x.double()
+            eng.model.zero_grad(set_to_none=True)
+            with eng.scope(training=True):
+                logits = eng.model(x, return_logits=True)
+            loss = eng.loss(y, logits)
+            loss.backward()
+        grads = {n: p.grad.clone() for n, p in eng.model.named_parameters()}
+        stats = {}
+        for n, b in eng.model.named_buffers():
+            stats[n] = b.clone()
+            b.copy_(start[n])
+    finally:
+        if f64:
+            eng.model.float()
+            eng.model.zero_grad(set_to_none=True)
     return float(loss.detach()), grads, stats
 
 
-def _compare_step(got, want):
+def _compare_step(got, want, exact):
     '''One step through the kernels against the plain step: the loss to
     LOSS_TOL relative, each gradient to STEP_TOL and each statistic to
     STATS_TOL of max|ref|. A bias right before a BatchNorm (the tconv
     biases) has an exact gradient of 0, so both sides hold rounding noise
-    there: a bias is held on the scale of its layer's weight gradient.'''
+    there: a bias is held on the scale of its layer's weight gradient.
+
+    Where the kernel step is further than that from the plain f32 step,
+    both are held to the f64 step (``exact()``, made once, when first
+    needed): the kernel step passes if it is no further from it than
+    F64_RATIO times the plain step, the kernels' own rule (phase 3e). A
+    gradient that is a sum cancelling to near 0 (a BatchNorm bias whose
+    incoming gradient has zero pixel mean before a relu mask) holds the
+    rounding of every term it sums, and the plain f32 step is no truth
+    there.'''
     (loss, grads, stats), (plain_loss, plain_grads, plain_stats) = got, want
+    exact_step = []
     log(f'one unet_big train step: loss {loss:.7f} kernels, {plain_loss:.7f} '
         'plain')
     if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
@@ -1399,13 +1547,26 @@ def _compare_step(got, want):
             scale = max(float(w.abs().max()), float(
                 ref.get(layer + '.weight', w).abs().max()))
             err = float((ours[name] - w).abs().max())
-            worst[kind] = max(worst[kind], err / scale)
-            if not err <= tol * scale:
+            if err <= tol * scale:
+                worst[kind] = max(worst[kind], err / scale)
+                continue
+            if not exact_step:
+                exact_step.append(exact())
+            ref64 = exact_step[0][1 if kind == 'grad' else 2][name]
+            err64, plain64 = (float((t.double() - ref64).abs().max())
+                              for t in (ours[name], w))
+            log(f'  {name}: {err:.3e} > {tol} * {scale:.3e} from the plain '
+                f'step; from the f64 step: kernels {err64:.3e}, plain '
+                f'{plain64:.3e}')
+            if not err64 <= F64_RATIO * plain64:
                 raise AssertionError(f'{name}: {err} > {tol} * {scale} from '
-                                     'the plain train step')
+                                     'the plain train step, and the kernels '
+                                     f'are {err64} from the f64 step against '
+                                     f'the plain step\'s {plain64}')
     log(f'  {len(grads)} parameter gradients within {worst["grad"]:.3e} and '
         f'{len(stats)} BatchNorm statistics within {worst["stat"]:.3e} of '
-        'max|ref| of the plain step')
+        'max|ref| of the plain step, but for those held to the f64 step '
+        'above')
 
 
 def big_train_slice(device, data_paths):
@@ -1514,7 +1675,9 @@ def big_train_slice(device, data_paths):
     draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
                                eng._warp_bank(ds))
     _compare_step(_big_step(eng, ds, raw, draws, plain=False),
-                  _big_step(eng, ds, raw, draws, plain=True))
+                  _big_step(eng, ds, raw, draws, plain=True),
+                  lambda: _big_step(eng, ds, raw, draws, plain=True,
+                                    f64=True))
 
     # the stack without pallas_decoder.yaml: the NHWC kernels stay off
     kernels.reset_launches()
@@ -1534,8 +1697,8 @@ def big_train_slice(device, data_paths):
     log(f'unet_big train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
         f'{plain_ms:.4f} ms (CUDA events, median of {TIMED_RUNS})')
 
-    _profile_steps('unet_big train step',
-                   lambda: eng.train_step(raw, last, gen))
+    _DEFERRED.append(lambda: _profile_steps(
+        'unet_big train step', lambda: eng.train_step(raw, last, gen)))
 
     # throughput: train calls that differ only in step count, min of three
     short, long = 10, 40
@@ -1849,9 +2012,9 @@ def fused_aug_slice(device, data_paths):
     short, long = 25, 100
     eng.train(ds, max_steps=10, save_freq=1 << 30)
     batch = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
-    _profile_steps('fused-chain train step',
-                   lambda: eng.train_step(batch, eng.current_step, gen),
-                   top=8)
+    _DEFERRED.append(lambda: _profile_steps(
+        'fused-chain train step',
+        lambda: eng.train_step(batch, eng.current_step, gen), top=8))
     times = {}
     for n in (short, long):
         for _ in range(3):
@@ -1910,6 +2073,9 @@ def main():
             big_launches, big_predict = big_train_slice(device, train_paths)
         with phase('8 fused augmentation'):
             fused_launches = fused_aug_slice(device, train_paths)
+        with phase('9 profiler windows'):
+            for job in _DEFERRED:
+                job()
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1929,10 +2095,12 @@ def main():
          'launches': launches[name],
          'predict_launches': predict_launches[name],
          'eval_launches': eval_launches[name],
-         'max_abs_err': acc['max_abs_err'], 'ms': acc['ms'],
-         'plain_ms': acc['plain_ms'], 'bound_ms': acc['bound_ms'],
+         'max_abs_err': acc['max_abs_err'], **summed_times(acc),
+         'bound_ms': acc['bound_ms'],
          'bound_by': max(acc['by'], key=acc['by'].get),
-         'library_ms': acc['library_ms'], 'sites': acc['sites']}
+         **({'tf32x3_bound_ms': acc['tf32x3_bound_ms']}
+            if 'tf32x3_bound_ms' in acc else {}),
+         'sites': acc['sites']}
         for name, acc in results.items()]}
     log(json.dumps(kernels_line))
     log(smi)

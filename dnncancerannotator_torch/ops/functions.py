@@ -76,18 +76,21 @@ class Pool2x2NHWCFn(torch.autograd.Function):
 
 
 class TConv2x2NHWCFn(torch.autograd.Function):
-    '''ConvTranspose(kernel=2, stride=2) + bias, NHWC, w [Ci, Co, 2, 2].'''
+    '''ConvTranspose(kernel=2, stride=2) + bias, NHWC, w [Ci, Co, 2, 2]. On
+    the card the weight is packed once a step, in the forward, and the
+    backward's dgrad reads the same packed copy.'''
 
     @staticmethod
     def forward(ctx, x, w, b):
-        ctx.save_for_backward(x, w)
-        return tconv_nhwc_mod.tconv2x2_nhwc(x, w, b)
+        wpt = tconv_nhwc_mod.pack(w) if x.is_cuda else None
+        ctx.save_for_backward(x, w, wpt)
+        return tconv_nhwc_mod.tconv2x2_nhwc(x, w, b, wpt)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        x, w, wpt = ctx.saved_tensors
         return tconv_nhwc_bwd_mod.tconv2x2_nhwc_bwd(
-            x, g.contiguous(), w, need_dx=ctx.needs_input_grad[0])
+            x, g.contiguous(), w, need_dx=ctx.needs_input_grad[0], wpt=wpt)
 
 
 class StencilConvFn(torch.autograd.Function):

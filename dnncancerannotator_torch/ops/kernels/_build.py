@@ -71,11 +71,11 @@ _SIGNATURES = {
     'dnnca_pool2x2_nhwc': [_P] * 2 + [_I] * 5 + [_P],
     # x, g, dx, B, H, W, C, device, stream
     'dnnca_pool2x2_nhwc_bwd': [_P] * 3 + [_I] * 5 + [_P],
-    # x, wp, bias, out, B, H, W, Ci, Co, device, stream
+    # x, wpt, bias, out, B, H, W, Ci, Co, device, stream
     'dnnca_tconv2x2_nhwc': [_P] * 4 + [_I] * 6 + [_P],
-    # x, g, wpt, dx, dw, db, partial, db_partial, B, H, W, Ci, Co,
-    # wgrad_chunk, wgrad_splits, db_chunk, db_chunks, device, stream
-    'dnnca_tconv2x2_nhwc_bwd': [_P] * 8 + [_I] * 10 + [_P],
+    # x, g, wpt, dx, dw, db, w_partial, db_partial, dx_partial, B, H, W, Ci,
+    # Co, dgrad_splits, wgrad_chunk, wgrad_splits, device, stream
+    'dnnca_tconv2x2_nhwc_bwd': [_P] * 9 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

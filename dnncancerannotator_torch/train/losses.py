@@ -37,8 +37,10 @@ def weighted_crossentropy(labels, logits, weight=None, weight_add=0.0,
     (or [B, H, W, 1]).'''
     if logits.dim() == labels.dim() + 1:
         logits = logits.squeeze(-1)
-    labels = labels.float()
-    logits = logits.float()
+    # at least f32 (bf16 logits are upcast; f64 stays f64)
+    dtype = torch.promote_types(logits.dtype, torch.float32)
+    labels = labels.to(dtype)
+    logits = logits.to(dtype)
     if weight is None:
         rate = positive_rate(labels)
         weight = torch.where(rate > 0, 1.0 / rate.clamp(min=1e-12),

@@ -245,15 +245,36 @@ def test_pool2x2_nhwc_kernels(cuda, b, h, w, c, ties):
     (1, 3, 5, 256, 128, True),    # a ragged last row tile
     (2, 4, 4, 128, 256, False),
     (1, 33, 7, 128, 128, True),   # several wgrad chunks, ragged
+    (2, 4, 4, 512, 512, True),    # up_0's widths: the dgrad split by phase
+    (3, 7, 9, 128, 384, True),    # ragged M, Co = 3 x 128
 ])
 def test_tconv2x2_nhwc_kernels(cuda, b, h, w, ci, co, need_dx):
+    '''The 3xTF32 GEMMs against the plain f32 versions, each held to an f64
+    plain version too: the kernel no further from it than 4x the plain f32
+    version (the dropped small*small term is ~2^-22 of a product), and the
+    same bits from two calls (partials added in a fixed order).'''
     gen = torch.Generator().manual_seed(9)
     x, wk, bias = _rand(gen, b, h, w, ci), _rand(gen, ci, co, 2, 2), \
         _rand(gen, co)
     g = _rand(gen, b, 2 * h, 2 * w, co)
-    _assert_close(TN.tconv2x2_nhwc(x, wk, bias), TN.plain(x, wk, bias))
-    _assert_grads(TNB.tconv2x2_nhwc_bwd(x, g, wk, need_dx),
-                  TNB.plain(x, g, wk, need_dx))
+    out = TN.tconv2x2_nhwc(x, wk, bias)
+    _assert_close(out, TN.plain(x, wk, bias))
+    got = TNB.tconv2x2_nhwc_bwd(x, g, wk, need_dx)
+    want = TNB.plain(x, g, wk, need_dx)
+    _assert_grads(got, want)
+    again = TNB.tconv2x2_nhwc_bwd(x, g, wk, need_dx, wpt=TN.pack(wk))
+    for a, c in zip(got, again):
+        assert (a is None and c is None) or torch.equal(a, c)
+    assert torch.equal(out, TN.tconv2x2_nhwc(x, wk, bias, TN.pack(wk)))
+    f64 = [t.double() for t in (x, g, wk, bias)]
+    exact = (TN.plain(f64[0], f64[2], f64[3]),) + TNB.plain(
+        *f64[:3], need_dx)
+    for k, p, e in zip((out,) + got, (TN.plain(x, wk, bias),) + want, exact):
+        if e is None:
+            continue
+        err, plain_err = (float((t.double() - e).abs().max()) for t in (k, p))
+        assert err <= 4 * plain_err + 1e-7 * float(e.abs().max()), \
+            (err, plain_err)
 
 
 def test_wrappers_reject_non_contiguous_and_f64(cuda):

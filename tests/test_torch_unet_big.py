@@ -131,6 +131,86 @@ def test_tconv_matches_pallas(shape):
     assert TNB.tconv2x2_nhwc_bwd(_t(x), _t(g), wt, need_dx=False)[0] is None
 
 
+# the unet_big decoder sites at the training batch (B=8, 256 x 256 crops):
+# x [B, H, W, Ci] and Co at up_0, up_1 and up_2
+BIG_TCONV_SITES = [(8, 16, 16, 512, 512), (8, 32, 32, 512, 256),
+                   (8, 64, 64, 256, 128)]
+
+
+@pytest.mark.parametrize('shape', BIG_TCONV_SITES + [
+    (1, 33, 7, 128, 128), (2, 4, 4, 512, 512), (1, 3, 5, 256, 128)])
+def test_tconv_bwd_plan_covers_every_slice_once(shape):
+    '''The backward's split plan: the dgrad splits cut the four phases into
+    equal whole parts, the wgrad chunks are whole K slices that cover the
+    input pixels once, at least 132 dgrad blocks at the unet_big sites and
+    no more wgrad blocks than one wave where the tiles allow it.'''
+    b, h, w, ci, co = shape
+    pixels = b * h * w
+    dsplits, chunk, wsplits = TNB.plan(b, h, w, ci, co, sms=132)
+    assert dsplits in (1, 2, 4)
+    dgrad_blocks = (ci // 128) * -(-pixels // 128) * dsplits
+    if shape in BIG_TCONV_SITES:
+        assert dgrad_blocks >= 132
+    assert chunk % TNB.BK == 0
+    covered = np.zeros(pixels, int)
+    for z in range(wsplits):
+        lo, hi = z * chunk, min((z + 1) * chunk, pixels)
+        assert lo < hi
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    wgrad_tiles = (ci // 128) * (4 * co // 128)
+    assert wgrad_tiles * wsplits <= max(132, wgrad_tiles)
+
+
+def _gemm_views(x, g, w, bias, wpt, sms=132):
+    '''The products of csrc/tconv_gemm.cuh as the kernels cut them, in plain
+    torch: the forward [M, Ci] x wpt^T with the phases scattered, the dgrad
+    as per-phase splits of K added in order, the wgrad per pixel chunk with
+    db's column sums, both added in order.'''
+    b, h, wd, ci = x.shape
+    co = w.shape[1]
+    m = b * h * wd
+    xm = x.reshape(m, ci)
+    # g's rows of one phase p = 2 * dy + dx, [M, Co]
+    gp = g.reshape(b, h, 2, wd, 2, co).permute(2, 4, 0, 1, 3, 5).reshape(
+        4, m, co)
+    out = (xm @ wpt.T).reshape(b, h, wd, 2, 2, co).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * wd, co) + bias
+    dsplits, chunk, wsplits = TNB.plan(b, h, wd, ci, co, sms)
+    per = 4 // dsplits
+    dx = sum(sum(gp[p] @ wpt[p * co:(p + 1) * co]
+                 for p in range(z * per, (z + 1) * per))
+             for z in range(dsplits))
+    gcat = gp.permute(1, 0, 2).reshape(m, 4 * co)   # [M, p * Co + co]
+    dwp = torch.zeros(ci, 4 * co, dtype=x.dtype)
+    dbp = torch.zeros(4 * co, dtype=x.dtype)
+    for z in range(wsplits):
+        rows = slice(z * chunk, (z + 1) * chunk)
+        dwp = dwp + xm[rows].T @ gcat[rows]
+        dbp = dbp + gcat[rows].sum(0)
+    dw = dwp.reshape(ci, 2, 2, co).permute(0, 3, 1, 2)
+    return out, dx.reshape(x.shape), dw, dbp.reshape(4, co).sum(0)
+
+
+@pytest.mark.parametrize('shape', [(2, 4, 4, 512, 512), (1, 33, 7, 128, 128),
+                                   (2, 3, 5, 128, 256)])
+def test_tconv_packed_weight_gemms_equal_plain(shape):
+    '''The one packed weight read as the forward's B and as the dgrad's B,
+    and the kernels' splits of both reductions, give the plain einsums (in
+    f64, so only a wrong layout or a missed slice could differ).'''
+    b, h, w, ci, co = shape
+    rng = np.random.default_rng(11)
+    x, wk, bias = (torch.from_numpy(rng.standard_normal(s))
+                   for s in ((b, h, w, ci), (ci, co, 2, 2), (co,)))
+    g = torch.from_numpy(rng.standard_normal((b, 2 * h, 2 * w, co)))
+    wpt = TN.pack(wk)
+    assert wpt.shape == (4 * co, ci) and wpt.is_contiguous()
+    out, dx, dw, db = _gemm_views(x, g, wk, bias, wpt)
+    want = (TN.plain(x, wk, bias),) + TNB.plain(x, g, wk)
+    for got, ref in zip((out, dx, dw, db), want):
+        torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-10)
+
+
 # -- routing and gates -------------------------------------------------------------
 POOL_SHAPES = [((2, 16, 16, 128), 2, 'NHWC', 'f32'),
                ((2, 16, 16, 64), 2, 'NHWC', 'f32'),

@@ -6,7 +6,10 @@ Phases (each raises on failure, so the process exits non-zero):
 2. build: compile the CUDA kernels from dnncancerannotator_torch/csrc;
 3. forward kernels: at every site of the unet.yaml prediction path (B=64,
    256 x 256) each kernel against its plain PyTorch version on the same
-   inputs, TF32 off, to max|diff| <= 1e-4 * max|ref|, and the median of 20
+   inputs, TF32 off, to max|diff| <= 1e-4 * max|ref| (the chain also no
+   further from its f64 plain version than F64_RATIO times the plain f32
+   version, and again at B=8 with c1 as training calls it, with its bound
+   counting c1's write), and the median of 20
    CUDA-event timings of each around the Python call, taken in turns, and
    its device time alone (torch.profiler's summed kernel time of 10 calls,
    over 10; the larger of two such windows), for the kernel, its plain
@@ -15,7 +18,11 @@ Phases (each raises on failure, so the process exits non-zero):
    256 x 256 crops) each backward kernel against its plain version (the
    data and weight gradients of the plain forward, with the same saved relu
    masks): dx to 1e-5 * max|ref|, dw and db to 2e-5 * max|ref|, with the
-   plain f32 version's own error against f64 printed beside; the two-pass
+   plain f32 version's own error against f64 printed beside (the chain
+   backward held to F64_RATIO of it, its dw and db the same bits on two
+   calls, and its device time by kernel name and its launches a call,
+   CHAIN_BWD_LAUNCHES, from the fullest of three deferred profiler
+   windows); the two-pass
    warp on [8, 256, 256, 6] at a flow from a real warp bank and at a random
    flow past +-8 px, exactly equal to its plain version; timings as in 3;
 4. prediction: seeded synthetic .tfrecords and a seeded checkpoint, then the
@@ -32,8 +39,10 @@ Phases (each raises on failure, so the process exits non-zero):
    checkpoint equal the plain forward of its weights. Then one train step's
    loss and every parameter gradient through the kernels against a plain
    train step on the same batch and draws (loss to 1e-5 relative, each
-   gradient to 1e-4 * max|ref|), the train step's time with the kernels and
-   plain (CUDA events, median of 20, in turns), and the train throughput in
+   gradient to 1e-4 * max|ref|, else no further from an f64 step than
+   F64_RATIO times the plain step), the train step's time with the kernels and
+   plain (CUDA events, median of 20, in turns), its device busy time (a
+   deferred profiler window of 5 steps), and the train throughput in
    slices/s, measured differentially: the difference of two ``train`` calls
    that differ only in step count, each the minimum of three.
 3c. connected components: the CCA kernel against its plain version, exactly
@@ -77,9 +86,11 @@ Phases (each raises on failure, so the process exits non-zero):
    checkpoint holds batch_stats that moved, each of the four NHWC kernels
    launched at least 3 x steps times and the warp kernel every step,
    ``predict`` from ckpt-30 equals a plain forward of its weights (BatchNorm
-   on its running statistics), one train step's loss, gradients and
-   updated batch_stats through the kernels equal a plain step on the same
-   batch and draws, and the stack without pallas_decoder.yaml launches none
+   on its running statistics; where the two f32 forwards differ by more
+   than 1e-5, the maps are held to an f64 forward, no further from it than
+   F64_RATIO times the plain f32 forward), one train step's loss, gradients
+   and updated batch_stats through the kernels equal a plain step on the
+   same batch and draws (held to an f64 step likewise), and the stack without pallas_decoder.yaml launches none
    of the four. Times the train step (kernels and plain) and the train
    throughput as in 5.
 3f. crop-fused warp: the warp_crop kernel against its plain version, exactly
@@ -106,8 +117,9 @@ Phases (each raises on failure, so the process exits non-zero):
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3f and the train-step profiles of
-   phases 7 and 8 are taken last, after every host-clock and CUDA-event
-   measurement.
+   phases 5, 7 and 8 are taken last, after every host-clock and CUDA-event
+   measurement; then a line of the B=8 chain forward's times summed over
+   the six sites.
 
 Each phase's wall time is printed when it ends. The last three lines of
 stdout are a JSON object of per-kernel results for all thirteen kernels
@@ -123,6 +135,7 @@ device it exits non-zero before printing any of them.
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -388,6 +401,35 @@ def _device_ms(fn, runs=DEVICE_RUNS):
     return us / 1e3 / runs
 
 
+def _device_split(fn, runs=DEVICE_RUNS):
+    '''{kernel name: (device ms, launches)} of one call of ``fn``, from
+    one torch.profiler window of ``runs`` calls (``_device_ms``'s window,
+    by name).'''
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, cuda]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total / 1e3 / runs, e.count / runs)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, 'is_user_annotation', False)
+            and e.self_device_time_total > 0}
+
+
+def _fullest_split(fn, windows=3):
+    '''``_device_split`` of the window, of ``windows``, that recorded the
+    most launches (then the most time): now and then a window misses the
+    records of some kernels or of all of them (seen once or twice a run),
+    never adds any.'''
+    splits = [_device_split(fn) for _ in range(windows)]
+    return max(splits, key=lambda s: (sum(c for _, c in s.values()),
+                                      sum(ms for ms, _ in s.values())))
+
+
 def _time_site(kernel_fn, plain_fn, library_fn=None):
     '''{ms, plain_ms, library_ms}: median CUDA-event ms around each call
     (host time included), timed in turns; and {device_ms, plain_device_ms,
@@ -482,6 +524,38 @@ def _site_hw(path, size):
     return size >> level if 'encoder' in path else size >> (2 - level)
 
 
+# the forward as the 300 training launches call it: B=8, need_c1=True;
+# (site label, times of _time_site, bound ms) for the summary line
+TRAIN_FORWARD = []
+
+
+def train_chain_site(path, w1, b1, w2, b2, hw, gen):
+    '''The chain forward at a site as training calls it (B=8 with c1 for
+    the backward's mask): c1 and c2 against the plain version, within
+    F64_RATIO of it against f64, its times and its bound (c1's write
+    counted).'''
+    from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+    x = torch.rand((TRAIN_BATCH, w1.shape[1], hw, hw), generator=gen,
+                   device=gen.device)
+    c1, c2 = CC.conv_chain(x, w1, b1, w2, b2, need_c1=True)
+    want = CC.plain(x, w1, b1, w2, b2)
+    want64 = CC.plain(*_f64(x, w1, b1, w2, b2))
+    name = f'conv_chain B={TRAIN_BATCH} need_c1 {path}'
+    for label, got_t, want_t, want64_t in zip(('c1', 'c2'), (c1, c2), want,
+                                              want64):
+        _check_close(f'{name} {label}', got_t, want_t)
+        _f64_errors(f'{name} {label}', got_t, want_t, want64_t, F64_RATIO)
+    times = _time_site(lambda: CC.conv_chain(x, w1, b1, w2, b2, need_c1=True),
+                       lambda: CC.plain(x, w1, b1, w2, b2))
+    times['label'] = name
+    taps = w1.shape[2] * w1.shape[3]
+    flops = 2 * x[:, :1].numel() * taps * (w1.shape[0] * w1.shape[1]
+                                           + w2.shape[0] * w2.shape[1])
+    site_bound = bound(nbytes(x, w1, b1, w2, b2, c1, c2), flops)[0]
+    log(f'  {name:44s} bound {site_bound:.4f} ms (c1 written)')
+    TRAIN_FORWARD.append((name, times, site_bound))
+
+
 @torch.no_grad()
 def kernel_sites(model, device, results):
     '''Each kernel against its plain version at every main-path site.'''
@@ -506,6 +580,8 @@ def kernel_sites(model, device, results):
         name = (f'conv_chain {path} {w1.shape[1]}->{w1.shape[0]}->'
                 f'{w2.shape[0]} @{hw}')
         err = _check_close(name, got, want)
+        _f64_errors(name, got, want, CC.plain(*_f64(x, w1, b1, w2, b2))[1],
+                    F64_RATIO)
         times = _time_site(lambda: CC.conv_chain(x, w1, b1, w2, b2),
                            lambda: CC.plain(x, w1, b1, w2, b2))
         taps = w1.shape[2] * w1.shape[3]
@@ -513,6 +589,7 @@ def kernel_sites(model, device, results):
                                                + w2.shape[0] * w2.shape[1])
         record(results, 'conv_chain', err, times,
                bound(nbytes(x, w1, b1, w2, b2, got), flops))
+        train_chain_site(path, w1, b1, w2, b2, hw, gen)
     for path in TCONV_SITES:
         tconv = modules[path + '.tconv']
         w, b = tconv.weight, tconv.bias
@@ -543,6 +620,25 @@ def kernel_sites(model, device, results):
 
 
 # -- phase 3b ----------------------------------------------------------------
+# the chain backward's launches a call at the unet.yaml sites: the fused
+# kernel and the partial sums' finish
+CHAIN_BWD_LAUNCHES = 2
+
+
+def _chain_bwd_split(name, call):
+    '''Prints the chain backward's device time by kernel (deferred profiler
+    windows, ``_fullest_split``) and raises unless it launched
+    CHAIN_BWD_LAUNCHES kernels a call.'''
+    split = _fullest_split(call)
+    log(f'  {name} by kernel, device ms a call:')
+    for key, (ms, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        log(f'    {ms:.4f} ms {count:4.1f}x  {key[:90]}')
+    count = sum(c for _, c in split.values())
+    if count != CHAIN_BWD_LAUNCHES:
+        raise AssertionError(f'{name}: {count} launches a call, want '
+                             f'{CHAIN_BWD_LAUNCHES}')
+
+
 def _f64_errors(name, got, want, want64, ratio=None):
     '''Prints the kernel's and the plain f32 version's max|diff| from the
     f64 plain version and their ratio; with ``ratio``, raises where the
@@ -615,10 +711,16 @@ def backward_sites(model, device, results):
         name = (f'conv_chain_bwd {path} {w1.shape[1]}->{w1.shape[0]}->'
                 f'{w2.shape[0]} @{hw}')
         got = CCB.conv_chain_bwd(*args)
+        again = CCB.conv_chain_bwd(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+            raise AssertionError(f'{name}: dw, db differ between two calls')
         err = _check_grads(name, got, CCB.plain(*args),
-                           CCB.plain(*_f64(*args[:-1]), need_dx))
+                           CCB.plain(*_f64(*args[:-1]), need_dx), F64_RATIO)
         times = _time_site(lambda: CCB.conv_chain_bwd(*args),
                            lambda: CCB.plain(*args))
+        _DEFERRED.append(functools.partial(
+            _chain_bwd_split, name, functools.partial(CCB.conv_chain_bwd,
+                                                      *args)))
         # dc1 and dw2 through conv_1, dw1 (and dx) through conv_0
         pix = x[:, :1].numel() * w1.shape[2] * w1.shape[3]
         flops = 2 * pix * (2 * w2.shape[0] * w2.shape[1]
@@ -781,10 +883,19 @@ def plain_forward(model, x):
     return torch.sigmoid(plain_logits(model, x))
 
 
-def _check_maps(model, data_paths, out_dir, n_slices, reference=None):
+def _check_maps(model, data_paths, out_dir, n_slices, reference=None,
+                exact=None):
     '''The predict CLI's maps: one file per slice, finite, in [0, 1], and
     within MAP_TOL of the plain forward of ``model`` on the card (or of
-    ``reference``, NHWC features -> probabilities).'''
+    ``reference``, NHWC features -> probabilities).
+
+    With ``exact`` (the f64 forward, the same features -> probabilities),
+    maps further than that from the plain f32 forward are held to it as
+    ``_compare_step`` holds a step: they pass if they are no further from
+    it than F64_RATIO times the plain f32 forward's maps, the kernels' own
+    rule (phase 3e). Two f32 forwards of a deep model on the same weights
+    differ by the rounding of every layer, which no fixed tolerance
+    bounds.'''
     from dnncancerannotator_torch.data import pipeline
 
     reference = reference or (lambda x: plain_forward(model, x))
@@ -792,10 +903,13 @@ def _check_maps(model, data_paths, out_dir, n_slices, reference=None):
     ds = pipeline.predict_ds(data_paths, output_size=(SIZE, SIZE),
                              batch_size=BATCH)
     worst, n_files = 0.0, 0
+    worst64 = plain64 = 0.0   # from the f64 forward: the maps, the plain
     with torch.no_grad():
         for batch in ds.batches():
             x = torch.from_numpy(batch['slices']).to(device).float() / 255.0
             ref = reference(x[..., :5]).cpu().numpy()
+            ref64 = (exact(x[..., :5]).cpu().numpy() if exact is not None
+                     else None)
             for i, meta in enumerate(batch['meta']):
                 path = os.path.join(out_dir, *meta['path'].split('/')[-3:],
                                     f"{meta['sliceID']:02d}.npy")
@@ -805,12 +919,25 @@ def _check_maps(model, data_paths, out_dir, n_slices, reference=None):
                     raise AssertionError(f'bad map {path}: {got.shape}, '
                                          f'[{got.min()}, {got.max()}]')
                 worst = max(worst, float(np.abs(got - ref[i, :, :, 0]).max()))
+                if ref64 is not None:
+                    worst64 = max(worst64, float(
+                        np.abs(got - ref64[i, :, :, 0]).max()))
+                    plain64 = max(plain64, float(
+                        np.abs(ref[i, :, :, 0] - ref64[i, :, :, 0]).max()))
                 n_files += 1
     log(f'maps vs plain forward on the card: {n_files} maps, '
-        f'max|diff| {worst:.3e}')
-    if n_files != n_slices or not worst <= MAP_TOL:
+        f'max|diff| {worst:.3e}' + (
+            '' if exact is None else f'; from the f64 forward: maps '
+            f'{worst64:.3e}, plain f32 forward {plain64:.3e}'))
+    if n_files != n_slices:
+        raise AssertionError(f'{n_files} maps, want {n_slices}')
+    if not worst <= MAP_TOL and not (exact is not None
+                                     and worst64 <= F64_RATIO * plain64):
         raise AssertionError(f'maps disagree with the plain forward: '
-                             f'{worst} (tol {MAP_TOL}), {n_files} maps')
+                             f'{worst} (tol {MAP_TOL}), {n_files} maps' + (
+                                 '' if exact is None else
+                                 f'; from the f64 forward {worst64} against '
+                                 f'the plain f32 forward\'s {plain64}'))
 
 
 def run_slice(eng, data_paths, save_path, out_dir):
@@ -886,10 +1013,12 @@ def _plain_warp():
     return _plain_versions(WT)
 
 
-def _step_grads(eng, ds, raw, draws, plain):
+def _step_grads(eng, ds, raw, draws, plain, f64=False):
     '''Loss and parameter gradients of one train step on ``raw`` with the
     given augmentation draws, through the kernels or their plain
-    versions.'''
+    versions. With ``f64`` the plain step's model and loss run in f64 on
+    the same augmented f32 batch, and the model is put back in f32 after
+    (as ``_big_step``).'''
     from dnncancerannotator_torch.data import augment
 
     bank = eng._warp_bank(ds)
@@ -897,13 +1026,21 @@ def _step_grads(eng, ds, raw, draws, plain):
         images = augment.apply_chain(ds.augment_methods, raw.float() / 255.0,
                                      draws, bank)
     x, y = augment.to_feature_label(images, ds.slice_types)
-    eng.model.zero_grad(set_to_none=True)
-    logits = plain_logits(eng.model, x) if plain else eng.model(
-        x, return_logits=True)
-    loss = eng.loss(y, logits)
-    loss.backward()
-    return float(loss.detach()), {n: p.grad.clone()
-                         for n, p in eng.model.named_parameters()}
+    try:
+        if f64:
+            eng.model.double()
+            x = x.double()
+        eng.model.zero_grad(set_to_none=True)
+        logits = plain_logits(eng.model, x) if plain else eng.model(
+            x, return_logits=True)
+        loss = eng.loss(y, logits)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                                      for n, p in eng.model.named_parameters()}
+    finally:
+        if f64:
+            eng.model.float()
+            eng.model.zero_grad(set_to_none=True)
 
 
 def train_slice(device):
@@ -987,16 +1124,32 @@ def train_slice(device):
     log(f'one train step: loss {loss:.7f} kernels, {plain_loss:.7f} plain')
     if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
         raise AssertionError(f'train-step loss {loss} vs plain {plain_loss}')
-    worst = 0.0
+    # a gradient further than STEP_TOL from the plain step is held to the
+    # f64 step, as _compare_step holds unet_big's: no further from it than
+    # F64_RATIO times the plain f32 step
+    worst, exact = 0.0, []
     for name, want in plain_grads.items():
         err = float((grads[name] - want).abs().max())
         scale = float(want.abs().max())
-        worst = max(worst, err / scale)
-        if not err <= STEP_TOL * scale:
+        if err <= STEP_TOL * scale:
+            worst = max(worst, err / scale)
+            continue
+        if not exact:
+            exact.append(_step_grads(eng, ds, raw, draws, plain=True,
+                                     f64=True)[1])
+        err64, plain64 = (float((t.double() - exact[0][name]).abs().max())
+                          for t in (grads[name], want))
+        log(f'  {name}: {err:.3e} > {STEP_TOL} * {scale:.3e} from the plain '
+            f'step; from the f64 step: kernels {err64:.3e}, plain '
+            f'{plain64:.3e}')
+        if not err64 <= F64_RATIO * plain64:
             raise AssertionError(f'{name}: gradient {err} > {STEP_TOL} * '
-                                 f'{scale} from the plain train step')
+                                 f'{scale} from the plain train step, and '
+                                 f'{err64} from the f64 step against the '
+                                 f'plain step\'s {plain64}')
     log(f'one train step: {len(grads)} parameter gradients within '
-        f'{worst:.3e} * max|ref| of the plain step')
+        f'{worst:.3e} * max|ref| of the plain step, but for those held to '
+        'the f64 step above')
 
     # the train step's time, kernels vs plain (a copy of the model and its
     # own Adam for the plain step)
@@ -1015,6 +1168,8 @@ def train_slice(device):
                               plain_step)
     log(f'train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
         f'{plain_ms:.4f} ms (CUDA events, median of {TIMED_RUNS})')
+    _DEFERRED.append(lambda: _profile_steps(
+        'unet.yaml train step', lambda: eng.train_step(raw, last, gen)))
 
     # throughput: train calls that differ only in step count, min of three
     short, long = 25, 100
@@ -1665,8 +1820,16 @@ def big_train_slice(device, data_paths):
         with _plain_versions(*_nhwc_modules()), eng.scope():
             return eng.model(x)
 
+    def exact(x):
+        # the kernels take f32 only: in f64 the plain versions run
+        try:
+            eng.model.double()
+            return reference(x.double())
+        finally:
+            eng.model.float()
+
     _check_maps(eng.model, data_paths, out_dir,
-                sum(TRAIN_EXAMS) * TRAIN_SLICES, reference)
+                sum(TRAIN_EXAMS) * TRAIN_SLICES, reference, exact)
 
     # one step: the kernels against a plain step, same batch and draws
     resident = eng._resident(ds)
@@ -2076,6 +2239,12 @@ def main():
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
+            sums = {key: sum(t[key] for _, t, _ in TRAIN_FORWARD)
+                    for key in ('ms', 'plain_ms', 'device_ms',
+                                'plain_device_ms')}
+            sums['bound_ms'] = sum(b for _, _, b in TRAIN_FORWARD)
+            log(f'conv_chain B={TRAIN_BATCH} need_c1, six sites: '
+                + json.dumps(sums))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

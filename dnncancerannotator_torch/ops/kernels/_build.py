@@ -43,17 +43,18 @@ _I = ctypes.c_int
 # argtypes of every entry point: without them ctypes passes each pointer as
 # a 32-bit int and cuts it
 _SIGNATURES = {
-    # x, w1, b1, w2, b2, c1, c2, B, Ci, Cm, Co, H, W, K, tile_h, smem,
-    # device, stream
-    'dnnca_conv_chain': [_P] * 7 + [_I] * 10 + [_P],
+    # x, w1, b1, w2, b2, c1, c2, B, Ci, Cm, Co, H, W, K, cpt, tile_h,
+    # tile_w, c1_w, c1_s, xs_w, threads, smem, device, stream
+    'dnnca_conv_chain': [_P] * 7 + [_I] * 16 + [_P],
     # x, w, bias, out, B, Ci, Co, H, W, device, stream
     'dnnca_tconv2x2': [_P] * 4 + [_I] * 6 + [_P],
     # x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu,
     # device, stream
     'dnnca_stencil_conv': [_P] * 4 + [_I] * 13 + [_P],
-    # x, c1, c2, g, w1, w2, dx, dc1, dw1b, dw2b, partial, B, Ci, Cm, Co, H,
-    # W, K, tile_h, smem, wgrad_blocks, device, stream
-    'dnnca_conv_chain_bwd': [_P] * 11 + [_I] * 11 + [_P],
+    # x, c1, c2, g, w1, w2, dx, out, scratch, B, Ci, Cm, Co, H, W, K, cpt,
+    # tile_h, tile_w, c1_w, c1_s, gs_w, slices, threads, blocks, fused, smem,
+    # wgrad_blocks, device, stream
+    'dnnca_conv_chain_bwd': [_P] * 9 + [_I] * 20 + [_P],
     # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, wgrad_blocks, device,
     # stream
     'dnnca_tconv2x2_bwd': [_P] * 6 + [_I] * 7 + [_P],

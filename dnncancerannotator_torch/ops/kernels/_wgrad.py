@@ -5,13 +5,17 @@ fits shared memory before they launch it.'''
 import functools
 
 from . import _build
-from .conv_chain import bucket
 
 THREADS = 256
 TILE_H, TILE_W = 8, 32
 # at most this many blocks (4 per SM of an H100): each walks several tiles,
 # so the partial sums stay few
 MAX_BLOCKS = 528
+
+
+def bucket(c):
+    '''The kernel's register width for c output channels.'''
+    return next(b for b in (4, 8, 16, 32) if c <= b)
 
 
 def blocks(b, oh, ow, tile_h=TILE_H, tile_w=TILE_W):

@@ -62,11 +62,19 @@ def _assert_grads(got, want):
         _assert_close(g, w, _W_TOL)
 
 
+# the six unet.yaml sites (at B=2), then the edge shapes
+_CHAIN_SITES = [(5, 3, 3, 256, 256), (3, 6, 6, 128, 128), (6, 12, 12, 64, 64),
+                (24, 12, 12, 64, 64), (12, 6, 6, 128, 128),
+                (6, 3, 3, 256, 256)]
+
+
 @pytest.mark.parametrize('ci,cm,co,h,w,k', [
+    *[(*site, 3) for site in _CHAIN_SITES],
     (5, 3, 3, 37, 70, 3),     # ragged tiles on both axes
     (24, 12, 12, 16, 16, 3),
-    (32, 32, 32, 9, 33, 3),   # widest the kernel takes: smaller tiles
-    (4, 5, 6, 20, 20, 5),
+    (32, 32, 32, 9, 33, 3),   # widest the kernel takes: padded groups
+    (4, 5, 6, 20, 20, 5),     # runtime tap loop
+    (7, 5, 6, 21, 19, 5),
 ])
 def test_conv_chain_kernel(cuda, ci, cm, co, h, w, k):
     gen = torch.Generator().manual_seed(0)
@@ -79,6 +87,7 @@ def test_conv_chain_kernel(cuda, ci, cm, co, h, w, k):
     p1, p2 = CC.plain(x, w1, b1, w2, b2)
     _assert_close(c1, p1)
     _assert_close(c2, p2)
+    _assert_close(CC.conv_chain(x, w1, b1, w2, b2)[1], p2)   # without c1
 
 
 @pytest.mark.parametrize('ci,co,h,w', [(6, 3, 5, 7), (12, 12, 32, 32),
@@ -104,12 +113,16 @@ def test_stencil_conv_kernel(cuda, ci, co, k, pads, relu):
 
 
 @pytest.mark.parametrize('ci,cm,co,h,w,k,need_dx', [
+    *[(*site, 3, need_dx) for site in _CHAIN_SITES
+      for need_dx in (False, True)],
     (5, 3, 3, 37, 70, 3, False),   # down_0's class, ragged tiles
     (5, 3, 3, 37, 70, 3, True),    # down_0 with dx (input sensitivity)
     (24, 12, 12, 16, 16, 3, True),
     (12, 6, 6, 33, 20, 3, True),
-    (4, 5, 6, 20, 20, 5, True),    # runtime tap loop
-    (32, 32, 32, 9, 9, 3, True),   # two passes over the wgrad pairs
+    (4, 5, 6, 20, 20, 5, True),    # runtime tap loop: dgrad + wgrad.cu
+    (4, 5, 6, 20, 20, 5, False),
+    (32, 32, 32, 9, 9, 3, True),   # more wgrad items than threads
+    (32, 32, 32, 9, 9, 3, False),
 ])
 def test_conv_chain_bwd_kernel(cuda, ci, cm, co, h, w, k, need_dx):
     gen = torch.Generator().manual_seed(3)
@@ -121,7 +134,14 @@ def test_conv_chain_bwd_kernel(cuda, ci, cm, co, h, w, k, need_dx):
     before = CCB.launches
     got = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2, need_dx)
     assert CCB.launches == before + 1
-    _assert_grads(got, CCB.plain(x, c1, c2, g, w1, w2, need_dx))
+    # against the f64 plain version: cuDNN's own f32 weight gradient can
+    # lie further from it than the tolerance (3->6->6 @128)
+    want = CCB.plain(*(t.double() for t in (x, c1, c2, g, w1, w2)), need_dx)
+    _assert_grads(got, tuple(w if w is None else w.float() for w in want))
+    # dw and db sum their partials in a fixed order: the same bits again
+    again = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2, need_dx)
+    for a, b in zip(got[1:], again[1:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize('ci,co,h,w,need_dx', [

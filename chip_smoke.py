@@ -19,10 +19,10 @@ Phases (each raises on failure, so the process exits non-zero):
    data and weight gradients of the plain forward, with the same saved relu
    masks): dx to 1e-5 * max|ref|, dw and db to 2e-5 * max|ref|, with the
    plain f32 version's own error against f64 printed beside (the chain
-   backward held to F64_RATIO of it, its dw and db the same bits on two
-   calls, and its device time by kernel name and its launches a call,
-   CHAIN_BWD_LAUNCHES, from the fullest of three deferred profiler
-   windows); the two-pass
+   and transposed-conv backwards held to F64_RATIO of it, their dw and db
+   the same bits on two calls, and their device time by kernel name and
+   their launches a call, CHAIN_BWD_LAUNCHES and TCONV_BWD_LAUNCHES, from
+   the fullest of three deferred profiler windows); the two-pass
    warp on [8, 256, 256, 6] at a flow from a real warp bank and at a random
    flow past +-8 px, exactly equal to its plain version; timings as in 3;
 4. prediction: seeded synthetic .tfrecords and a seeded checkpoint, then the
@@ -46,11 +46,16 @@ Phases (each raises on failure, so the process exits non-zero):
    slices/s, measured differentially: the difference of two ``train`` calls
    that differ only in step count, each the minimum of three.
 3c. connected components: the CCA kernel against its plain version, exactly
-   equal, on the thresholded, opened predictions of one real slice at the
-   region PR curve's 100 thresholds ([100, 128, 128]), on 256 x 256 planes
-   of a spiral, a checkerboard, all ones, all zeros and noise at p = 0.6,
-   and on [3, 192, 300] noise (H != W, W not a multiple of 32); timings as
-   in 3;
+   equal, on both of its routes (ops/kernels/cca.py: route), each set's
+   route printed and its launches a call (1 shared, 3 global) checked in a
+   deferred profiler window: the thresholded, opened predictions of one
+   real slice at the region PR curve's 100 thresholds ([100, 128, 128]);
+   the evaluate path's calls for one chunk of the region metrics, the
+   predictions of 20 slices ([2000, 128, 128]) and their labels
+   ([20, 128, 128]); the Visualizer's at a ratio of 1 ([500, 256, 256]);
+   256 x 256 planes of a spiral, a checkerboard, all ones, all zeros and
+   noise at p = 0.6; [3, 192, 300] noise (H != W, W not a multiple of 32);
+   and [2, 384, 384] noise, over the shared route's cap; timings as in 3;
 3d. input sensitivity: the chain backward with dx at down_0 (which
    training never asks for) on the first predict batch (B=64, 256 x 256)
    against its plain version with the same relu masks, to DX_TOL *
@@ -621,8 +626,9 @@ def kernel_sites(model, device, results):
 
 # -- phase 3b ----------------------------------------------------------------
 # the chain backward's launches a call at the unet.yaml sites: the fused
-# kernel and the partial sums' finish
+# kernel and the partial sums' finish; the tconv backward's: one
 CHAIN_BWD_LAUNCHES = 2
+TCONV_BWD_LAUNCHES = 1
 
 
 def _chain_bwd_split(name, call):
@@ -637,6 +643,22 @@ def _chain_bwd_split(name, call):
     if count != CHAIN_BWD_LAUNCHES:
         raise AssertionError(f'{name}: {count} launches a call, want '
                              f'{CHAIN_BWD_LAUNCHES}')
+
+
+def _launch_split(name, call, want):
+    '''Prints a call's device time by kernel (deferred profiler windows,
+    ``_fullest_split``) and raises unless it launched ``want`` kernels a
+    call. The count is rounded: on an H100 the profiler dropped one record
+    of 30 in every window of one CCA set (2.9 launches a call on the
+    three-launch route), which a kernel too many or too few a call still
+    exceeds.'''
+    split = _fullest_split(call)
+    log(f'  {name} by kernel, device ms a call:')
+    for key, (ms, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        log(f'    {ms:.4f} ms {count:4.1f}x  {key[:90]}')
+    count = sum(c for _, c in split.values())
+    if round(count) != want:
+        raise AssertionError(f'{name}: {count} launches a call, want {want}')
 
 
 def _f64_errors(name, got, want, want64, ratio=None):
@@ -735,12 +757,18 @@ def backward_sites(model, device, results):
                         device=device)
         name = f'tconv2x2_bwd {path} {w.shape[0]}->{w.shape[1]} @{hw}'
         got = TCB.tconv2x2_bwd(x, g, w)
+        again = TCB.tconv2x2_bwd(x, g, w)
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+            raise AssertionError(f'{name}: dw, db differ between two calls')
         err = _check_grads(name, got, TCB.plain(x, g, w),
-                           TCB.plain(*_f64(x, g, w)))
+                           TCB.plain(*_f64(x, g, w)), F64_RATIO)
         times = _time_site(
             lambda: TCB.tconv2x2_bwd(x, g, w), lambda: TCB.plain(x, g, w),
             lambda: conv_bwd(g, x, w, [w.shape[1]], [2, 2], [0, 0], [1, 1],
                              True, [0, 0], 1, [True, True, True]))
+        _DEFERRED.append(functools.partial(
+            _launch_split, name, functools.partial(TCB.tconv2x2_bwd, x, g, w),
+            TCONV_BWD_LAUNCHES))
         record(results, 'tconv2x2_bwd', err, times,
                bound(nbytes(x, g, w, *got), 4 * g.numel() * w.shape[0]))
     w = modules['last_conv'].weight
@@ -1203,9 +1231,17 @@ def _first_batch(eng, data_paths):
     return y, probs, raw, ds.slice_types
 
 
+# kernels a call on each CCA route (ops/kernels/cca.py: route)
+CCA_LAUNCHES = {'shared': 1, 'global': 3}
+# the evaluate path's region-metric chunk: PIXEL_BUDGET // (100 * 128 * 128)
+# images (metrics/region.py), and the Visualizer's at a ratio of 1
+EVAL_CHUNK, EVAL_CHUNK_256 = 20, 5
+
+
 @torch.no_grad()
 def cca_sites(eng, data_paths, results):
-    '''The CCA kernel against its plain version: exactly equal labels.'''
+    '''The CCA kernel against its plain version: exactly equal labels, on
+    both routes, with each set's launches a call from the profiler.'''
     from dnncancerannotator_torch.metrics import region
     from dnncancerannotator_torch.ops.kernels import cca as K
     from dnncancerannotator_torch.ops.morphology import morph_open
@@ -1213,38 +1249,59 @@ def cca_sites(eng, data_paths, results):
 
     device = eng.device
     y, probs, _, _ = _first_batch(eng, data_paths)
-    _, p = region._resized(y[:1], probs[:1], 0.5)
     thresholds = torch.tensor(PR_THRESHOLDS, dtype=torch.float32,
                               device=device)
-    real = morph_open(p, 5)[0] >= thresholds[:, None, None]
+
+    def opened_masks(n, ratio):
+        '''The region metrics' calls for a chunk of n slices: the
+        thresholded, opened predictions [n * 100, h, w] and the labels.'''
+        lab, p = region._resized(y[:n], probs[:n], ratio)
+        masks = morph_open(p, 5)[:, None] >= thresholds[None, :, None, None]
+        return masks.reshape(-1, *masks.shape[2:]), lab > 0.5
+
+    preds, labels = opened_masks(EVAL_CHUNK, 0.5)
+    preds_256, _ = opened_masks(EVAL_CHUNK_256, 1.0)
     rng = np.random.default_rng(SEED)
     ii, jj = np.mgrid[:SIZE, :SIZE]
+    n_thr = len(PR_THRESHOLDS)
     planes = {
-        'thresholded opened predictions': real,
+        'thresholded opened predictions': preds[:n_thr],
+        f'evaluate chunk: predictions of {EVAL_CHUNK} slices': preds,
+        f'evaluate chunk: labels of {EVAL_CHUNK} slices': labels,
+        f'ratio 1: predictions of {EVAL_CHUNK_256} slices': preds_256,
         'spiral': spiral_mask(SIZE, SIZE)[None],
         'checkerboard': ((ii + jj) % 2 == 0)[None],
         'all ones': np.ones((1, SIZE, SIZE), bool),
         'all zeros': np.zeros((1, SIZE, SIZE), bool),
         'noise p=0.6': rng.random((4, SIZE, SIZE)) < 0.6,
         'noise, H != W, W % 32 != 0': rng.random((3, 192, 300)) < 0.55,
+        'noise over the shared cap': rng.random((2, 384, 384)) < 0.55,
     }
     log('connected components (CCA kernel vs plain, exact):')
+    routes = set()
     for name, masks in planes.items():
         x = torch.as_tensor(masks, device=device).contiguous()
+        route = K.route(*x.shape)
+        routes.add(route)
         got, want = K.cca_raw_labels(x), K.plain(x)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         n_regions = int((want.reshape(len(x), -1) == torch.arange(
             x[0].numel(), device=device)).sum())
-        log(f'  cca {name:32s} {list(x.shape)} regions {n_regions:6d}  '
-            f'max|diff| {err}')
+        log(f'  cca {name:46s} {str(list(x.shape)):16s} route {route:6s} '
+            f'regions {n_regions:6d}  max|diff| {err}')
         if not torch.equal(got, want):
             raise AssertionError(f'cca ({name}) differs from its plain '
                                  f'version by {err}')
         times = _time_site(lambda: K.cca_raw_labels(x), lambda: K.plain(x))
+        _DEFERRED.append(functools.partial(
+            _launch_split, f'cca {name} ({route})',
+            functools.partial(K.cca_raw_labels, x), CCA_LAUNCHES[route]))
         # a few integer operations a pixel (runs, unions, flattening)
         record(results, 'cca', float(err), times,
                bound(nbytes(x, got), 4 * x.numel()))
+    if routes != set(CCA_LAUNCHES):
+        raise AssertionError(f'phase 3c took the routes {routes}')
 
 
 # -- phase 3d ----------------------------------------------------------------

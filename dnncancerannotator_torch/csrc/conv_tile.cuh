@@ -1,6 +1,6 @@
 // Tile helpers shared by the conv chain's forward and backward kernels
-// (conv_chain.cu, conv_chain_bwd.cu); ``tap`` also serves wgrad.cu,
-// stencil_conv_bwd.cu and tconv2x2_bwd.cu.
+// (conv_chain.cu, conv_chain_bwd.cu); ``tap`` also serves wgrad.cu and
+// stencil_conv_bwd.cu, the cp.async copies tconv2x2_bwd.cu.
 //
 // A block computes a stride-1 "same" conv over a 2D tile from an input tile
 // staged in shared memory. Register blocking: one work item is a run of PX
@@ -44,6 +44,14 @@ __device__ __forceinline__ void cp_async8(float* dst, const float* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
                "l"(src), "r"(valid ? 8 : 0));
+}
+
+// 16-byte form of cp_async4: dst and src 16-byte aligned.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {

@@ -55,9 +55,9 @@ _SIGNATURES = {
     # tile_h, tile_w, c1_w, c1_s, gs_w, slices, threads, blocks, fused, smem,
     # wgrad_blocks, device, stream
     'dnnca_conv_chain_bwd': [_P] * 9 + [_I] * 20 + [_P],
-    # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, wgrad_blocks, device,
-    # stream
-    'dnnca_tconv2x2_bwd': [_P] * 6 + [_I] * 7 + [_P],
+    # x, g, w, dx, dwb, w_partial, b_partial, ticket, B, Ci, Co, H, W,
+    # tile_h, tile_w, cpt, blocks, cluster, smem, device, stream
+    'dnnca_tconv2x2_bwd': [_P] * 8 + [_I] * 12 + [_P],
     # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW,
     # wgrad_blocks, device, stream
     'dnnca_stencil_conv_bwd': [_P] * 6 + [_I] * 13 + [_P],
@@ -66,8 +66,8 @@ _SIGNATURES = {
     # img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,
     # max_displacement, device, stream
     'dnnca_warp_crop': [_P] * 5 + [_I] * 8 + [_P],
-    # masks, labels, N, H, W, device, stream
-    'dnnca_cca': [_P] * 2 + [_I] * 4 + [_P],
+    # masks, labels, N, H, W, shared, label_bytes, device, stream
+    'dnnca_cca': [_P] * 2 + [_I] * 6 + [_P],
     # x, out, B, H, W, C, device, stream
     'dnnca_pool2x2_nhwc': [_P] * 2 + [_I] * 5 + [_P],
     # x, g, dx, B, H, W, C, device, stream

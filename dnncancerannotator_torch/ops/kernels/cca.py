@@ -21,6 +21,20 @@ a pixel's position in that list orders like its flat index):
 ``cca_raw_labels`` launches the kernel for CUDA tensors and runs ``plain``
 for CPU tensors; it raises on any other input. The compaction to 1..n is
 ops/cca.py.
+
+The kernel has two routes, both hand-written and both held against
+``plain``; ``route`` picks one by plane size and count. The shared route
+runs one block a plane with the forest in shared memory (``shared_bytes``):
+every plane of at most ``LABEL32_MAX`` pixels (32-bit labels, 68 KB at
+128 x 128: the evaluate path's planes after metrics.yaml's and the
+Visualizer's resize by 0.5), and planes of at most ``PLANE_MAX`` pixels
+(16-bit labels, 144 KB at 256 x 256: the Visualizer at a ratio of 1) when a
+call has at least ``MIN_PLANES`` of them. The global route, three launches
+with the forest in device memory, takes the rest: larger planes, and a few
+large ones, which it spreads over the whole card (on an H100 one 256 x 256
+plane took 0.0092-0.1577 ms on the shared route and 0.0055-0.1041 ms on
+the global one; 132 of them 0.0488 and 0.1380 ms: tools/
+profile_torch_sites.py --sweep).
 '''
 
 import torch
@@ -28,6 +42,40 @@ import torch
 from . import _build
 
 launches = 0  # kernel launches in this process
+
+# the shared route's largest plane: its labels are 16-bit indices; up to
+# LABEL32_MAX pixels they are 32-bit, whose atomic min is native
+PLANE_MAX = 1 << 16
+LABEL32_MAX = 1 << 15
+# the fewest planes of over LABEL32_MAX pixels the shared route takes: one
+# block works a plane on one SM, and a few large planes finish sooner
+# spread over the card by the global route
+MIN_PLANES = 132   # the H100's SMs
+
+
+def route(n, h, w):
+    '''The kernel's route for [n, h, w] masks: 'shared' (one block a
+    plane, the forest in shared memory) for planes of 32-bit labels, and
+    for planes of 16-bit labels (an index fits 16 bits) at least
+    MIN_PLANES at a time; else 'global' (three launches over device
+    memory).'''
+    hw = h * w
+    if hw <= LABEL32_MAX or (hw <= PLANE_MAX and n >= MIN_PLANES):
+        return 'shared'
+    return 'global'
+
+
+def label_bytes(h, w):
+    '''Bytes of one label in the shared route's shared memory.'''
+    return 4 if h * w <= LABEL32_MAX else 2
+
+
+def shared_bytes(h, w):
+    '''Shared memory of one block of the shared route (csrc/cca.cu:
+    shared_bytes): two bitmasks (the mask, the run starts) in whole 16-byte
+    rows and the labels rounded up to 16 bytes.'''
+    hw = h * w
+    return 2 * 16 * -(-hw // 128) + 16 * -(-label_bytes(h, w) * hw // 16)
 
 
 def _run_ids(starts):
@@ -99,6 +147,8 @@ def cca_raw_labels(masks):
     n, h, w = masks.shape
     out = torch.empty((n, h, w), device=masks.device, dtype=torch.int32)
     _build.launch('dnnca_cca', masks.data_ptr(), out.data_ptr(), n, h, w,
-                  masks.device.index, _build.stream_of(masks.device))
+                  int(route(n, h, w) == 'shared'), label_bytes(h, w),
+                  masks.device.index,
+                  _build.stream_of(masks.device))
     launches += 1
     return out

@@ -117,3 +117,60 @@ def test_cpu_tensors_launch_no_kernel_and_other_devices_raise():
         cca_kernel.cca_raw_labels(torch.zeros(1, 4, 4))
     with pytest.raises(ValueError, match=r'\[N, H, W\]'):
         cca_kernel.cca_raw_labels(torch.zeros(4, 4, dtype=torch.bool))
+
+
+# the kernel's route (ops/kernels/cca.py: route): planes of 32-bit labels
+# always take the shared route, planes of 16-bit labels from MIN_PLANES at
+# a time, larger planes never
+@pytest.mark.parametrize('n,h,w,want', [
+    (1, 128, 128, 'shared'), (2000, 128, 128, 'shared'),
+    (1, 181, 181, 'shared'),                 # 32761 pixels: 32-bit labels
+    (1, 128, 256, 'shared'), (1, 1, 32768, 'shared'),   # at the 32-bit cap
+    (1, 1, 32769, 'global'), (131, 256, 256, 'global'),
+    (132, 256, 256, 'shared'), (500, 256, 256, 'shared'),
+    (132, 1, 65536, 'shared'), (132, 65536, 1, 'shared'),   # at the cap
+    (132, 1, 65537, 'global'), (132, 257, 256, 'global'),
+    (2, 384, 384, 'global')])
+def test_route_rule_at_below_and_above_the_caps(n, h, w, want):
+    assert cca_kernel.route(n, h, w) == want
+    if want == 'shared':
+        assert h * w <= cca_kernel.PLANE_MAX
+        assert cca_kernel.shared_bytes(h, w) <= 232448   # the H100's limit
+
+
+def test_shared_memory_of_a_plane():
+    '''Two bitmasks in whole 16-byte rows and the labels rounded up to 16
+    bytes (csrc/cca.cu: shared_bytes).'''
+    assert cca_kernel.label_bytes(128, 128) == 4
+    assert cca_kernel.shared_bytes(128, 128) == 2 * 2048 + 65536
+    assert cca_kernel.label_bytes(256, 256) == 2
+    assert cca_kernel.shared_bytes(256, 256) == 2 * 8192 + 131072
+    assert cca_kernel.label_bytes(1, 32769) == 2
+    assert cca_kernel.shared_bytes(77, 333) == 2 * 16 * -(-25641 // 128) + \
+        16 * -(-4 * 25641 // 16)
+
+
+def _minima(mask):
+    '''Raw labels of one plane from scipy: each component's minimum flat
+    index, H * W off the mask.'''
+    ref, n = ndimage.label(mask, structure=FOUR)
+    hw = mask.size
+    flat = np.arange(hw)
+    mins = np.full(n + 1, hw)
+    np.minimum.at(mins, ref.reshape(-1), flat)
+    out = mins[ref.reshape(-1)]
+    out[~mask.reshape(-1)] = hw
+    return out.reshape(mask.shape)
+
+
+@pytest.mark.parametrize('h,w', [(181, 181), (128, 256), (1, 32769),
+                                 (255, 257), (256, 256), (65536, 1),
+                                 (1, 65537)])
+def test_plain_at_the_caps_matches_scipy(h, w):
+    '''The plain version the kernel is held to, on planes at and beside the
+    routes' caps (32768 and 65536 pixels), a noise plane and a spiral.'''
+    rng = np.random.default_rng(h + w)
+    masks = np.stack([rng.random((h, w)) < 0.6, spiral_mask(h, w)])
+    raw = cca_kernel.plain(torch.from_numpy(masks)).numpy()
+    for i in range(len(masks)):
+        np.testing.assert_array_equal(raw[i], _minima(masks[i]))

@@ -155,6 +155,44 @@ def test_tconv2x2_bwd_kernel(cuda, ci, co, h, w, need_dx):
                   TCB.plain(x, g, wk, need_dx))
 
 
+# every instance of the input-channel group (1, 2, 3, 4, 6, 8) and widths
+# it divides unevenly into, up to the kernel's 64
+@pytest.mark.parametrize('ci', [1, 2, 3, 4, 5, 6, 7, 8, 12, 24, 64])
+@pytest.mark.parametrize('co', [1, 3, 6, 12, 64])
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_tconv2x2_bwd_widths_same_bits(cuda, ci, co, need_dx):
+    gen = torch.Generator().manual_seed(ci * 100 + co)
+    x, wk = _rand(gen, 2, ci, 6, 10), _rand(gen, ci, co, 2, 2)
+    g = _rand(gen, 2, co, 12, 20)
+    got = TCB.tconv2x2_bwd(x, g, wk, need_dx)
+    _assert_grads(got, TCB.plain(x, g, wk, need_dx))
+    # the last block adds the partials in block order: the same bits again
+    again = TCB.tconv2x2_bwd(x, g, wk, need_dx)
+    for a, b in zip(got[1:], again[1:]):
+        assert torch.equal(a, b)
+    assert int(TCB.ticket(cuda)) == 0
+
+
+@pytest.mark.parametrize('ci,co,hw', [(12, 12, 32), (12, 6, 64), (6, 3, 128)])
+def test_tconv2x2_bwd_one_launch_at_the_sites(cuda, ci, co, hw):
+    '''unet.yaml's decoder sites at B=8: one kernel a call (the profiler
+    counts every launch, the memsets of an allocation included).'''
+    gen = torch.Generator().manual_seed(5)
+    x, wk = _rand(gen, 8, ci, hw, hw), _rand(gen, ci, co, 2, 2)
+    g = _rand(gen, 8, co, 2 * hw, 2 * hw)
+    TCB.tconv2x2_bwd(x, g, wk)
+    torch.cuda.synchronize()
+    cuda_activity = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda_activity]) as prof:
+        got = TCB.tconv2x2_bwd(x, g, wk)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
+    _assert_grads(got, TCB.plain(x, g, wk))
+
+
 @pytest.mark.parametrize('ci,co,k,pads', [
     (3, 1, 1, ((0, 0), (0, 0))),      # the logits head
     (5, 7, 3, ((1, 1), (1, 1))),
@@ -240,6 +278,37 @@ def test_cca_kernel(cuda, case):
     torch.cuda.synchronize()
     # integer labels, the same fixed point whatever order the atomics take
     assert torch.equal(got, CCA.plain(masks))
+
+
+@pytest.mark.parametrize('n,h,w', [
+    (2000, 128, 128),   # a chunk of the evaluate path's region metrics
+    (3, 256, 256),      # few large planes: the global route
+    (140, 256, 256),    # many: the shared route's largest plane
+    (140, 1, 65536), (140, 65536, 1), (2, 181, 181),
+    (5, 77, 333),       # unaligned planes: byte loads, scalar stores
+    (2, 257, 256), (2, 384, 384)])   # over the cap: the global route
+def test_cca_kernel_routes(cuda, n, h, w):
+    gen = torch.Generator().manual_seed(n + h + w)
+    masks = (torch.rand(n, h, w, generator=gen) < 0.55).cuda()
+    want = 'shared' if h * w <= 32768 or (h * w <= 65536 and n >= 132) \
+        else 'global'
+    assert CCA.route(n, h, w) == want
+    got = CCA.cca_raw_labels(masks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, CCA.plain(masks))
+
+
+@pytest.mark.parametrize('h,w', [(256, 256), (192, 300)])
+def test_cca_kernel_shared_route_hard_planes(cuda, h, w):
+    '''A spiral (one component, pointer chains across the whole plane)
+    and a mask whose planes start off 16-byte boundaries.'''
+    spiral = torch.from_numpy(spiral_mask(h, w)).cuda()[None].contiguous()
+    assert torch.equal(CCA.cca_raw_labels(spiral), CCA.plain(spiral))
+    gen = torch.Generator().manual_seed(h)
+    flat = torch.rand(3 * h * w + 1, generator=gen) < 0.6
+    shifted = flat.cuda()[1:].view(3, h, w)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    assert torch.equal(CCA.cca_raw_labels(shifted), CCA.plain(shifted))
 
 
 @pytest.mark.parametrize('b,h,w,c,ties', [

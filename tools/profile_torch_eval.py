@@ -1,21 +1,25 @@
 '''Where the time of the port's ``evaluate`` goes, on one GPU:
 
-    python3 tools/profile_torch_eval.py
+    python3 tools/profile_torch_eval.py [--repo DIR]
 
 Writes chip_smoke's seeded synthetic exams (160 slices of 256 x 256) and a
 seeded checkpoint, runs the ``evaluate`` CLI once to warm up (the kernel
-build, allocator and caches), then runs it again with the metrics.yaml
-suite and every export (``--export_csv --export_images
---export_casewise_metrics``):
+build, allocator and caches), then with the metrics.yaml suite and every
+export (``--export_csv --export_images --export_casewise_metrics``) three
+times on the host clock (the seconds of each), and again:
 
 - under cProfile, printing the functions with the most cumulative and own
   host time;
 - under torch.profiler, printing the device time by kernel and the device's
   busy share of the traced wall time.
 
-It imports nothing of JAX and needs the port's kernels to build (nvcc).
+``--repo`` imports the port from another checkout (a parent commit
+unpacked with ``git archive``) and runs it on the same data and weights, so
+two versions can be compared on one card. It imports nothing of JAX and
+needs the port's kernels to build (nvcc).
 '''
 
+import argparse
 import cProfile
 import os
 import pstats
@@ -34,11 +38,15 @@ WORK = os.path.join(REPO, 'build', 'profile_torch_eval')
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--repo', default=REPO)
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.runs.__main__ import main as cli
 
     device = engine.resolve_device('cuda')
-    print(chip_smoke.environment())
+    print(chip_smoke.environment(), f'port from {os.path.abspath(args.repo)}')
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     try:
@@ -58,6 +66,9 @@ def main():
             return time.perf_counter() - start
 
         print(f'warm-up evaluate: {evaluate("warmup"):.3f} s')
+        print('evaluate (one checkpoint, 160 slices): '
+              + ', '.join(f'{evaluate(f"timed{i}"):.3f}' for i in range(3))
+              + ' s')
         profiler = cProfile.Profile()
         profiler.enable()
         seconds = evaluate('cprofile')

@@ -1,0 +1,256 @@
+'''Device time of the CCA, NCHW tconv backward and head conv kernels at the
+shapes their paths call them with:
+
+    python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--sweep]
+
+On one GPU, with seeded inputs, it times:
+
+- ``cca`` (ops/kernels/cca.py) on the evaluate path's region-metric calls:
+  the thresholded, opened predictions of 20 slices of chip_smoke.py's
+  phase-4 records (a seeded unet.yaml checkpoint, resized by 0.5 as
+  metrics.yaml and the Visualizer do) at the 100 PR thresholds,
+  [2000, 128, 128], and their labels, [20, 128, 128]; chip_smoke.py's
+  phase-3c plane sets; and one set above the shared-memory route's cap,
+  [2, 384, 384] noise;
+- ``tconv2x2_bwd`` (ops/kernels/tconv2x2_bwd.py) at unet.yaml's decoder
+  sites up_0-up_2 at the training batch of 8, with dx;
+- ``stencil_conv`` (the 1x1 logits head, 3 -> 1 at 256 x 256) at B=8 (the
+  training forward) and B=64 (prediction).
+
+Each call is split by the name of every kernel it launches, with
+chip_smoke.py's yardstick: torch.profiler over 10 calls, the fullest of
+three windows, beside the CUDA-event time around one Python call (median
+of 20, host time inside) and the call's bound (chip_smoke.bound: each
+input read once and each output written once). ``--repo`` imports the port
+from another checkout (a parent commit unpacked with ``git archive``) and
+times it with this checkout's yardstick and inputs, so two versions can be
+compared on one card; ``--out`` writes the numbers as JSON. ``--sweep``
+times instead ``tconv2x2_bwd`` at every tile height its plan allows at the
+three sites (ops/kernels/tconv2x2_bwd.py: TUNED) and ``cca`` on both
+routes (ops/kernels/cca.py: route), for the rules' choices.
+It imports nothing of JAX and builds the kernels with nvcc.
+'''
+
+import argparse
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke  # noqa: E402  (before --repo goes on the path)
+
+# (site, Ci, Co, input H = W) of unet.yaml's transposed convs at 256 x 256
+TCONV_SITES = (('up_0', 12, 12, 32), ('up_1', 12, 6, 64), ('up_2', 6, 3, 128))
+TRAIN_BATCH, PREDICT_BATCH = 8, 64
+EVAL_SLICES = 20   # metrics/region.py: PIXEL_BUDGET // (100 * 128 * 128)
+
+
+def _short(name):
+    name = name.replace('(anonymous namespace)::', '')
+    return name.split('(')[0].replace('void ', '')[:60]
+
+
+def cca_sets(device):
+    '''{label: [N, H, W] bool on the card}: the evaluate path's two calls
+    of a chunk, chip_smoke.py's phase-3c sets and a set over the cap.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.metrics import region
+    from dnncancerannotator_torch.ops.morphology import morph_open
+    from dnncancerannotator_torch.utils.viz import PR_THRESHOLDS
+
+    work = os.path.join(HERE, 'build', 'profile_torch_sites')
+    data_paths = chip_smoke.write_records(os.path.join(work, 'data'))
+    save_path = os.path.join(work, 'run')
+    config = chip_smoke.write_save_path(save_path, data_paths, device)
+    eng = engine.Engine(config, seed=chip_smoke.SEED, device=device)
+    eng.build((chip_smoke.BATCH, chip_smoke.SIZE, chip_smoke.SIZE, 5))
+    eng.load(os.path.join(save_path, 'checkpoints', 'ckpt-1'))
+    with torch.no_grad():
+        y, probs, _, _ = chip_smoke._first_batch(eng, data_paths)
+        # the Visualizer at a ratio of 1: 256 x 256 planes, chunks of 5
+        _, p1 = region._resized(y[:5], probs[:5], 1.0)
+        y, p = region._resized(y[:EVAL_SLICES], probs[:EVAL_SLICES], 0.5)
+        thresholds = torch.tensor(PR_THRESHOLDS, dtype=torch.float32,
+                                  device=device)
+        opened = morph_open(p, 5)
+        preds = opened[:, None] >= thresholds[None, :, None, None]
+        preds1 = morph_open(p1, 5)[:, None] >= \
+            thresholds[None, :, None, None]
+    size = chip_smoke.SIZE
+    rng = np.random.default_rng(chip_smoke.SEED)
+    ii, jj = np.mgrid[:size, :size]
+    sets = {
+        f'eval predictions [{EVAL_SLICES * len(PR_THRESHOLDS)},128,128]':
+            preds.reshape(-1, *preds.shape[2:]),
+        f'eval labels [{EVAL_SLICES},128,128]': y > 0.5,
+        'one slice x 100 thresholds [100,128,128]': preds[0],
+        'spiral [1,256,256]': chip_smoke.spiral_mask(size, size)[None],
+        'checkerboard [1,256,256]': ((ii + jj) % 2 == 0)[None],
+        'all ones [1,256,256]': np.ones((1, size, size), bool),
+        'all zeros [1,256,256]': np.zeros((1, size, size), bool),
+        'noise p=0.6 [4,256,256]': rng.random((4, size, size)) < 0.6,
+        'noise [3,192,300]': rng.random((3, 192, 300)) < 0.55,
+        'noise over the cap [2,384,384]': rng.random((2, 384, 384)) < 0.55,
+        'eval predictions 256 [500,256,256]':
+            preds1.reshape(-1, *preds1.shape[2:]),
+    }
+    return {k: torch.as_tensor(v, device=device).contiguous()
+            for k, v in sets.items()}
+
+
+def sweep_cca(device):
+    '''Device ms of cca on either route at a range of plane counts: slices
+    of the evaluate path's predictions at 128 x 128 and 256 x 256, and the
+    phase-3c sets at 256 x 256.'''
+    from dnncancerannotator_torch.ops.kernels import cca as K
+
+    sets = cca_sets(device)
+    preds = next(iter(sets.values()))
+    cases = {f'eval predictions [{n},128,128]': preds[:n]
+             for n in (1, 4, 20, 100, 400, 2000)}
+    cases.update((k, v) for k, v in sets.items() if '256' in k)
+    big = sets['eval predictions 256 [500,256,256]']
+    cases.update((f'eval predictions [{n},256,256]', big[:n])
+                 for n in (20, 132, 500))
+    rng = np.random.default_rng(1)
+    cases['noise p=0.6 [132,256,256]'] = torch.as_tensor(
+        rng.random((132, 256, 256)) < 0.6, device=device)
+    min_planes, label32 = K.MIN_PLANES, K.LABEL32_MAX
+    for label, masks in cases.items():
+        line = []
+        for route in ('global', 'shared'):
+            K.MIN_PLANES = len(masks) + 1 if route == 'global' else 1
+            K.LABEL32_MAX = 0 if route == 'global' else label32
+            if not torch.equal(K.cca_raw_labels(masks), K.plain(masks)):
+                raise AssertionError(f'cca {label} ({route}) differs')
+            split = chip_smoke._fullest_split(
+                functools.partial(K.cca_raw_labels, masks))
+            line.append(f'{route} {sum(v for v, _ in split.values()):.4f}')
+        print(f'cca {label:36s} device ms  ' + '  '.join(line), flush=True)
+    K.MIN_PLANES, K.LABEL32_MAX = min_planes, label32
+
+
+def sweep(device):
+    '''Device ms of tconv2x2_bwd at every tile height that fits, per site
+    (B=8, with dx), beside the rule's plan; then ``sweep_cca``.'''
+    from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    b = TRAIN_BATCH
+    for site, ci, co, hw in TCONV_SITES:
+        x = torch.rand((b, ci, hw, hw), generator=gen, device=device)
+        g = torch.randn((b, co, 2 * hw, 2 * hw), generator=gen,
+                        device=device)
+        w = torch.randn((ci, co, 2, 2), generator=gen, device=device) * 0.3
+        want = TCB.plain(x, g, w)
+        key = (b, ci, co, hw, hw, True)
+        tuned = TCB.TUNED.pop(key, None)
+        print(f'{site}: rule {TCB.rule(*key)}', flush=True)
+        for th in TCB.TILE_HEIGHTS:
+            TCB.TUNED[key] = th
+            pl = TCB.plan(*key)
+            if th > hw or pl.smem > TCB.SMEM_CAP:
+                continue
+            got = TCB.tconv2x2_bwd(x, g, w)
+            err = max(float((a - c).abs().max() / c.abs().max())
+                      for a, c in zip(got, want))
+            split = chip_smoke._fullest_split(
+                functools.partial(TCB.tconv2x2_bwd, x, g, w))
+            ms = sum(v for v, _ in split.values())
+            n = sum(c for _, c in split.values())
+            print(f'  tile_h {th:2d} cluster {pl.cluster} blocks '
+                  f'{pl.blocks:4d} smem {pl.smem:6d} device {ms:.4f} ms '
+                  f'launches {n:.1f} rel err {err:.2e}', flush=True)
+        del TCB.TUNED[key]
+        if tuned is not None:
+            TCB.TUNED[key] = tuned
+    sweep_cca(device)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--repo', default=HERE)
+    parser.add_argument('--out', default=None)
+    parser.add_argument('--sweep', action='store_true')
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ops.kernels import cca as K
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
+
+    device = engine.resolve_device('cuda')
+    card = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f'port from {os.path.abspath(args.repo)}; card: {card}', flush=True)
+    if args.sweep:
+        return sweep(device)
+    jobs = []   # (label, call, bound ms)
+    for label, masks in cca_sets(device).items():
+        got = K.cca_raw_labels(masks)
+        if not torch.equal(got, K.plain(masks)):
+            raise AssertionError(f'cca {label} differs from its plain version')
+        jobs.append((f'cca {label}', functools.partial(K.cca_raw_labels,
+                                                       masks),
+                     chip_smoke.bound(chip_smoke.nbytes(masks, got),
+                                      4 * masks.numel())[0]))
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    b = TRAIN_BATCH
+    for site, ci, co, hw in TCONV_SITES:
+        x = torch.rand((b, ci, hw, hw), generator=gen, device=device)
+        g = torch.randn((b, co, 2 * hw, 2 * hw), generator=gen,
+                        device=device)
+        w = torch.randn((ci, co, 2, 2), generator=gen, device=device) * 0.3
+        got = TCB.tconv2x2_bwd(x, g, w)
+        jobs.append((f'tconv2x2_bwd {site} {ci}->{co} @{hw} B={b}',
+                     functools.partial(TCB.tconv2x2_bwd, x, g, w),
+                     chip_smoke.bound(chip_smoke.nbytes(x, g, w, *got),
+                                      4 * g.numel() * ci)[0]))
+    w = torch.randn((1, 3, 1, 1), generator=gen, device=device)
+    bias = torch.randn((1,), generator=gen, device=device)
+    pads = ((0, 0), (0, 0))
+    for nb in (TRAIN_BATCH, PREDICT_BATCH):
+        x = torch.rand((nb, 3, chip_smoke.SIZE, chip_smoke.SIZE),
+                       generator=gen, device=device)
+        out = SC.stencil_conv(x, w, bias, pads)
+        jobs.append((f'stencil_conv head 1x1 3->1 @256 B={nb}',
+                     functools.partial(SC.stencil_conv, x, w, bias, pads),
+                     chip_smoke.bound(chip_smoke.nbytes(x, w, bias, out),
+                                      2 * out.numel() * 3)[0]))
+    # CUDA events first: a profiler session slows later calls on the host
+    rows = [dict(call=label, bound_ms=bd,
+                 event_ms=chip_smoke._time_fns({'': call})[''])
+            for label, call, bd in jobs]
+    for row, (_, call, _) in zip(rows, jobs):
+        split = chip_smoke._fullest_split(call)
+        row['device_ms'] = sum(ms for ms, _ in split.values())
+        row['launches'] = sum(n for _, n in split.values())
+        row['split'] = {_short(k): v for k, v in split.items()}
+        print(f'{row["call"]:58s} device {row["device_ms"]:.4f} ms  event '
+              f'{row["event_ms"]:.4f} ms  bound {row["bound_ms"]:.4f} ms  '
+              f'launches {row["launches"]:.1f}', flush=True)
+        for name, (ms, n) in sorted(row['split'].items(),
+                                    key=lambda kv: -kv[1][0]):
+            print(f'         {ms:.4f} ms {n:4.1f}x  {name}', flush=True)
+    tconv = [r for r in rows if r['call'].startswith('tconv2x2_bwd')]
+    print(f'tconv2x2_bwd, three sites: device '
+          f'{sum(r["device_ms"] for r in tconv):.4f} ms  bound '
+          f'{sum(r["bound_ms"] for r in tconv):.4f} ms', flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as fh:
+            json.dump(dict(card=card, repo=args.repo, rows=rows), fh,
+                      indent=1)
+
+
+if __name__ == '__main__':
+    main()

@@ -9,7 +9,8 @@ Phases (each raises on failure, so the process exits non-zero):
    inputs, TF32 off, to max|diff| <= 1e-4 * max|ref| (the chain also no
    further from its f64 plain version than F64_RATIO times the plain f32
    version, and again at B=8 with c1 as training calls it, with its bound
-   counting c1's write), and the median of 20
+   counting c1's write; the head conv at B=8 as well, as training calls
+   it), and the median of 20
    CUDA-event timings of each around the Python call, taken in turns, and
    its device time alone (torch.profiler's summed kernel time of 10 calls,
    over 10; the larger of two such windows), for the kernel, its plain
@@ -18,11 +19,12 @@ Phases (each raises on failure, so the process exits non-zero):
    256 x 256 crops) each backward kernel against its plain version (the
    data and weight gradients of the plain forward, with the same saved relu
    masks): dx to 1e-5 * max|ref|, dw and db to 2e-5 * max|ref|, with the
-   plain f32 version's own error against f64 printed beside (the chain
-   and transposed-conv backwards held to F64_RATIO of it, their dw and db
-   the same bits on two calls, and their device time by kernel name and
-   their launches a call, CHAIN_BWD_LAUNCHES and TCONV_BWD_LAUNCHES, from
-   the fullest of three deferred profiler windows); the two-pass
+   plain f32 version's own error against f64 printed beside (the chain,
+   transposed-conv and head conv backwards held to F64_RATIO of it, their
+   dw and db the same bits on two calls, and their device time by kernel
+   name and their launches a call, CHAIN_BWD_LAUNCHES, TCONV_BWD_LAUNCHES
+   and STENCIL_BWD_LAUNCHES, from the fullest of three deferred profiler
+   windows); the two-pass
    warp on [8, 256, 256, 6] at a flow from a real warp bank and at a random
    flow past +-8 px, exactly equal to its plain version; timings as in 3;
 4. prediction: seeded synthetic .tfrecords and a seeded checkpoint, then the
@@ -95,7 +97,10 @@ Phases (each raises on failure, so the process exits non-zero):
    than 1e-5, the maps are held to an f64 forward, no further from it than
    F64_RATIO times the plain f32 forward), one train step's loss, gradients
    and updated batch_stats through the kernels equal a plain step on the
-   same batch and draws (held to an f64 step likewise), and the stack without pallas_decoder.yaml launches none
+   same batch and draws (held to an f64 step likewise), taken on a seeded
+   state (the initial weights of SEED, a seeded batch and draws, cuDNN
+   deterministic inside the check) so that it meets the same inputs in
+   every run, and the stack without pallas_decoder.yaml launches none
    of the four. Times the train step (kernels and plain) and the train
    throughput as in 5.
 3f. crop-fused warp: the warp_crop kernel against its plain version, exactly
@@ -141,6 +146,7 @@ device it exits non-zero before printing any of them.
 import contextlib
 import copy
 import functools
+import hashlib
 import json
 import os
 import shutil
@@ -425,12 +431,15 @@ def _device_split(fn, runs=DEVICE_RUNS):
             and e.self_device_time_total > 0}
 
 
-def _fullest_split(fn, windows=3):
+def _fullest_split(fn, windows=3, most=10):
     '''``_device_split`` of the window, of ``windows``, that recorded the
     most launches (then the most time): now and then a window misses the
     records of some kernels or of all of them (seen once or twice a run),
-    never adds any.'''
+    never adds any. While every window taken recorded nothing (all three
+    of one CCA set in one run on an H100), more are taken, up to ``most``.'''
     splits = [_device_split(fn) for _ in range(windows)]
+    while not any(splits) and len(splits) < most:
+        splits.append(_device_split(fn))
     return max(splits, key=lambda s: (sum(c for _, c in s.values()),
                                       sum(ms for ms, _ in s.values())))
 
@@ -622,13 +631,27 @@ def kernel_sites(model, device, results):
                        lambda: F.conv2d(x, w, b))
     record(results, 'stencil_conv', err, times,
            bound(nbytes(x, w, b, got), 2 * got.numel() * w[0].numel()))
+    # the head as training calls it (B=8): its times and bound on a line of
+    # their own, beside the prediction site's in the kernels line
+    x = x[:TRAIN_BATCH].contiguous()
+    got = SC.stencil_conv(x, w, b, pads)
+    name = f'stencil_conv last_conv B={TRAIN_BATCH}'
+    _check_close(name, got, SC.plain(x, w, b, pads))
+    times = _time_site(lambda: SC.stencil_conv(x, w, b, pads),
+                       lambda: SC.plain(x, w, b, pads),
+                       lambda: F.conv2d(x, w, b))
+    times['label'] = name
+    site_bound = bound(nbytes(x, w, b, got), 2 * got.numel() * w[0].numel())
+    log(f'  {name:44s} bound {site_bound[0]:.4f} ms ({site_bound[1]})')
 
 
 # -- phase 3b ----------------------------------------------------------------
 # the chain backward's launches a call at the unet.yaml sites: the fused
-# kernel and the partial sums' finish; the tconv backward's: one
+# kernel and the partial sums' finish; the tconv backward's and the head
+# conv's backward's (the pointwise route): one
 CHAIN_BWD_LAUNCHES = 2
 TCONV_BWD_LAUNCHES = 1
+STENCIL_BWD_LAUNCHES = 1
 
 
 def _chain_bwd_split(name, call):
@@ -777,13 +800,20 @@ def backward_sites(model, device, results):
     g = torch.randn((b, 1, SIZE, SIZE), generator=gen, device=device)
     name = f'stencil_conv_bwd last_conv 1x1 {w.shape[1]}->1 @{SIZE}'
     got = SCB.stencil_conv_bwd(x, g, w, pads)
+    again = SCB.stencil_conv_bwd(x, g, w, pads)
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], again[1:])):
+        raise AssertionError(f'{name}: dw, db differ between two calls')
     err = _check_grads(name, got, SCB.plain(x, g, w, pads),
-                       SCB.plain(*_f64(x, g, w), pads))
+                       SCB.plain(*_f64(x, g, w), pads), F64_RATIO)
     times = _time_site(
         lambda: SCB.stencil_conv_bwd(x, g, w, pads),
         lambda: SCB.plain(x, g, w, pads),
         lambda: conv_bwd(g, x, w, [w.shape[0]], [1, 1], [0, 0], [1, 1],
                          False, [0, 0], 1, [True, True, True]))
+    _DEFERRED.append(functools.partial(
+        _launch_split, name,
+        functools.partial(SCB.stencil_conv_bwd, x, g, w, pads),
+        STENCIL_BWD_LAUNCHES))
     record(results, 'stencil_conv_bwd', err, times,
            bound(nbytes(x, g, w, *got), 4 * g.numel() * w[0].numel()))
 
@@ -1730,62 +1760,139 @@ def _big_step(eng, ds, raw, draws, plain, f64=False):
     return float(loss.detach()), grads, stats
 
 
-def _compare_step(got, want, exact):
-    '''One step through the kernels against the plain step: the loss to
-    LOSS_TOL relative, each gradient to STEP_TOL and each statistic to
-    STATS_TOL of max|ref|. A bias right before a BatchNorm (the tconv
-    biases) has an exact gradient of 0, so both sides hold rounding noise
-    there: a bias is held on the scale of its layer's weight gradient.
-
-    Where the kernel step is further than that from the plain f32 step,
-    both are held to the f64 step (``exact()``, made once, when first
-    needed): the kernel step passes if it is no further from it than
-    F64_RATIO times the plain step, the kernels' own rule (phase 3e). A
-    gradient that is a sum cancelling to near 0 (a BatchNorm bias whose
-    incoming gradient has zero pixel mean before a relu mask) holds the
-    rounding of every term it sums, and the plain f32 step is no truth
-    there.'''
+def _step_errors(got, want, exact):
+    '''{name: entry} of one step through the kernels against the plain
+    step: the loss, then each gradient and statistic with its max|diff|
+    from the plain step (``err``), the scale it is held on and its
+    tolerance; where ``err`` exceeds them, also the kernel step's and the
+    plain step's max|diff| from the f64 step (``exact()``, made once, when
+    first needed). A bias right before a BatchNorm (the tconv biases) has
+    an exact gradient of 0, so both sides hold rounding noise there: a bias
+    is held on the scale of its layer's weight gradient.'''
     (loss, grads, stats), (plain_loss, plain_grads, plain_stats) = got, want
+    out = {'loss': dict(kind='loss', err=abs(loss - plain_loss),
+                        scale=abs(plain_loss), tol=LOSS_TOL, got=loss,
+                        plain=plain_loss)}
     exact_step = []
-    log(f'one unet_big train step: loss {loss:.7f} kernels, {plain_loss:.7f} '
-        'plain')
-    if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
-        raise AssertionError(f'train-step loss {loss} vs plain {plain_loss}')
-    worst = {'grad': 0.0, 'stat': 0.0}
     for kind, tol, ours, ref in (('grad', STEP_TOL, grads, plain_grads),
                                  ('stat', STATS_TOL, stats, plain_stats)):
         for name, w in ref.items():
             layer = name.rsplit('.', 1)[0]
             scale = max(float(w.abs().max()), float(
                 ref.get(layer + '.weight', w).abs().max()))
-            err = float((ours[name] - w).abs().max())
-            if err <= tol * scale:
-                worst[kind] = max(worst[kind], err / scale)
-                continue
-            if not exact_step:
-                exact_step.append(exact())
-            ref64 = exact_step[0][1 if kind == 'grad' else 2][name]
-            err64, plain64 = (float((t.double() - ref64).abs().max())
-                              for t in (ours[name], w))
-            log(f'  {name}: {err:.3e} > {tol} * {scale:.3e} from the plain '
-                f'step; from the f64 step: kernels {err64:.3e}, plain '
-                f'{plain64:.3e}')
-            if not err64 <= F64_RATIO * plain64:
-                raise AssertionError(f'{name}: {err} > {tol} * {scale} from '
-                                     'the plain train step, and the kernels '
-                                     f'are {err64} from the f64 step against '
-                                     f'the plain step\'s {plain64}')
-    log(f'  {len(grads)} parameter gradients within {worst["grad"]:.3e} and '
-        f'{len(stats)} BatchNorm statistics within {worst["stat"]:.3e} of '
-        'max|ref| of the plain step, but for those held to the f64 step '
-        'above')
+            entry = dict(kind=kind, err=float((ours[name] - w).abs().max()),
+                         scale=scale, tol=tol)
+            if not entry['err'] <= tol * scale:
+                if not exact_step:
+                    exact_step.append(exact())
+                ref64 = exact_step[0][1 if kind == 'grad' else 2][name]
+                entry['err64'], entry['plain64'] = (
+                    float((t.double() - ref64).abs().max())
+                    for t in (ours[name], w))
+            out[name] = entry
+    return out
+
+
+def _compare_step(got, want, exact):
+    '''One step through the kernels against the plain step
+    (``_step_errors``): the loss to LOSS_TOL relative, each gradient to
+    STEP_TOL and each statistic to STATS_TOL of its scale.
+
+    Where the kernel step is further than that from the plain f32 step,
+    both are held to the f64 step: the kernel step passes if it is no
+    further from it than F64_RATIO times the plain step, the kernels' own
+    rule (phase 3e). A gradient that is a sum cancelling to near 0 (a
+    BatchNorm bias whose incoming gradient has zero pixel mean before a
+    relu mask) holds the rounding of every term it sums, and the plain f32
+    step is no truth there.'''
+    errors = _step_errors(got, want, exact)
+    loss = errors.pop('loss')
+    log(f'one unet_big train step: loss {loss["got"]:.7f} kernels, '
+        f'{loss["plain"]:.7f} plain')
+    if not loss['err'] <= LOSS_TOL * loss['scale']:
+        raise AssertionError(f'train-step loss {loss["got"]} vs plain '
+                             f'{loss["plain"]}')
+    worst = {'grad': 0.0, 'stat': 0.0}
+    for name, e in errors.items():
+        if 'err64' not in e:
+            worst[e['kind']] = max(worst[e['kind']], e['err'] / e['scale'])
+            continue
+        log(f'  {name}: {e["err"]:.3e} > {e["tol"]} * {e["scale"]:.3e} from '
+            f'the plain step; from the f64 step: kernels {e["err64"]:.3e}, '
+            f'plain {e["plain64"]:.3e}')
+        if not e['err64'] <= F64_RATIO * e['plain64']:
+            raise AssertionError(f'{name}: {e["err"]} > {e["tol"]} * '
+                                 f'{e["scale"]} from the plain train step, '
+                                 f'and the kernels are {e["err64"]} from the '
+                                 f'f64 step against the plain step\'s '
+                                 f'{e["plain64"]}')
+    n_grads = sum(e['kind'] == 'grad' for e in errors.values())
+    log(f'  {n_grads} parameter gradients within {worst["grad"]:.3e} and '
+        f'{len(errors) - n_grads} BatchNorm statistics within '
+        f'{worst["stat"]:.3e} of max|ref| of the plain step, but for those '
+        'held to the f64 step above')
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    '''cuDNN set deterministic (no benchmark search) inside the block and
+    put back after: the one-step checks take no time measurement.'''
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def big_check_state(config, ds, seed, device):
+    '''A unet_big engine with the initial weights of ``seed`` (no trained
+    step, so no non-deterministic sum before the check), and one batch and
+    its draws from a generator of ``seed``: the same inputs in every run.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import augment
+
+    eng = engine.Engine(config, seed=seed, device=device)
+    eng._setup_training(ds)
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    raw = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
+    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
+                               eng._warp_bank(ds))
+    return eng, raw, draws
+
+
+def step_digest(step):
+    '''A digest of a step's loss, gradients and statistics (their bits):
+    equal digests, the same step.'''
+    digest = hashlib.sha256(np.float64(step[0]).tobytes())
+    for part in step[1:]:
+        for name in sorted(part):
+            digest.update(part[name].detach().cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def check_big_step(eng, ds, raw, draws):
+    '''Phase 7's one-step check (``_compare_step``) with cuDNN
+    deterministic; the kernel step is taken twice and must give the same
+    bits (its digest printed, to compare across runs).'''
+    with _deterministic_cudnn():
+        got = _big_step(eng, ds, raw, draws, plain=False)
+        again = step_digest(_big_step(eng, ds, raw, draws, plain=False))
+        log(f'one unet_big train step on the seeded state: digest '
+            f'{step_digest(got)}, again {again}')
+        if again != step_digest(got):
+            raise AssertionError('the one-step check is not deterministic')
+        _compare_step(got, _big_step(eng, ds, raw, draws, plain=True),
+                      lambda: _big_step(eng, ds, raw, draws, plain=True,
+                                        f64=True))
 
 
 def big_train_slice(device, data_paths):
     '''Phase 7; returns the launch counts of the first train call and of
     the predict call.'''
     from dnncancerannotator_torch import engine
-    from dnncancerannotator_torch.data import augment, pipeline
+    from dnncancerannotator_torch.data import pipeline
     from dnncancerannotator_torch.ops import kernels
     from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
     from dnncancerannotator_torch.runs.__main__ import main as cli
@@ -1888,16 +1995,11 @@ def big_train_slice(device, data_paths):
     _check_maps(eng.model, data_paths, out_dir,
                 sum(TRAIN_EXAMS) * TRAIN_SLICES, reference, exact)
 
-    # one step: the kernels against a plain step, same batch and draws
-    resident = eng._resident(ds)
-    gen = torch.Generator(device=device).manual_seed(SEED + 7)
-    raw = eng.sample_batch(resident, TRAIN_BATCH, gen)
-    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
-                               eng._warp_bank(ds))
-    _compare_step(_big_step(eng, ds, raw, draws, plain=False),
-                  _big_step(eng, ds, raw, draws, plain=True),
-                  lambda: _big_step(eng, ds, raw, draws, plain=True,
-                                    f64=True))
+    # one step: the kernels against a plain step, same batch and draws, on
+    # a seeded state (the trained steps above differ run to run)
+    check_eng, raw, draws = big_check_state(config, ds, SEED, device)
+    check_big_step(check_eng, ds, raw, draws)
+    del check_eng
 
     # the stack without pallas_decoder.yaml: the NHWC kernels stay off
     kernels.reset_launches()
@@ -1907,7 +2009,9 @@ def big_train_slice(device, data_paths):
     if any(off[name] for name in NHWC_KERNELS) or off['warp_twopass'] < 2:
         raise AssertionError('a gate that is off launched a kernel')
 
-    # the train step's time, kernels vs plain (the same engine)
+    # the train step's time, kernels vs plain (the trained engine)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+
     def plain_step():
         with _plain_versions(*_nhwc_modules(), WT):
             eng.train_step(raw, last, gen)

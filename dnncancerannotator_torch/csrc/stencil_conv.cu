@@ -7,18 +7,29 @@
 // (dnncancerannotator_tpu/ops/pallas/conv_kernel.py:84), which keeps a
 // whole padded image in VMEM and reads the weights as SMEM scalars.
 // NCHW f32, w [Co, Ci, KH, KW] (PyTorch OIHW), Ci, Co <= 32. On the model's
-// path it runs the 1 x 1, 3 -> 1 logits head.
+// path it runs the 1 x 1, 3 -> 1 logits head. Two routes
+// (ops/kernels/stencil_conv.py: route):
 //
-// What bounds it on the H100: for the head, 3 FMAs per output pixel against
-// 16 bytes of device memory (12 read, 4 written), so device-memory bytes.
-// Wider stencils at these widths do at most a few hundred FMAs per pixel
-// and stay near that bound.
-//
-// Design: one thread per output pixel, all Co accumulators in registers
-// (a template bucket of Co), weights and bias in shared memory (broadcast
-// reads). Neighbouring threads take neighbouring x, so every input and
-// output access is coalesced; the padding is a bounds test on the input
-// index, never a padded copy.
+// - pointwise (1 x 1, zero pads: the head): a pure stream of Ci reads and
+//   Co writes a pixel, 16 bytes a pixel at the head against 3 FMAs, so
+//   device-memory bytes bound it, and the rate of HBM needs many bytes in
+//   flight on every SM. The grid is (pixel chunk, batch) with 32-bit
+//   offsets inside a batch item and no division per pixel; each thread
+//   takes V groups of 4 consecutive pixels as float4 and issues all Ci x V
+//   loads before its first FMA (Ci a compile-time constant: exact up to 4,
+//   buckets above). The weights and bias are read with uniform read-only
+//   loads (one transaction a warp), with no shared memory and no barrier:
+//   they live on the device and change every step, so passing them by
+//   value would cost a copy to the host and a sync a call. Streaming loads
+//   where the call exceeds L2; a scalar form where H*W % 4 != 0 or a plane
+//   is not 16-byte aligned.
+// - stencil (any other KH x KW or pads; no configuration of the repo runs
+//   it): one thread per output pixel, all Co accumulators in registers (a
+//   template bucket of Co), weights and bias in shared memory (broadcast
+//   reads). Neighbouring threads take neighbouring x, so every input and
+//   output access is coalesced; the padding is a bounds test on the input
+//   index, never a padded copy. Wider stencils at these widths do at most a
+//   few hundred FMAs per pixel and stay near the bytes bound.
 #include "common.cuh"
 
 namespace {
@@ -95,6 +106,105 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
   return cudaGetLastError();
 }
 
+
+// -- the pointwise route ------------------------------------------------------
+constexpr int kPwThreads = 256;
+
+__device__ __forceinline__ float4 splat(float v, float4) {
+  return make_float4(v, v, v, v);
+}
+__device__ __forceinline__ float splat(float v, float) { return v; }
+__device__ __forceinline__ float4 fma_(float a, float4 x, float4 acc) {
+  return make_float4(fmaf(a, x.x, acc.x), fmaf(a, x.y, acc.y),
+                     fmaf(a, x.z, acc.z), fmaf(a, x.w, acc.w));
+}
+__device__ __forceinline__ float fma_(float a, float x, float acc) {
+  return fmaf(a, x, acc);
+}
+__device__ __forceinline__ float4 relu_(float4 v) {
+  return make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f),
+                     fmaxf(v.w, 0.f));
+}
+__device__ __forceinline__ float relu_(float v) { return fmaxf(v, 0.f); }
+template <typename T>
+__device__ __forceinline__ T load_(const T* p, bool streaming) {
+  return streaming ? __ldcs(p) : __ldg(p);
+}
+
+// T: float4 (groups of 4 pixels) or float (single pixels); CI: Ci exactly
+// (1-4) or a bucket (8, 16, 32: channels past Ci are skipped); V: groups a
+// thread. P is H * W, in pixels; the grid's y walks the batch.
+template <typename T, int CI, int V>
+__global__ void __launch_bounds__(kPwThreads)
+pointwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ bias, float* __restrict__ out,
+                      int B, int Ci, int Co, int P, int relu, int streaming) {
+  constexpr int kPx = sizeof(T) / sizeof(float);
+  const int groups = P / kPx;
+  const int q0 = blockIdx.x * (kPwThreads * V) + threadIdx.x;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const T* xb = reinterpret_cast<const T*>(x + static_cast<size_t>(b) * Ci * P);
+    T* ob = reinterpret_cast<T*>(out + static_cast<size_t>(b) * Co * P);
+    T v[V][CI];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int q = q0 + k * kPwThreads;
+#pragma unroll
+      for (int c = 0; c < CI; ++c)
+        v[k][c] = q < groups && (CI <= 4 || c < Ci)
+                      ? load_(xb + c * groups + q, streaming != 0)
+                      : splat(0.f, T());
+    }
+    for (int o = 0; o < Co; ++o) {
+      float wr[CI];
+#pragma unroll
+      for (int c = 0; c < CI; ++c)
+        wr[c] = CI <= 4 || c < Ci ? __ldg(w + o * Ci + c) : 0.f;
+      const float bo = __ldg(bias + o);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int q = q0 + k * kPwThreads;
+        if (q >= groups) continue;
+        T acc = splat(bo, T());
+#pragma unroll
+        for (int c = 0; c < CI; ++c) acc = fma_(wr[c], v[k][c], acc);
+        ob[o * groups + q] = relu ? relu_(acc) : acc;
+      }
+    }
+  }
+}
+
+template <typename T, int CI, int V>
+cudaError_t launch_pointwise(const float* x, const float* w, const float* bias,
+                             float* out, int B, int Ci, int Co, int P,
+                             int relu, int streaming, cudaStream_t stream) {
+  constexpr int kPx = sizeof(T) / sizeof(float);
+  const int groups = P / kPx;
+  const dim3 grid((groups + kPwThreads * V - 1) / (kPwThreads * V),
+                  B < 65535 ? B : 65535);
+  pointwise_conv_kernel<T, CI, V><<<grid, kPwThreads, 0, stream>>>(
+      x, w, bias, out, B, Ci, Co, P, relu, streaming);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t pointwise(const float* x, const float* w, const float* bias,
+                      float* out, int B, int Ci, int Co, int P, int relu,
+                      int streaming, cudaStream_t s) {
+#define DNNCA_PW(CI, V) \
+  launch_pointwise<T, CI, V>(x, w, bias, out, B, Ci, Co, P, relu, streaming, s)
+  switch (Ci) {
+    case 1: return DNNCA_PW(1, 2);
+    case 2: return DNNCA_PW(2, 2);
+    case 3: return DNNCA_PW(3, 2);
+    case 4: return DNNCA_PW(4, 2);
+    default:
+      return Ci <= 8 ? DNNCA_PW(8, 2) : Ci <= 16 ? DNNCA_PW(16, 1)
+                                             : DNNCA_PW(32, 1);
+  }
+#undef DNNCA_PW
+}
+
 }  // namespace
 
 extern "C" int dnnca_stencil_conv(const float* x, const float* w,
@@ -114,4 +224,21 @@ extern "C" int dnnca_stencil_conv(const float* x, const float* w,
   if (Co <= 16) return DNNCA_STENCIL(16);
   return DNNCA_STENCIL(32);
 #undef DNNCA_STENCIL
+}
+
+// The pointwise route: a 1 x 1 conv with zero pads over P = H * W pixels a
+// plane. vec: P % 4 == 0 and x, out 16-byte aligned (float4 groups);
+// streaming: the call exceeds L2 (evict-first loads).
+extern "C" int dnnca_pointwise_conv(const float* x, const float* w,
+                                    const float* bias, float* out, int B,
+                                    int Ci, int Co, int P, int relu,
+                                    int streaming, int vec, int device,
+                                    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return vec ? pointwise<float4>(x, w, bias, out, B, Ci, Co, P, relu,
+                                 streaming, s)
+             : pointwise<float>(x, w, bias, out, B, Ci, Co, P, relu,
+                                streaming, s);
 }

@@ -61,6 +61,11 @@ _SIGNATURES = {
     # x, g, w, dx, dwb, partial, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW,
     # wgrad_blocks, device, stream
     'dnnca_stencil_conv_bwd': [_P] * 6 + [_I] * 13 + [_P],
+    # x, w, bias, out, B, Ci, Co, P, relu, streaming, vec, device, stream
+    'dnnca_pointwise_conv': [_P] * 4 + [_I] * 8 + [_P],
+    # x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P, tile, per_block,
+    # blocks, slices, vec, smem, device, stream
+    'dnnca_pointwise_conv_bwd': [_P] * 8 + [_I] * 11 + [_P],
     # img, flow, out, B, H, W, C, max_displacement, device, stream
     'dnnca_warp_twopass': [_P] * 3 + [_I] * 6 + [_P],
     # img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,

@@ -1,17 +1,29 @@
 '''Backward of the stride-1 stencil conv (ops/kernels/stencil_conv.py),
 NCHW f32.
 
-The CUDA kernel (csrc/stencil_conv_bwd.cu with csrc/wgrad.cu) replaces
+The CUDA kernels (csrc/stencil_conv_bwd.cu) replace
 conv_kernel.stencil_conv2d_bwd_pallas of the JAX package: from the
-forward's input x, the cotangent g of its output and the weight it returns
-(dx or None, dw, db). When the forward fused a relu, the caller masks g by
-the forward's output first (ops/functions.py), as fastconv.py:200-201 does.
+forward's input x, the cotangent g of its output and the weight they
+return (dx or None, dw, db). When the forward fused a relu, the caller
+masks g by the forward's output first (ops/functions.py), as
+fastconv.py:200-201 does. The forward's ``route`` picks the kernels:
 
-``stencil_conv_bwd`` launches the kernel for CUDA tensors and runs ``plain``
-(the data and weight gradients of ``F.conv2d`` on the padded input) for CPU
-tensors; it raises on any other input.
+- ``pointwise`` (1 x 1, zero pads: the logits head): one launch a call.
+  Blocks stage tiles of x and g, compute dx and per-block f64 partial sums
+  of dw and db, and the last block to arrive (a ticket) adds the partials
+  in block order. ``plan`` sizes the launch in pure Python from the shape
+  alone (tile, tiles a block, blocks, slices, shared memory), so dw and db
+  are the same bits on every card and call; the partials' scratch is kept
+  per device and size, not allocated a call.
+- ``stencil`` (any other shape): the dgrad kernel, then the shared wgrad
+  kernel (csrc/wgrad.cu) and its fixed-order partial sum.
+
+``stencil_conv_bwd`` launches the kernels for CUDA tensors and runs
+``plain`` (the data and weight gradients of ``F.conv2d`` on the padded
+input) for CPU tensors; it raises on any other input.
 '''
 
+import collections
 import functools
 
 import torch
@@ -20,8 +32,24 @@ from torch.nn import grad as nn_grad
 
 from . import _build, _wgrad
 from . import stencil_conv as fwd
+from .tconv2x2_bwd import cdiv, pad4, ticket
 
 launches = 0  # kernel launches in this process
+
+# the pointwise kernel (csrc/stencil_conv_bwd.cu: pointwise_bwd_kernel)
+THREADS = 256          # kPwThreads
+CHUNK = 16             # block partials a finish unit adds (kChunk)
+# pixels a tile: at the head (B=8) 2048 was the fastest of 256 to 4096
+# (tools/profile_torch_sites.py --sweep-head on an H100: 0.0091 ms on the
+# device, 0.0098 at 1024, 0.0094 at 4096)
+MAX_TILE = 2048
+STAGE_BYTES = 32768    # x and g planes of one tile in shared memory
+# at most this many blocks (and partials for the last one to add); past
+# it a block takes several tiles
+MAX_BLOCKS = 1024
+
+Plan = collections.namedtuple('Plan', 'tile chunks tiles per_block blocks '
+                                      'slices smem')
 
 
 def plain(x, g, w, pads, need_dx=True):
@@ -48,11 +76,53 @@ def supported(ci, co, kh, kw):
             and _wgrad.fits(co, ci, kh, kw))
 
 
+@functools.lru_cache(maxsize=None)
+def plan(b, ci, co, h, w):
+    '''The pointwise kernel's launch over B planes of H * W pixels, from
+    the shape alone: tiles of whole float4 groups of one plane (as many
+    pixels as STAGE_BYTES holds of the Ci + Co planes, at most MAX_TILE,
+    at most the plane rounded up to 4), the tiles in order over the batch,
+    consecutive runs of them a block so that at most MAX_BLOCKS partials
+    remain, and the slices an item of a tile (the largest power of two
+    that keeps the items x slices within a block's threads and a group a
+    slice). The shared memory holds the staged planes, the weight, the
+    warps' slice sums and the block's partial, and at least one row of the
+    last block's chunk sums.'''
+    p = h * w
+    n = ci * co + co
+    tile = min(MAX_TILE, STAGE_BYTES // (4 * (ci + co)) // 4 * 4, pad4(p))
+    chunks = cdiv(p, tile)
+    tiles = b * chunks
+    per_block = cdiv(tiles, MAX_BLOCKS)
+    blocks = cdiv(tiles, per_block)
+    slices = 1
+    while n * slices * 2 <= THREADS and slices * 2 <= tile // 4:
+        slices *= 2
+    smem = 4 * ((ci + co) * tile + pad4(ci * co)) + 8 * (THREADS // 32 + n)
+    smem = max(smem, 8 * cdiv(blocks, CHUNK))
+    return Plan(tile, chunks, tiles, per_block, blocks, slices, smem)
+
+
+_scratch = {}  # (device index, doubles) -> the partials' scratch
+
+
+def scratch(device, doubles):
+    '''The pointwise kernel's [blocks][Ci Co + Co] f64 partials: one
+    buffer a device and size, kept across calls (calls on one device run in
+    stream order, so they never hold it at once).'''
+    key = (device.index, doubles)
+    if key not in _scratch:
+        _scratch[key] = torch.empty(doubles, dtype=torch.float64,
+                                    device=device)
+    return _scratch[key]
+
+
 def stencil_conv_bwd(x, g, w, pads, need_dx=True):
     '''Returns (dx or None, dw, db).'''
     global launches
+    pads = fwd._pads(pads)
     co, ci, kh, kw = w.shape
-    oh, ow = fwd.check(x, w, torch.empty(co, device='meta'), pads)
+    oh, ow = fwd.out_hw(tuple(x.shape), tuple(w.shape), (co,), pads)
     if tuple(g.shape) != (x.shape[0], co, oh, ow):
         raise ValueError(f'g must be [B, Co, OH, OW] = '
                          f'{(x.shape[0], co, oh, ow)}, got {tuple(g.shape)}')
@@ -64,16 +134,31 @@ def stencil_conv_bwd(x, g, w, pads, need_dx=True):
         return plain(x, g, w, pads, need_dx)
     device = _build.check_cuda_f32(x=x, g=g, w=w)
     b, _, h, wd = x.shape
-    n_w = co * ci * kh * kw
     f32 = dict(device=device, dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
+    dx_ptr = dx.data_ptr() if dx is not None else None
+    stream = _build.stream_of(device)
+    if fwd.route(ci, co, kh, kw, pads, h, wd) == 'pointwise':
+        pl = plan(b, ci, co, h, wd)
+        vec = ((h * wd) % 4 == 0 and x.data_ptr() % 16 == 0
+               and g.data_ptr() % 16 == 0)
+        dw, db = torch.empty(w.shape, **f32), torch.empty(co, **f32)
+        _build.launch('dnnca_pointwise_conv_bwd', x.data_ptr(),
+                      g.data_ptr(), w.data_ptr(), dx_ptr, dw.data_ptr(),
+                      db.data_ptr(),
+                      scratch(device, pl.blocks * (ci * co + co)).data_ptr(),
+                      ticket(device).data_ptr(), b, ci, co, h * wd, pl.tile,
+                      pl.per_block, pl.blocks, pl.slices, int(vec), pl.smem,
+                      device.index, stream)
+        launches += 1
+        return dx, dw, db
+    n_w = co * ci * kh * kw
     dwb = torch.empty(n_w + co, **f32)
     blocks = _wgrad.blocks(b, oh, ow)
     partial = torch.empty((n_w + co) * blocks, **f32)
     _build.launch('dnnca_stencil_conv_bwd', x.data_ptr(), g.data_ptr(),
-                  w.data_ptr(), dx.data_ptr() if dx is not None else None,
-                  dwb.data_ptr(), partial.data_ptr(), b, ci, co, h, wd, kh,
-                  kw, pads[0][0], pads[1][0], oh, ow, blocks, device.index,
-                  _build.stream_of(device))
+                  w.data_ptr(), dx_ptr, dwb.data_ptr(), partial.data_ptr(),
+                  b, ci, co, h, wd, kh, kw, pads[0][0], pads[1][0], oh, ow,
+                  blocks, device.index, stream)
     launches += 1
     return dx, dwb[:n_w].view(co, ci, kh, kw), dwb[n_w:]

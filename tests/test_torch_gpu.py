@@ -207,6 +207,102 @@ def test_stencil_conv_bwd_kernel(cuda, ci, co, k, pads):
                   SCB.plain(x, g, wk, pads))
 
 
+# the pointwise route of both stencil kernels (1 x 1, zero pads): the
+# head's batches (1, 8 for training, 64 for prediction), planes that are
+# and are not whole float4 groups, exact and bucketed channel counts
+_PW_SHAPES = [(b, hw, ci, co) for b in (1, 8, 64)
+              for hw in ((256, 256), (255, 257), (1, 3))
+              for ci in (1, 3, 5, 32) for co in (1, 3, 32)]
+_PW_PADS = ((0, 0), (0, 0))
+
+
+def _pw_inputs(seed, b, hw, ci, co, relu):
+    gen = torch.Generator().manual_seed(seed)
+    x = _rand(gen, b, ci, *hw)
+    wk, bias = _rand(gen, co, ci, 1, 1) * 0.5, _rand(gen, co)
+    g = _rand(gen, b, co, *hw)
+    if relu:   # the backward of a fused relu sees g masked by the output
+        g = g * (SC.plain(x, wk, bias, _PW_PADS, True) > 0)
+    return x, wk, bias, g
+
+
+@pytest.mark.parametrize('b,hw,ci,co', _PW_SHAPES)
+@pytest.mark.parametrize('relu', [False, True])
+def test_pointwise_conv_kernel(cuda, b, hw, ci, co, relu):
+    x, wk, bias, _ = _pw_inputs(7, b, hw, ci, co, relu)
+    assert SC.route(ci, co, 1, 1, _PW_PADS, *hw) == 'pointwise'
+    before = SC.launches
+    _assert_close(SC.stencil_conv(x, wk, bias, _PW_PADS, relu),
+                  SC.plain(x, wk, bias, _PW_PADS, relu))
+    assert SC.launches == before + 1
+
+
+@pytest.mark.parametrize('b,hw,ci,co', _PW_SHAPES)
+@pytest.mark.parametrize('relu', [False, True])
+def test_pointwise_conv_bwd_kernel(cuda, b, hw, ci, co, relu):
+    x, wk, _, g = _pw_inputs(8, b, hw, ci, co, relu)
+    before = SCB.launches
+    got = SCB.stencil_conv_bwd(x, g, wk, _PW_PADS)
+    assert SCB.launches == before + 1
+    # against the f64 plain version: dw and db sum in f64, the f32 plain
+    # version's own error grows with the B x H x W terms of each sum
+    want = SCB.plain(x.double(), g.double(), wk.double(), _PW_PADS)
+    _assert_grads(got, tuple(t.float() for t in want))
+    assert int(TCB.ticket(cuda)) == 0
+
+
+@pytest.mark.parametrize('b,hw,ci,co', [
+    (8, (256, 256), 3, 1),      # the head in training
+    (64, (256, 256), 3, 1),     # the head under input sensitivity
+    (8, (255, 257), 5, 3),
+    (8, (256, 256), 32, 32),
+])
+def test_pointwise_conv_bwd_same_bits_and_f64(cuda, b, hw, ci, co):
+    '''dw and db: the same bits on two calls and without dx, and no
+    further from the f64 plain version than F64_RATIO times the f32 plain
+    version's error.'''
+    from chip_smoke import F64_RATIO
+    x, wk, _, g = _pw_inputs(9, b, hw, ci, co, False)
+    got = SCB.stencil_conv_bwd(x, g, wk, _PW_PADS)
+    again = SCB.stencil_conv_bwd(x, g, wk, _PW_PADS)
+    no_dx = SCB.stencil_conv_bwd(x, g, wk, _PW_PADS, need_dx=False)
+    assert no_dx[0] is None
+    for a, b2, c in zip(got[1:], again[1:], no_dx[1:]):
+        assert torch.equal(a, b2) and torch.equal(a, c)
+    plain = SCB.plain(x, g, wk, _PW_PADS)
+    exact = SCB.plain(x.double(), g.double(), wk.double(), _PW_PADS)
+    for k, p, e in zip(got[1:], plain[1:], exact[1:]):
+        err, plain_err = (float((t.double() - e).abs().max())
+                          for t in (k, p))
+        assert err <= F64_RATIO * plain_err, (err, plain_err)
+
+
+def test_pointwise_conv_bwd_one_launch_at_the_head(cuda):
+    '''The head's backward at B=8: one kernel a call (the profiler counts
+    every launch, the memsets of an allocation included; the fullest of
+    chip_smoke.py's three windows of 10 calls, as phase 3b: a window now
+    and then records no kernel at all).'''
+    from chip_smoke import _fullest_split
+    x, wk, _, g = _pw_inputs(10, 8, (256, 256), 3, 1, False)
+    split = _fullest_split(
+        lambda: SCB.stencil_conv_bwd(x, g, wk, _PW_PADS))
+    assert round(sum(n for _, n in split.values())) == 1, split
+    assert all('pointwise_bwd_kernel' in k for k in split), split
+
+
+def test_pointwise_conv_unaligned_planes(cuda):
+    '''Inputs that start off a 16-byte boundary take the scalar form.'''
+    gen = torch.Generator().manual_seed(11)
+    base = _rand(gen, 2 * 3 * 64 + 1)
+    x = base[1:].view(2, 3, 8, 8)
+    g = _rand(gen, 2 * 64 + 1)[1:].view(2, 1, 8, 8)
+    wk, bias = _rand(gen, 1, 3, 1, 1), _rand(gen, 1)
+    _assert_close(SC.stencil_conv(x, wk, bias, _PW_PADS),
+                  SC.plain(x, wk, bias, _PW_PADS))
+    _assert_grads(SCB.stencil_conv_bwd(x, g, wk, _PW_PADS),
+                  SCB.plain(x, g, wk, _PW_PADS))
+
+
 @pytest.mark.parametrize('b,h,w,c,d,scale', [
     (2, 37, 50, 6, 8, 4.0),
     (1, 64, 64, 3, 3, 10.0),   # flows well past +-d: the clamp
@@ -373,4 +469,9 @@ def test_wrappers_reject_non_contiguous_and_f64(cuda):
         SC.stencil_conv(x.transpose(2, 3), w, b, ((0, 0), (0, 0)))
     with pytest.raises(TypeError, match='float32'):
         SC.stencil_conv(x.double(), w.double(), b.double(), ((0, 0), (0, 0)))
+    g = torch.zeros(1, 1, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        SCB.stencil_conv_bwd(x.transpose(2, 3), g, w, ((0, 0), (0, 0)))
+    with pytest.raises(ValueError, match='contiguous'):
+        SCB.stencil_conv_bwd(x, g.transpose(2, 3), w, ((0, 0), (0, 0)))
     kernels.reset_launches()

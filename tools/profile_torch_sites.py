@@ -1,5 +1,5 @@
-'''Device time of the CCA, NCHW tconv backward and head conv kernels at the
-shapes their paths call them with:
+'''Device time of the CCA, NCHW tconv backward and head conv kernels
+(forward and backward) at the shapes their paths call them with:
 
     python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--sweep]
 
@@ -15,7 +15,8 @@ On one GPU, with seeded inputs, it times:
 - ``tconv2x2_bwd`` (ops/kernels/tconv2x2_bwd.py) at unet.yaml's decoder
   sites up_0-up_2 at the training batch of 8, with dx;
 - ``stencil_conv`` (the 1x1 logits head, 3 -> 1 at 256 x 256) at B=8 (the
-  training forward) and B=64 (prediction).
+  training forward) and B=64 (prediction), and ``stencil_conv_bwd`` at the
+  head at B=8 (the training backward, with dx).
 
 Each call is split by the name of every kernel it launches, with
 chip_smoke.py's yardstick: torch.profiler over 10 calls, the fullest of
@@ -24,7 +25,9 @@ of 20, host time inside) and the call's bound (chip_smoke.bound: each
 input read once and each output written once). ``--repo`` imports the port
 from another checkout (a parent commit unpacked with ``git archive``) and
 times it with this checkout's yardstick and inputs, so two versions can be
-compared on one card; ``--out`` writes the numbers as JSON. ``--sweep``
+compared on one card; ``--out`` writes the numbers as JSON;
+``--sweep-head`` times the head backward's pointwise route at every tile
+size (ops/kernels/stencil_conv_bwd.py: MAX_TILE). ``--sweep``
 times instead ``tconv2x2_bwd`` at every tile height its plan allows at the
 three sites (ops/kernels/tconv2x2_bwd.py: TUNED) and ``cca`` on both
 routes (ops/kernels/cca.py: route), for the rules' choices.
@@ -174,16 +177,54 @@ def sweep(device):
     sweep_cca(device)
 
 
+def sweep_head(device):
+    '''Device ms of stencil_conv_bwd's pointwise route at the head (B=8,
+    with dx) at every tile size from 256 to 4096 pixels (the plan's
+    MAX_TILE, with STAGE_BYTES to hold it), beside the plan's own.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED)
+    x = torch.rand((TRAIN_BATCH, 3, chip_smoke.SIZE, chip_smoke.SIZE),
+                   generator=gen, device=device)
+    g = torch.randn((TRAIN_BATCH, 1, chip_smoke.SIZE, chip_smoke.SIZE),
+                    generator=gen, device=device)
+    w = torch.randn((1, 3, 1, 1), generator=gen, device=device)
+    pads = ((0, 0), (0, 0))
+    want = SCB.plain(x, g, w, pads)
+    saved = SCB.MAX_TILE, SCB.STAGE_BYTES
+    print(f'stencil_conv_bwd head B={TRAIN_BATCH}: plan '
+          f'{SCB.plan(TRAIN_BATCH, 3, 1, 256, 256)}', flush=True)
+    for tile in (256, 512, 1024, 2048, 4096):
+        SCB.MAX_TILE, SCB.STAGE_BYTES = tile, max(saved[1], 16 * tile)
+        SCB.plan.cache_clear()
+        pl = SCB.plan(TRAIN_BATCH, 3, 1, 256, 256)
+        got = SCB.stencil_conv_bwd(x, g, w, pads)
+        err = max(float((a - c).abs().max() / c.abs().max())
+                  for a, c in zip(got, want))
+        split = chip_smoke._fullest_split(
+            functools.partial(SCB.stencil_conv_bwd, x, g, w, pads))
+        print(f'  tile {tile:5d} blocks {pl.blocks:4d} slices {pl.slices:3d} '
+              f'smem {pl.smem:6d} device '
+              f'{sum(v for v, _ in split.values()):.4f} ms launches '
+              f'{sum(c for _, c in split.values()):.1f} rel err {err:.2e}',
+              flush=True)
+    SCB.MAX_TILE, SCB.STAGE_BYTES = saved
+    SCB.plan.cache_clear()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--repo', default=HERE)
     parser.add_argument('--out', default=None)
     parser.add_argument('--sweep', action='store_true')
+    parser.add_argument('--sweep-head', action='store_true',
+                        help='time the head backward at every tile size')
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.ops.kernels import cca as K
     from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
     from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
 
     device = engine.resolve_device('cuda')
@@ -194,6 +235,8 @@ def main():
     print(f'port from {os.path.abspath(args.repo)}; card: {card}', flush=True)
     if args.sweep:
         return sweep(device)
+    if args.sweep_head:
+        return sweep_head(device)
     jobs = []   # (label, call, bound ms)
     for label, masks in cca_sets(device).items():
         got = K.cca_raw_labels(masks)
@@ -226,6 +269,14 @@ def main():
                      functools.partial(SC.stencil_conv, x, w, bias, pads),
                      chip_smoke.bound(chip_smoke.nbytes(x, w, bias, out),
                                       2 * out.numel() * 3)[0]))
+        if nb == TRAIN_BATCH:
+            g = torch.randn(out.shape, generator=gen, device=device)
+            got = SCB.stencil_conv_bwd(x, g, w, pads)
+            jobs.append((f'stencil_conv_bwd head 1x1 3->1 @256 B={nb}',
+                         functools.partial(SCB.stencil_conv_bwd, x, g, w,
+                                           pads),
+                         chip_smoke.bound(chip_smoke.nbytes(x, g, w, *got),
+                                          4 * g.numel() * 3)[0]))
     # CUDA events first: a profiler session slows later calls on the host
     rows = [dict(call=label, bound_ms=bd,
                  event_ms=chip_smoke._time_fns({'': call})[''])

@@ -26,7 +26,10 @@ Phases (each raises on failure, so the process exits non-zero):
    and STENCIL_BWD_LAUNCHES, from the fullest of three deferred profiler
    windows); the two-pass
    warp on [8, 256, 256, 6] at a flow from a real warp bank and at a random
-   flow past +-8 px, exactly equal to its plain version; timings as in 3;
+   flow past +-8 px, exactly equal to its plain version, on the tile route
+   (ops/kernels/warp_twopass.py: route; printed, and a failure if not) at
+   WARP_LAUNCHES a call (from the fullest of three deferred profiler
+   windows); timings as in 3;
 4. prediction: seeded synthetic .tfrecords and a seeded checkpoint, then the
    port's ``predict`` CLI at batch 64 on the card. Checks the file count,
    that every map is finite and in [0, 1], that every kernel launched at
@@ -108,7 +111,8 @@ Phases (each raises on failure, so the process exits non-zero):
    to 256 x 256 at d = 8 (data_options.yaml's warp) and d = 18
    (augment_options.yaml's), at the flows of a real per-step solve
    (ops/warp.py:cropped_twopass_flows) and at a random flow past +-d, with
-   crop offsets 0, in - out and mirrored ones; timings as in 3;
+   crop offsets 0, in - out and mirrored ones, on the tile route at
+   WARP_LAUNCHES a call, as in 3b; timings as in 3;
 8. fused augmentation: the ``train`` CLI with the unet.yaml stack and an
    overlay ``deploy_options.fused_aug: true`` after deploy_options.yaml
    (which replaces the whole dict) for 50 steps in chunks of 25 on the
@@ -652,6 +656,8 @@ def kernel_sites(model, device, results):
 CHAIN_BWD_LAUNCHES = 2
 TCONV_BWD_LAUNCHES = 1
 STENCIL_BWD_LAUNCHES = 1
+# the two warp kernels' launches a call, on either route
+WARP_LAUNCHES = 1
 
 
 def _chain_bwd_split(name, call):
@@ -730,8 +736,6 @@ def _f64(*tensors):
 def backward_sites(model, device, results):
     '''Each backward kernel against its plain version at every site of the
     training step, and the warp kernel at the augmentation's shapes.'''
-    from dnncancerannotator_torch.data import augment
-    from dnncancerannotator_torch.ops import warp
     from dnncancerannotator_torch.ops.kernels import conv_chain as CC
     from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
     from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
@@ -818,9 +822,42 @@ def backward_sites(model, device, results):
            bound(nbytes(x, g, w, *got), 4 * g.numel() * w[0].numel()))
 
     # the warp: a dense flow from a real bank, and a random one past +-d
-    bank = augment.build_warp_bank(
-        torch.Generator(device=device).manual_seed(SEED + 3), b, (SIZE, SIZE))
-    d = bank['max_displacement']
+    d, image, flows = warp_inputs(device)
+    for label, flow in flows.items():
+        name = f'warp_twopass [{b},{SIZE},{SIZE},6] d={d} {label}'
+        route = WT.route(*image.shape, d)
+        got, want = WT.warp_twopass(image, flow, d), WT.plain(image, flow, d)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f'  {name:52s} route {route} max|diff| {err:.3e}  max|ref| '
+            f'{float(want.abs().max()):.3e}')
+        if not torch.equal(got, want):   # same rounded operations: exact
+            raise AssertionError(f'{name} differs from its plain version by '
+                                 f'{err}')
+        if route != 'tile':
+            raise AssertionError(f'{name}: the main path\'s shape takes the '
+                                 f'{route} route')
+        times = _time_site(lambda: WT.warp_twopass(image, flow, d),
+                           lambda: WT.plain(image, flow, d))
+        _DEFERRED.append(functools.partial(
+            _launch_split, name,
+            functools.partial(WT.warp_twopass, image, flow, d),
+            WARP_LAUNCHES))
+        # about 12 operations an output value (two clamped bilinear passes)
+        record(results, 'warp_twopass', err, times,
+               bound(nbytes(image, flow, got), 12 * got.numel()))
+
+
+def warp_inputs(device):
+    '''(d, image, {label: flow}): the banked train step's warp_twopass
+    inputs, [8, 256, 256, 6] at a dense flow from a real warp bank and at a
+    random flow past +-d.'''
+    from dnncancerannotator_torch.data import augment
+    from dnncancerannotator_torch.ops import warp
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    b = TRAIN_BATCH
+    bank = augment.build_warp_bank(gen, b, (SIZE, SIZE))
     image = torch.rand((b, SIZE, SIZE, 6), generator=gen, device=device)
     flows = {
         'bank flow': warp._upsample_flow(bank['flows'], SIZE, SIZE,
@@ -828,20 +865,7 @@ def backward_sites(model, device, results):
         'random flow past +-d': torch.randn(
             (b, SIZE, SIZE, 2), generator=gen, device=device) * 12.0,
     }
-    for label, flow in flows.items():
-        got, want = WT.warp_twopass(image, flow, d), WT.plain(image, flow, d)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        log(f'  warp_twopass [{b},{SIZE},{SIZE},6] d={d} {label:22s} '
-            f'max|diff| {err:.3e}  max|ref| {float(want.abs().max()):.3e}')
-        if not torch.equal(got, want):   # same rounded operations: exact
-            raise AssertionError(f'warp_twopass ({label}) differs from its '
-                                 f'plain version by {err}')
-        times = _time_site(lambda: WT.warp_twopass(image, flow, d),
-                           lambda: WT.plain(image, flow, d))
-        # about 12 operations an output value (two clamped bilinear passes)
-        record(results, 'warp_twopass', err, times,
-               bound(nbytes(image, flow, got), 12 * got.numel()))
+    return bank['max_displacement'], image, flows
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -2043,15 +2067,13 @@ def big_train_slice(device, data_paths):
     return launches, predict_launches
 
 # -- phase 3f ----------------------------------------------------------------
-@torch.no_grad()
-def crop_kernel_sites(device, results):
-    '''The crop-fused warp kernel against its plain version on [8, 268, 268,
-    6] windows cropped to 256 x 256 at d = 8 and 18: at the flows of a real
-    per-step solve and at a random flow past +-d; offsets 0, in - out and
-    mirrored ones (w_in - w_out - ox). Exactly equal.'''
+def crop_inputs(device):
+    '''(image, off, [(d, label, fy_ext, fx)]): the fused chain's warp_crop
+    inputs, [8, 268, 268, 6] windows cropped to 256 x 256 at offsets 0, in
+    - out and mirrored ones (w_in - w_out - ox), at d = 8 and 18: the flows
+    of a real per-step solve and a random flow past +-d.'''
     from dnncancerannotator_torch.data import augment
     from dnncancerannotator_torch.ops import warp
-    from dnncancerannotator_torch.ops.kernels import warp_crop as WC
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     b, span = TRAIN_BATCH, CROP_IN - SIZE
@@ -2059,8 +2081,7 @@ def crop_kernel_sites(device, results):
     oy = (0, span, 6, 3, span, 0, 9, 6)
     ox = (0, span, span - 6, span - 2, 0, span, span - 9, 6)
     off = torch.tensor(list(zip(oy, ox)), dtype=torch.int32, device=device)
-    log(f'crop-fused warp (B={b}, {CROP_IN}x{CROP_IN}x6 -> {SIZE}x{SIZE}, '
-        f'offsets {off.tolist()}):')
+    sites = []
     for opts in CROP_WARPS:
         d = augment._max_displacement(opts['max_diff'])
         src, dst = augment.draw_warp(gen, b, SIZE, **opts)
@@ -2072,24 +2093,47 @@ def crop_kernel_sites(device, results):
                 shape, generator=gen, device=device) * 1.5 * d
                 for shape in ((b, SIZE, CROP_IN), (b, SIZE, SIZE))),
         }
-        for label, (fy, fx) in flows.items():
-            fy, fx = fy.contiguous(), fx.contiguous()
-            got = WC.warp_crop(image, fy, fx, off, d)
-            want = WC.plain(image, fy, fx, off, d)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            log(f'  warp_crop d={d:2d} {label:22s} max|diff| {err:.3e}  '
-                f'max|ref| {float(want.abs().max()):.3e}')
-            if not torch.equal(got, want):   # same rounded operations: exact
-                raise AssertionError(f'warp_crop ({label}, d={d}) differs '
-                                     f'from its plain version by {err}')
-            times = _time_site(lambda: WC.warp_crop(image, fy, fx, off, d),
-                               lambda: WC.plain(image, fy, fx, off, d))
-            # reads the crop region (as large as the output) and the flows,
-            # writes the output; about 12 operations an output value
-            record(results, 'warp_crop', err, times,
-                   bound(2 * nbytes(got) + nbytes(fy, fx, off),
-                         12 * got.numel()))
+        sites.extend((d, label, fy.contiguous(), fx.contiguous())
+                     for label, (fy, fx) in flows.items())
+    return image, off, sites
+
+
+@torch.no_grad()
+def crop_kernel_sites(device, results):
+    '''The crop-fused warp kernel against its plain version at
+    ``crop_inputs``' sites, exactly equal, on the tile route, one launch a
+    call.'''
+    from dnncancerannotator_torch.ops.kernels import warp_crop as WC
+
+    image, off, sites = crop_inputs(device)
+    log(f'crop-fused warp (B={TRAIN_BATCH}, {CROP_IN}x{CROP_IN}x6 -> '
+        f'{SIZE}x{SIZE}, offsets {off.tolist()}):')
+    for d, label, fy, fx in sites:
+        name = f'warp_crop d={d:2d} {label}'
+        route = WC.route(TRAIN_BATCH, SIZE, SIZE, 6, d)
+        got = WC.warp_crop(image, fy, fx, off, d)
+        want = WC.plain(image, fy, fx, off, d)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f'  {name:36s} route {route} max|diff| {err:.3e}  max|ref| '
+            f'{float(want.abs().max()):.3e}')
+        if not torch.equal(got, want):   # same rounded operations: exact
+            raise AssertionError(f'{name} differs from its plain version by '
+                                 f'{err}')
+        if route != 'tile':
+            raise AssertionError(f'{name}: the main path\'s shape takes the '
+                                 f'{route} route')
+        times = _time_site(lambda: WC.warp_crop(image, fy, fx, off, d),
+                           lambda: WC.plain(image, fy, fx, off, d))
+        _DEFERRED.append(functools.partial(
+            _launch_split, name,
+            functools.partial(WC.warp_crop, image, fy, fx, off, d),
+            WARP_LAUNCHES))
+        # reads the crop region (as large as the output) and the flows,
+        # writes the output; about 12 operations an output value
+        record(results, 'warp_crop', err, times,
+               bound(2 * nbytes(got) + nbytes(fy, fx, off),
+                     12 * got.numel()))
 
 
 # -- phase 8 -----------------------------------------------------------------

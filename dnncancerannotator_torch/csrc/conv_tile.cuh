@@ -1,6 +1,7 @@
 // Tile helpers shared by the conv chain's forward and backward kernels
 // (conv_chain.cu, conv_chain_bwd.cu); ``tap`` also serves wgrad.cu and
-// stencil_conv_bwd.cu, the cp.async copies tconv2x2_bwd.cu.
+// stencil_conv_bwd.cu, the cp.async copies tconv2x2_bwd.cu and
+// warp_tile.cuh.
 //
 // A block computes a stride-1 "same" conv over a 2D tile from an input tile
 // staged in shared memory. Register blocking: one work item is a run of PX

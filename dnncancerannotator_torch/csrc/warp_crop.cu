@@ -23,43 +23,31 @@
 // _resample_rows_crop :86). The TPU kernel cannot take an unaligned dynamic
 // slice, so it folds the crop offset into the tap masks and runs
 // 2 * (2d + 2 + in - out) shift-select terms over the whole window in VMEM.
-// On the GPU one thread computes the 2 x 2 taps of its output pixel
-// directly, with the offset added to its addresses: only the crop region
-// and the crop columns of fy_ext are read. The blends keep the exact form
-// lo * (1 - r) + hi * r with rounded, uncontracted operations, so the kernel
-// returns the same floats as the plain version (ops/kernels/warp_crop.py).
+// Here only the crop region and the crop columns of fy_ext are read. The
+// blends keep the exact form lo * (1 - r) + hi * r with rounded,
+// uncontracted operations, so both routes return the same floats as the
+// plain version (ops/kernels/warp_crop.py).
 //
 // Layout: NHWC f32, image [B, h_in, w_in, C], fy_ext [B, h_out, w_in],
-// fx [B, h_out, w_out], off [B, 2] int32 (oy, ox), out [B, h_out, w_out, C];
-// one thread owns all C channels of an output pixel.
+// fx [B, h_out, w_out], off [B, 2] int32 (oy, ox), out [B, h_out, w_out, C].
 //
-// What bounds it on the H100: device memory. Each output value takes 4
-// reads of 4 bytes, mostly from L1/L2 (neighbouring pixels share taps);
-// device memory moves the crop region, the two flow planes and the output,
-// about (2 C + 2) * 4 bytes a pixel.
-#include "common.cuh"
+// Two routes (ops/kernels/warp_twopass.py: route, on the crop's shape):
+// - tile: the halo-tile kernel of warp_tile.cuh in the crop frame, the
+//   block's (oy, ox) added where it stages rows. Every main-path shape
+//   takes it.
+// - direct: one thread an output pixel and all its C channels, the taps
+//   read straight from device memory at the offset, for shapes whose halo
+//   tile does not fit shared memory or would re-read the crop too often.
+//
+// What bounds it on the H100: device memory; it moves the crop region, the
+// two flow planes and the output, about (2 C + 2) * 4 bytes a pixel.
+#include "warp_tile.cuh"
+
+namespace warp = dnnca::warp;
 
 namespace {
 
 constexpr int kThreads = 256;
-
-struct Taps {
-  int lo, hi;  // row (or column) of the two taps, in the crop frame
-  float r;     // weight of hi
-};
-
-__device__ __forceinline__ Taps taps_at(int g, float f, float d, int n) {
-  const float fc = fminf(fmaxf(f, -d), d);
-  const float q = fminf(fmaxf(__fsub_rn(static_cast<float>(g), fc), 0.f),
-                        static_cast<float>(n - 1));
-  const float q0 = floorf(q);
-  const int lo = static_cast<int>(q0);
-  return Taps{lo, lo + 1 < n ? lo + 1 : n - 1, __fsub_rn(q, q0)};
-}
-
-__device__ __forceinline__ float blend(float lo, float hi, float r) {
-  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.f, r)), __fmul_rn(hi, r));
-}
 
 __global__ void __launch_bounds__(kThreads)
 warp_crop_kernel(const float* __restrict__ img,
@@ -76,11 +64,11 @@ warp_crop_kernel(const float* __restrict__ img,
   const int oy = min(max(off[2 * b], 0), Hin - Hout);
   const int ox = min(max(off[2 * b + 1], 0), Win - Wout);
 
-  const Taps tx = taps_at(x, fx[idx], d, Wout);
+  const warp::Taps tx = warp::taps_at(x, fx[idx], d, Wout);
   const float* fy_row =
       fy_ext + (static_cast<size_t>(b) * Hout + y) * Win + ox;
-  const Taps ty0 = taps_at(y, fy_row[tx.lo], d, Hout);
-  const Taps ty1 = taps_at(y, fy_row[tx.hi], d, Hout);
+  const warp::Taps ty0 = warp::taps_at(y, fy_row[tx.lo], d, Hout);
+  const warp::Taps ty1 = warp::taps_at(y, fy_row[tx.hi], d, Hout);
 
   // the crop's origin in the window
   const float* ib = img + ((static_cast<size_t>(b) * Hin + oy) * Win + ox) * C;
@@ -90,24 +78,33 @@ warp_crop_kernel(const float* __restrict__ img,
   const float* p11 = ib + (static_cast<size_t>(ty1.hi) * Win + tx.hi) * C;
   float* o = out + idx * C;
   for (int c = 0; c < C; ++c) {
-    const float mid0 = blend(p00[c], p01[c], ty0.r);
-    const float mid1 = blend(p10[c], p11[c], ty1.r);
-    o[c] = blend(mid0, mid1, tx.r);
+    const float mid0 = warp::blend(p00[c], p01[c], ty0.r);
+    const float mid1 = warp::blend(p10[c], p11[c], ty1.r);
+    o[c] = warp::blend(mid0, mid1, tx.r);
   }
 }
 
 }  // namespace
 
+// tile: 1 for the tile route with the plan (tw ... smem), 0 for the
+// direct route (the plan unused).
 extern "C" int dnnca_warp_crop(const float* img, const float* fy_ext,
                                const float* fx, const int* off, float* out,
                                int B, int Hin, int Win, int Hout, int Wout,
-                               int C, int max_displacement, int device,
-                               void* stream) {
+                               int C, int max_displacement, int tile, int tw,
+                               int seg, int th, int rb, int rs, int fs, int os,
+                               int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile)
+    return warp::launch_tile<true>(img, fy_ext, fx, off, out,
+                                   warp::Frame{B, Hin, Win, Hout, Wout, C},
+                                   warp::Plan{tw, seg, th, rb, rs, fs, os},
+                                   max_displacement, smem, st);
   const size_t n = static_cast<size_t>(B) * Hout * Wout;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  warp_crop_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  warp_crop_kernel<<<grid, kThreads, 0, st>>>(
       img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,
       static_cast<float>(max_displacement));
   return cudaGetLastError();

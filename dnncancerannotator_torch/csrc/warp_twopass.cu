@@ -12,45 +12,35 @@
 // Replaces warp_kernel.dense_image_warp_twopass_pallas
 // (dnncancerannotator_tpu/ops/pallas/warp_kernel.py:242), which runs both
 // passes as 2 * (2d + 2) shift-select terms over one image in VMEM, with the
-// horizontal pass on a transposed intermediate. None of that is needed on
-// the GPU: one thread computes the 2 x 2 taps of its output pixel directly,
-// with fy read at (y, x0) and (y, x0+1). The blends keep the exact form
-// lo * (1 - r) + hi * r with rounded, uncontracted operations, so the kernel
-// returns the same floats as the plain version.
+// horizontal pass on a transposed intermediate: TPU machinery, not
+// semantics. The blends keep the exact form lo * (1 - r) + hi * r with
+// rounded, uncontracted operations, so both routes return the same floats
+// as the plain version (ops/kernels/warp_twopass.py).
 //
 // Layout: NHWC f32, image [B, H, W, C], flow [B, H, W, 2] as (dy, dx); NHWC
 // because the augmentation chain (crop, flip, contrast, the label split)
-// runs on NHWC batches as in the JAX package, and one thread then owns all
-// C channels of a pixel, so the tap coordinates are computed once for all
-// of them.
+// runs on NHWC batches as in the JAX package.
 //
-// What bounds it on the H100: 4 taps x C reads of 4 bytes per output
-// element, mostly from L1/L2 since neighbouring pixels share taps; device
-// memory moves about (2 C + 2) * 4 bytes a pixel, so it is bound by memory
-// bytes and load issue.
-#include "common.cuh"
+// Two routes (ops/kernels/warp_twopass.py: route):
+// - tile: the halo-tile kernel of warp_tile.cuh, at offset 0 with fy and fx
+//   read from the interleaved flow. Every main-path shape takes it.
+// - direct: one thread an output pixel and all its C channels, the 2 x 2
+//   taps read straight from device memory, with fy read at (y, x0) and
+//   (y, x0+1). It stays for shapes whose halo tile does not fit shared
+//   memory or would re-read the image too often.
+//
+// What bounds it on the H100: device memory, (2 C + 2) * 4 bytes a pixel
+// read and written. The direct route loses to its access pattern: 4 taps
+// x C scalar loads a pixel from interleaved pixels, C scalar stores at a
+// 4 C-byte stride, and the dependent flow reads fx -> fy; the tile stages
+// the image with coalesced 16-byte copies and writes with 16-byte stores.
+#include "warp_tile.cuh"
+
+namespace warp = dnnca::warp;
 
 namespace {
 
 constexpr int kThreads = 256;
-
-struct Taps {
-  int lo, hi;  // row (or column) of the two taps
-  float r;     // weight of hi
-};
-
-__device__ __forceinline__ Taps taps_at(int g, float f, float d, int n) {
-  const float fc = fminf(fmaxf(f, -d), d);
-  const float q = fminf(fmaxf(__fsub_rn(static_cast<float>(g), fc), 0.f),
-                        static_cast<float>(n - 1));
-  const float q0 = floorf(q);
-  const int lo = static_cast<int>(q0);
-  return Taps{lo, lo + 1 < n ? lo + 1 : n - 1, __fsub_rn(q, q0)};
-}
-
-__device__ __forceinline__ float blend(float lo, float hi, float r) {
-  return __fadd_rn(__fmul_rn(lo, __fsub_rn(1.f, r)), __fmul_rn(hi, r));
-}
 
 __global__ void __launch_bounds__(kThreads)
 warp_twopass_kernel(const float* __restrict__ img,
@@ -65,9 +55,9 @@ warp_twopass_kernel(const float* __restrict__ img,
   const float* fb = flow + static_cast<size_t>(b) * plane * 2;
   const size_t row = static_cast<size_t>(y) * W;
 
-  const Taps tx = taps_at(x, fb[(row + x) * 2 + 1], d, W);
-  const Taps ty0 = taps_at(y, fb[(row + tx.lo) * 2], d, H);
-  const Taps ty1 = taps_at(y, fb[(row + tx.hi) * 2], d, H);
+  const warp::Taps tx = warp::taps_at(x, fb[(row + x) * 2 + 1], d, W);
+  const warp::Taps ty0 = warp::taps_at(y, fb[(row + tx.lo) * 2], d, H);
+  const warp::Taps ty1 = warp::taps_at(y, fb[(row + tx.hi) * 2], d, H);
 
   const float* ib = img + static_cast<size_t>(b) * plane * C;
   const float* p00 = ib + (static_cast<size_t>(ty0.lo) * W + tx.lo) * C;
@@ -76,24 +66,32 @@ warp_twopass_kernel(const float* __restrict__ img,
   const float* p11 = ib + (static_cast<size_t>(ty1.hi) * W + tx.hi) * C;
   float* o = out + idx * C;
   for (int c = 0; c < C; ++c) {
-    const float mid0 = blend(p00[c], p01[c], ty0.r);
-    const float mid1 = blend(p10[c], p11[c], ty1.r);
-    o[c] = blend(mid0, mid1, tx.r);
+    const float mid0 = warp::blend(p00[c], p01[c], ty0.r);
+    const float mid1 = warp::blend(p10[c], p11[c], ty1.r);
+    o[c] = warp::blend(mid0, mid1, tx.r);
   }
 }
 
 }  // namespace
 
+// tile: 1 for the tile route with the plan (tw ... smem), 0 for the
+// direct route (the plan unused).
 extern "C" int dnnca_warp_twopass(const float* img, const float* flow,
                                   float* out, int B, int H, int W, int C,
-                                  int max_displacement, int device,
-                                  void* stream) {
+                                  int max_displacement, int tile, int tw,
+                                  int seg, int th, int rb, int rs, int fs,
+                                  int os, int smem, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tile)
+    return warp::launch_tile<false>(img, flow, nullptr, nullptr, out,
+                                    warp::Frame{B, H, W, H, W, C},
+                                    warp::Plan{tw, seg, th, rb, rs, fs, os},
+                                    max_displacement, smem, st);
   const size_t n = static_cast<size_t>(B) * H * W;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  warp_twopass_kernel<<<grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  warp_twopass_kernel<<<grid, kThreads, 0, st>>>(
       img, flow, out, B, H, W, C, static_cast<float>(max_displacement));
   return cudaGetLastError();
 }

@@ -66,11 +66,13 @@ _SIGNATURES = {
     # x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P, tile, per_block,
     # blocks, slices, vec, smem, device, stream
     'dnnca_pointwise_conv_bwd': [_P] * 8 + [_I] * 11 + [_P],
-    # img, flow, out, B, H, W, C, max_displacement, device, stream
-    'dnnca_warp_twopass': [_P] * 3 + [_I] * 6 + [_P],
+    # img, flow, out, B, H, W, C, max_displacement, tile, tw, seg, th, rb,
+    # rs, fs, os, smem, device, stream
+    'dnnca_warp_twopass': [_P] * 3 + [_I] * 15 + [_P],
     # img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,
-    # max_displacement, device, stream
-    'dnnca_warp_crop': [_P] * 5 + [_I] * 8 + [_P],
+    # max_displacement, tile, tw, seg, th, rb, rs, fs, os, smem, device,
+    # stream
+    'dnnca_warp_crop': [_P] * 5 + [_I] * 17 + [_P],
     # masks, labels, N, H, W, shared, label_bytes, device, stream
     'dnnca_cca': [_P] * 2 + [_I] * 6 + [_P],
     # x, out, B, H, W, C, device, stream

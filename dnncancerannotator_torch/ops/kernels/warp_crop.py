@@ -19,6 +19,11 @@ into it, as the composed crop-then-warp path does. Offsets are clamped into
 formulation of the same arithmetic (the TPU kernel's shift-selects each
 pick exactly one shift).
 
+The CUDA kernel takes the two routes of warp_twopass on the crop's shape
+(``warp_twopass.route``; ``plan`` lays the halo tile out in the crop frame,
+the window's size and the offsets changing only where rows are read from),
+one launch a call either way.
+
 ``warp_crop`` launches the kernel for CUDA tensors and runs ``plain`` for
 CPU tensors; it raises on any other input.
 '''
@@ -26,7 +31,7 @@ CPU tensors; it raises on any other input.
 import torch
 
 from . import _build
-from .warp_twopass import _blend, _taps
+from .warp_twopass import _blend, _taps, plan, plan_args, route  # noqa: F401
 
 launches = 0  # kernel launches in this process
 
@@ -99,10 +104,12 @@ def warp_crop(image, fy_ext, fx, crop_offset, max_displacement=8):
                         f'{device}, got {crop_offset.dtype} on '
                         f'{crop_offset.device}')
     b, h_in, w_in, c = image.shape
+    d = int(max_displacement)
     out = torch.empty((b, h_out, w_out, c), dtype=image.dtype, device=device)
     _build.launch('dnnca_warp_crop', image.data_ptr(), fy_ext.data_ptr(),
                   fx.data_ptr(), crop_offset.data_ptr(), out.data_ptr(), b,
-                  h_in, w_in, h_out, w_out, c, int(max_displacement),
-                  device.index, _build.stream_of(device))
+                  h_in, w_in, h_out, w_out, c, d,
+                  *plan_args(b, h_out, w_out, c, d), device.index,
+                  _build.stream_of(device))
     launches += 1
     return out

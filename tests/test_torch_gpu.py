@@ -355,6 +355,151 @@ def test_warp_crop_rejects_bad_inputs(cuda):
         WC.warp_crop(img.double(), fy.double(), fx.double(), off, 8)
 
 
+def _at(gen, shift, *shape):
+    '''A seeded CUDA tensor whose data starts ``shift`` floats past the
+    allocation: 1 and 3 leave it 4-byte aligned (no float2 pairs, odd
+    leads), 2 8-byte aligned (pairs, no 16-byte copies at even columns).'''
+    n = 1
+    for s in shape:
+        n *= s
+    return _rand(gen, n + shift)[shift:].view(*shape)
+
+
+def _warp_route(monkeypatch, module, route, shape):
+    '''Sends ``shape`` down ``route``: the direct one by a re-read cap of
+    0; the tile one must be the rule's own.'''
+    if route == 'direct':
+        monkeypatch.setattr(WT, 'MAX_REREAD', 0.0)
+    assert module.route(*shape) == route
+
+
+# (B, H, W, C, d, flow scale): the banked step's shape, strips ending at the
+# edge and past it, ragged sizes, d >= H, d = 0, C in {1, 3, 6, 7}
+_WARP_SHAPES = [(8, 256, 256, 6, 8, 12.0), (2, 64, 64, 6, 8, 12.0),
+                (2, 65, 63, 6, 8, 12.0), (1, 37, 50, 6, 8, 4.0),
+                (3, 70, 130, 1, 5, 8.0), (2, 9, 200, 7, 2, 3.0),
+                (4, 16, 16, 6, 40, 60.0), (3, 130, 24, 3, 10, 15.0),
+                (2, 24, 64, 6, 0, 1.0), (2, 33, 129, 3, 3, 10.0)]
+
+
+@pytest.mark.parametrize('route', ['tile', 'direct'])
+@pytest.mark.parametrize('b,h,w,c,d,scale', _WARP_SHAPES)
+def test_warp_twopass_routes(cuda, monkeypatch, route, b, h, w, c, d, scale):
+    _warp_route(monkeypatch, WT, route, (b, h, w, c, d))
+    gen = torch.Generator().manual_seed(h + w + c + d)
+    img = _rand(gen, b, h, w, c)
+    flow = _rand(gen, b, h, w, 2) * scale
+    flow[:, ::3, ::2] = 0.0
+    flow[:, 1::5, :, 0] = float(d)
+    before = WT.launches
+    got = WT.warp_twopass(img, flow, d)
+    assert WT.launches == before + 1
+    want = WT.plain(img, flow, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('route', ['tile', 'direct'])
+@pytest.mark.parametrize('shift', [1, 2, 3])
+@pytest.mark.parametrize('b,h,w,c,d', [(2, 40, 60, 6, 8), (1, 33, 45, 3, 5)])
+def test_warp_twopass_unaligned(cuda, monkeypatch, route, shift, b, h, w, c,
+                                d):
+    '''Image and flow off a 16-byte boundary: the tile stages them with
+    4-byte copies where a quad is split and keeps each row's lead.'''
+    _warp_route(monkeypatch, WT, route, (b, h, w, c, d))
+    gen = torch.Generator().manual_seed(shift)
+    img = _at(gen, shift, b, h, w, c)
+    flow = _at(gen, 4 - shift, b, h, w, 2) * 10.0
+    got = WT.warp_twopass(img, flow, d)
+    want = WT.plain(img, flow, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# (B, h_in, w_in, h_out, w_out, C, d, flow scale): the fused chain's two
+# shapes, ragged crops, d >= h_out, C in {1, 3, 6, 7}
+_CROP_SHAPES = [(8, 268, 268, 256, 256, 6, 8, 12.0),
+                (8, 268, 268, 256, 256, 6, 18, 27.0),
+                (2, 44, 50, 32, 37, 6, 8, 4.0), (3, 30, 31, 30, 31, 3, 3, 10.0),
+                (4, 76, 76, 64, 64, 1, 12, 18.0),
+                (2, 20, 23, 16, 16, 7, 40, 60.0),
+                (3, 80, 140, 65, 129, 6, 5, 8.0)]
+
+
+@pytest.mark.parametrize('route', ['tile', 'direct'])
+@pytest.mark.parametrize('b,h_in,w_in,h_out,w_out,c,d,scale', _CROP_SHAPES)
+def test_warp_crop_routes(cuda, monkeypatch, route, b, h_in, w_in, h_out,
+                          w_out, c, d, scale):
+    '''Offsets 0, in - out, past both ends (clamped) and random.'''
+    _warp_route(monkeypatch, WC, route, (b, h_out, w_out, c, d))
+    gen = torch.Generator().manual_seed(h_in + w_out + d)
+    img = _rand(gen, b, h_in, w_in, c)
+    fy = _rand(gen, b, h_out, w_in) * scale
+    fx = _rand(gen, b, h_out, w_out) * scale
+    off = torch.stack([
+        torch.randint(0, h_in - h_out + 1, (b,), generator=gen),
+        torch.randint(0, w_in - w_out + 1, (b,), generator=gen)], 1)
+    off[0] = 0
+    off[1] = torch.tensor([h_in - h_out, w_in - w_out])
+    if b > 2:
+        off[2] = torch.tensor([h_in - h_out + 5, -3])
+    off = off.int().cuda()
+    before = WC.launches
+    got = WC.warp_crop(img, fy, fx, off, d)
+    assert WC.launches == before + 1
+    want = WC.plain(img, fy, fx, off, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('route', ['tile', 'direct'])
+@pytest.mark.parametrize('shift', [1, 2, 3])
+def test_warp_crop_unaligned(cuda, monkeypatch, route, shift):
+    b, h_in, w_in, h_out, w_out, c, d = 3, 47, 53, 40, 41, 6, 8
+    _warp_route(monkeypatch, WC, route, (b, h_out, w_out, c, d))
+    gen = torch.Generator().manual_seed(shift)
+    img = _at(gen, shift, b, h_in, w_in, c)
+    fy = _at(gen, 4 - shift, b, h_out, w_in) * 12.0
+    fx = _at(gen, shift, b, h_out, w_out) * 12.0
+    off = torch.tensor([[0, 0], [h_in - h_out, w_in - w_out], [3, 7]],
+                       dtype=torch.int32, device=cuda)
+    got = WC.warp_crop(img, fy, fx, off, d)
+    want = WC.plain(img, fy, fx, off, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _one_tile_kernel(split):
+    '''The profiler saw the tile kernel and nothing else, at most once a
+    call: it drops records now and then (one window of this file read 0.4
+    launches a call on an H100), never adds any; the wrappers' launch
+    counters give the one call into the kernel library a call.'''
+    assert split and all('warp_tile_kernel' in key for key in split), split
+    assert 0 < sum(c for _, c in split.values()) <= 1.0 + 1e-9, split
+
+
+def test_warp_one_launch_at_the_main_shapes(cuda):
+    '''One kernel a call on the tile route at the banked step's and the
+    fused chain's shapes: the launch counters move by one a call, and the
+    profiler (chip_smoke._fullest_split, which counts every launch, the
+    memsets of an allocation included) sees the tile kernel alone.'''
+    from chip_smoke import _fullest_split
+    gen = torch.Generator().manual_seed(3)
+    img = _rand(gen, 8, 256, 256, 6)
+    flow = _rand(gen, 8, 256, 256, 2) * 12.0
+    assert WT.route(8, 256, 256, 6, 8) == 'tile'
+    before = WT.launches
+    _one_tile_kernel(_fullest_split(lambda: WT.warp_twopass(img, flow, 8)))
+    assert WT.launches > before
+    img = _rand(gen, 8, 268, 268, 6)
+    fy, fx = _rand(gen, 8, 256, 268), _rand(gen, 8, 256, 256)
+    off = torch.full((8, 2), 6, dtype=torch.int32, device=cuda)
+    for d in (8, 18):
+        assert WC.route(8, 256, 256, 6, d) == 'tile'
+        _one_tile_kernel(
+            _fullest_split(lambda: WC.warp_crop(img, fy, fx, off, d)))
+
+
 @pytest.mark.parametrize('case', ['spiral', 'checkerboard', 'full', 'empty',
                                   'noise', 'odd'])
 def test_cca_kernel(cuda, case):

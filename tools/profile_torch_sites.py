@@ -1,7 +1,9 @@
-'''Device time of the CCA, NCHW tconv backward and head conv kernels
-(forward and backward) at the shapes their paths call them with:
+'''Device time of the CCA, NCHW tconv backward, head conv (forward and
+backward) and warp resample kernels at the shapes their paths call them
+with:
 
-    python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--sweep]
+    python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--warp]
+        [--sweep | --sweep-head | --sweep-warp]
 
 On one GPU, with seeded inputs, it times:
 
@@ -16,7 +18,16 @@ On one GPU, with seeded inputs, it times:
   sites up_0-up_2 at the training batch of 8, with dx;
 - ``stencil_conv`` (the 1x1 logits head, 3 -> 1 at 256 x 256) at B=8 (the
   training forward) and B=64 (prediction), and ``stencil_conv_bwd`` at the
-  head at B=8 (the training backward, with dx).
+  head at B=8 (the training backward, with dx);
+- ``warp_twopass`` (ops/kernels/warp_twopass.py) at chip_smoke.py's two
+  banked-step sites, [8, 256, 256, 6] d=8 at a bank flow and a random flow
+  past +-d, and at a zero flow; ``warp_crop`` at chip_smoke.py's four
+  fused-chain sites, [8, 268, 268, 6] -> 256 x 256 at d=8 and 18, and at a
+  zero flow; and beside each kernel's shape, ``copy_`` of a buffer that
+  moves the same bytes (read once, written once: the bytes of its bound),
+  what a plain 16-byte stream of those bytes takes on the card. ``--warp``
+  times these alone. Each warp row names its route (``route``; a parent
+  without one has only the direct kernel).
 
 Each call is split by the name of every kernel it launches, with
 chip_smoke.py's yardstick: torch.profiler over 10 calls, the fullest of
@@ -30,12 +41,17 @@ compared on one card; ``--out`` writes the numbers as JSON;
 size (ops/kernels/stencil_conv_bwd.py: MAX_TILE). ``--sweep``
 times instead ``tconv2x2_bwd`` at every tile height its plan allows at the
 three sites (ops/kernels/tconv2x2_bwd.py: TUNED) and ``cca`` on both
-routes (ops/kernels/cca.py: route), for the rules' choices.
+routes (ops/kernels/cca.py: route), for the rules' choices;
+``--sweep-warp`` times both warp kernels at their main-path shapes, at a
+smooth and a random flow, at every strip width and segment height whose
+tile fits (ops/kernels/warp_twopass.py: TUNED) and on the direct route,
+beside the plan's choice.
 It imports nothing of JAX and builds the kernels with nvcc.
 '''
 
 import argparse
 import functools
+import itertools
 import json
 import os
 import subprocess
@@ -212,6 +228,109 @@ def sweep_head(device):
     SCB.plan.cache_clear()
 
 
+def _route(module, *shape):
+    route = getattr(module, 'route', None)
+    return route(*shape) if route else 'direct'
+
+
+def _copy_job(label, n_bytes, device):
+    '''(label, call, bound ms): ``copy_`` of n_bytes / 8 floats, which reads
+    and writes n_bytes in all.'''
+    n = n_bytes // 8
+    src = torch.rand(n, device=device)
+    dst = torch.empty_like(src)
+    return (f'copy_ of the same bytes ({label})',
+            functools.partial(dst.copy_, src),
+            chip_smoke.bound(n_bytes, 0)[0])
+
+
+def warp_jobs(device):
+    '''(label, call, bound ms) of the two warp kernels at their main-path
+    sites and a zero flow, each checked equal to its plain version, and a
+    copy of each shape's bytes.'''
+    from dnncancerannotator_torch.ops.kernels import warp_crop as WC
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+
+    jobs = []
+    d, image, flows = chip_smoke.warp_inputs(device)
+    flows['zero flow'] = torch.zeros_like(flows['bank flow'])
+    for label, flow in flows.items():
+        got = WT.warp_twopass(image, flow, d)
+        if not torch.equal(got, WT.plain(image, flow, d)):
+            raise AssertionError(f'warp_twopass {label} differs')
+        n_bytes = chip_smoke.nbytes(image, flow, got)
+        jobs.append((f'warp_twopass {list(image.shape)} d={d} {label} '
+                     f'({_route(WT, *image.shape, d)})',
+                     functools.partial(WT.warp_twopass, image, flow, d),
+                     chip_smoke.bound(n_bytes, 12 * got.numel())[0]))
+    jobs.append(_copy_job('warp_twopass', n_bytes, device))
+    image, off, sites = chip_smoke.crop_inputs(device)
+    sites.append((sites[0][0], 'zero flow', torch.zeros_like(sites[0][2]),
+                  torch.zeros_like(sites[0][3])))
+    b, size = image.shape[0], chip_smoke.SIZE
+    for d, label, fy, fx in sites:
+        got = WC.warp_crop(image, fy, fx, off, d)
+        if not torch.equal(got, WC.plain(image, fy, fx, off, d)):
+            raise AssertionError(f'warp_crop d={d} {label} differs')
+        n_bytes = 2 * chip_smoke.nbytes(got) + chip_smoke.nbytes(fy, fx, off)
+        jobs.append((f'warp_crop d={d} {label} '
+                     f'({_route(WC, b, size, size, image.shape[3], d)})',
+                     functools.partial(WC.warp_crop, image, fy, fx, off, d),
+                     chip_smoke.bound(n_bytes, 12 * got.numel())[0]))
+    jobs.append(_copy_job('warp_crop', n_bytes, device))
+    return jobs
+
+
+def sweep_warp(device):
+    '''Device ms of both warp kernels at their main-path shapes, at a smooth
+    and a random flow, for every strip width and segment height whose tile
+    fits a block, and on the direct route; the plan's choice marked.'''
+    from dnncancerannotator_torch.ops.kernels import warp_crop as WC
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+
+    d, image, flows = chip_smoke.warp_inputs(device)
+    cases = [(f'warp_twopass d={d} {label}', image.shape, d,
+              functools.partial(WT.warp_twopass, image, flow, d),
+              WT.plain(image, flow, d)) for label, flow in flows.items()]
+    image, off, sites = chip_smoke.crop_inputs(device)
+    b, size, c = image.shape[0], chip_smoke.SIZE, image.shape[3]
+    cases += [(f'warp_crop d={d} {label}', (b, size, size, c), d,
+               functools.partial(WC.warp_crop, image, fy, fx, off, d),
+               WC.plain(image, fy, fx, off, d))
+              for d, label, fy, fx in sites]
+
+    def device_ms(call, want):
+        if not torch.equal(call(), want):
+            raise AssertionError('differs from the plain version')
+        split = chip_smoke._fullest_split(call)
+        return sum(ms for ms, _ in split.values())
+
+    for label, shape, d, call, want in cases:
+        key = (*shape, d)
+        WT.plan.cache_clear()
+        chosen = WT.plan(*key)[:2]
+        print(f'{label}: plan tw {chosen[0]} seg {chosen[1]} '
+              f'({WT.route(*key)})', flush=True)
+        for tw, seg in itertools.product((32, 64, 128), (8, 16, 32, 64, 128)):
+            WT.TUNED[key] = (tw, seg)
+            WT.plan.cache_clear()
+            if WT.route(*key) != 'tile':
+                continue
+            pl = WT.plan(*key)
+            mark = '  <- plan' if (tw, seg) == chosen else ''
+            print(f'  tw {tw:3d} seg {seg:3d} blocks '
+                  f'{pl.grid[0] * pl.grid[1] * pl.grid[2]:4d} smem '
+                  f'{pl.smem:6d} reread {pl.reread:.2f} device '
+                  f'{device_ms(call, want):.4f} ms{mark}', flush=True)
+        del WT.TUNED[key]
+        cap, WT.MAX_REREAD = WT.MAX_REREAD, 0.0
+        WT.plan.cache_clear()
+        print(f'  direct route device {device_ms(call, want):.4f} ms',
+              flush=True)
+        WT.MAX_REREAD = cap
+        WT.plan.cache_clear()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--repo', default=HERE)
@@ -219,6 +338,10 @@ def main():
     parser.add_argument('--sweep', action='store_true')
     parser.add_argument('--sweep-head', action='store_true',
                         help='time the head backward at every tile size')
+    parser.add_argument('--sweep-warp', action='store_true',
+                        help='time the warp kernels at every tile shape')
+    parser.add_argument('--warp', action='store_true',
+                        help='time the warp kernels\' sites alone')
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     from dnncancerannotator_torch import engine
@@ -237,7 +360,11 @@ def main():
         return sweep(device)
     if args.sweep_head:
         return sweep_head(device)
+    if args.sweep_warp:
+        return sweep_warp(device)
     jobs = []   # (label, call, bound ms)
+    if args.warp:
+        return report(warp_jobs(device), args, card)
     for label, masks in cca_sets(device).items():
         got = K.cca_raw_labels(masks)
         if not torch.equal(got, K.plain(masks)):
@@ -277,6 +404,12 @@ def main():
                                            pads),
                          chip_smoke.bound(chip_smoke.nbytes(x, g, w, *got),
                                           4 * g.numel() * 3)[0]))
+    report(jobs + warp_jobs(device), args, card)
+
+
+def report(jobs, args, card):
+    '''Times each job (CUDA events, then the profiler) and prints and
+    writes its row.'''
     # CUDA events first: a profiler session slows later calls on the host
     rows = [dict(call=label, bound_ms=bd,
                  event_ms=chip_smoke._time_fns({'': call})[''])
@@ -293,9 +426,10 @@ def main():
                                     key=lambda kv: -kv[1][0]):
             print(f'         {ms:.4f} ms {n:4.1f}x  {name}', flush=True)
     tconv = [r for r in rows if r['call'].startswith('tconv2x2_bwd')]
-    print(f'tconv2x2_bwd, three sites: device '
-          f'{sum(r["device_ms"] for r in tconv):.4f} ms  bound '
-          f'{sum(r["bound_ms"] for r in tconv):.4f} ms', flush=True)
+    if tconv:
+        print(f'tconv2x2_bwd, three sites: device '
+              f'{sum(r["device_ms"] for r in tconv):.4f} ms  bound '
+              f'{sum(r["bound_ms"] for r in tconv):.4f} ms', flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as fh:

@@ -22,14 +22,13 @@ Phases (each raises on failure, so the process exits non-zero):
    plain f32 version's own error against f64 printed beside (the chain,
    transposed-conv and head conv backwards held to F64_RATIO of it, their
    dw and db the same bits on two calls, and their device time by kernel
-   name and their launches a call, CHAIN_BWD_LAUNCHES, TCONV_BWD_LAUNCHES
-   and STENCIL_BWD_LAUNCHES, from the fullest of three deferred profiler
-   windows); the two-pass
+   name in a deferred profiler window, and their launches a call,
+   CHAIN_BWD_LAUNCHES, TCONV_BWD_LAUNCHES and STENCIL_BWD_LAUNCHES, from
+   the kernel library's own count); the two-pass
    warp on [8, 256, 256, 6] at a flow from a real warp bank and at a random
    flow past +-8 px, exactly equal to its plain version, on the tile route
    (ops/kernels/warp_twopass.py: route; printed, and a failure if not) at
-   WARP_LAUNCHES a call (from the fullest of three deferred profiler
-   windows); timings as in 3;
+   WARP_LAUNCHES a call (the kernel library's count); timings as in 3;
 4. prediction: seeded synthetic .tfrecords and a seeded checkpoint, then the
    port's ``predict`` CLI at batch 64 on the card. Checks the file count,
    that every map is finite and in [0, 1], that every kernel launched at
@@ -52,8 +51,8 @@ Phases (each raises on failure, so the process exits non-zero):
    that differ only in step count, each the minimum of three.
 3c. connected components: the CCA kernel against its plain version, exactly
    equal, on both of its routes (ops/kernels/cca.py: route), each set's
-   route printed and its launches a call (1 shared, 3 global) checked in a
-   deferred profiler window: the thresholded, opened predictions of one
+   route printed and its launches a call (1 shared, 3 global) checked by
+   the kernel library's count: the thresholded, opened predictions of one
    real slice at the region PR curve's 100 thresholds ([100, 128, 128]);
    the evaluate path's calls for one chunk of the region metrics, the
    predictions of 20 slices ([2000, 128, 128]) and their labels
@@ -105,7 +104,8 @@ Phases (each raises on failure, so the process exits non-zero):
    deterministic inside the check) so that it meets the same inputs in
    every run, and the stack without pallas_decoder.yaml launches none
    of the four. Times the train step (kernels and plain) and the train
-   throughput as in 5.
+   throughput as in 5, but from calls of BIG_THROUGHPUT steps, each the
+   minimum of two (as in phases 10 and 11).
 3f. crop-fused warp: the warp_crop kernel against its plain version, exactly
    equal, on [8, 268, 268, 6] windows (256 + 2 x 6 of crop jitter) cropped
    to 256 x 256 at d = 8 (data_options.yaml's warp) and d = 18
@@ -129,14 +129,43 @@ Phases (each raises on failure, so the process exits non-zero):
    per-step composed and the fused route (CUDA events, median of 20, in
    turns); the fused chain's train throughput as in 5.
 
+3g. MulmoUNet kernel sites: a seeded MulmoUNet forward (16 first filters,
+   4 levels, five per-channel encoders, BatchNorm, NHWC, B=8, 256 x 256,
+   train mode) gives the inputs of the NHWC stencil conv at its six sites
+   (each encoder's first conv, 3x3 SAME 1 -> 16 with relu, reading its
+   channel of the batch in place, and the 1x1 16 -> 1 head; also at B=64
+   as evaluate and predict call them), of the NHWC pool at the five down_3
+   sites (C 128 at 32 x 32) and of the NHWC tconv at up_0 (Ci 640 -> 128):
+   the stencil conv to KERNEL_TOL * max|ref| at one launch a call by the
+   kernel library's own count, the pool and tconv as in 3e; timings as in
+   3;
+10. MulmoUNet: the ``train`` CLI with mulmo_unet.yaml + data_options.yaml +
+   deploy_options.yaml + pallas_decoder.yaml as phase 7 runs unet_big (20
+   steps in chunks of 10, a resume to 30, every loss finite, the 144
+   batch_stats moved, each kernel launched at least sites x steps times,
+   predict from ckpt-30 against a plain forward of its weights, one seeded
+   step against a plain step, the stack without pallas_decoder.yaml
+   launching none of the four NHWC pool and tconv kernels and still the
+   stencil conv), then the ``evaluate`` CLI with metrics.yaml on ckpt-30
+   (batch 64, the phase-4 records; every region count equal to the plain
+   CCA's) and the input sensitivity of 4 slices, the train step's time,
+   its device busy share (deferred) and the throughput as in 7;
+11. MultiResUnet: the same for multiresunet.yaml + data_options.yaml +
+   deploy_options.yaml (its kernels: the warp in training, the CCA in
+   evaluate); its one seeded step, whose only kernel is the bit-equal
+   warp, is held to the f64 step of the same weights, batch and draws
+   (gradients within MRU_F64_TOL of their scale, the loss and statistics
+   within MRU_STAT_TOL).
+
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
-   so the device times of phases 3-3f and the train-step profiles of
-   phases 5, 7 and 8 are taken last, after every host-clock and CUDA-event
-   measurement; then a line of the B=8 chain forward's times summed over
-   the six sites.
+   so the device times of phases 3-3g and the train-step profiles of
+   phases 5, 7, 8, 10 and 11 are taken last, after every host-clock and
+   CUDA-event measurement; then a line of the B=8 chain forward's times
+   summed over the six sites, and one of the NHWC pool and tconv kernels'
+   times summed over MulmoUNet's sites.
 
 Each phase's wall time is printed when it ends. The last three lines of
-stdout are a JSON object of per-kernel results for all thirteen kernels
+stdout are a JSON object of per-kernel results for all fourteen kernels
 (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
 f32 outside the tensor cores, from the inputs of this run, for the 3xTF32
@@ -229,7 +258,11 @@ REPLACES = {
     'tconv2x2_nhwc': ('tconv_kernel.py:161 conv_transpose2x2_nhwc',),
     'tconv2x2_nhwc_bwd': ('tconv_kernel.py:123 _bwd_call',),
     'warp_crop': ('warp_kernel.py:194 dense_image_warp_crop_pallas',),
+    'stencil_conv_nhwc': ('conv_kernel.py:84 stencil_conv2d_pallas '
+                          '(nchw=False)',),
 }
+# a kernel's source where it is not csrc/<name>.cu
+SOURCE = {'stencil_conv_nhwc': 'stencil_conv'}
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
 # unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
@@ -241,12 +274,44 @@ BIG_CONFIGS = ('configs/unet_big.yaml',
                'configs/additionals/pallas_decoder.yaml')
 BIG_STEPS = 20
 BIG_SAVE_FREQ = 10
+# the step counts of phases 7, 10 and 11's two throughput calls
+BIG_THROUGHPUT = (10, 30)
 POOL_SITES = ('unet.encoder.down_1', 'unet.encoder.down_2',
               'unet.encoder.down_3')
 BIG_TCONV_SITES = ('unet.decoder.up_0', 'unet.decoder.up_1',
                    'unet.decoder.up_2')
 NHWC_KERNELS = ('pool2x2_nhwc', 'pool2x2_nhwc_bwd', 'tconv2x2_nhwc',
                 'tconv2x2_nhwc_bwd')
+# MulmoUNet (16 first filters, 4 levels, an encoder per input channel, BN,
+# NHWC) with the NHWC pool and tconv gates on, and MultiResUnet (32 base
+# filters), each trained, resumed, evaluated and predicted as unet_big
+MULMO_CONFIGS = ('configs/mulmo_unet.yaml',
+                 'configs/additionals/data_options.yaml',
+                 'configs/additionals/deploy_options.yaml',
+                 'configs/additionals/pallas_decoder.yaml')
+MRU_CONFIGS = ('configs/multiresunet.yaml',
+               'configs/additionals/data_options.yaml',
+               'configs/additionals/deploy_options.yaml')
+# MulmoUNet's sites of the NHWC stencil conv (each encoder's first conv,
+# 3x3 SAME 1 -> 16 with relu on its channel of the batch, and the 1x1
+# 16 -> 1 head), of the NHWC pool (C = 128 at 32 x 32) and of the NHWC tconv
+# (Ci = 5 x 128 = 640 -> 128)
+MULMO_STENCIL_SITES = tuple(f'mulmo_unet.encoder_{i}.down_0.convchain.conv_0'
+                            for i in range(5)) + ('last_conv',)
+MULMO_POOL_SITES = tuple(f'mulmo_unet.encoder_{i}.down_3' for i in range(5))
+MULMO_TCONV_SITE = 'mulmo_unet.decoder.up_0'
+# the NHWC stencil kernel's launches a call, counted by the kernel library
+STENCIL_NHWC_LAUNCHES = 1
+# MultiResUnet runs no kernel but the warp, which is bit-equal to its plain
+# version, so its kernel step is the plain step; the step is held to the
+# f64 step instead (f64_step_shares): each gradient within MRU_F64_TOL of
+# its scale, the loss and each updated statistic within MRU_STAT_TOL. On an
+# H100 (tools/check_torch_mru_step.py) the sound step reads 4.8e-3-6.2e-3
+# at its worst gradient, 7.6e-8 at its worst statistic and 3.0e-7 at the
+# loss; with TF32 convs 0.26, 2.0e-5 and 4.9e-4; with one running mean
+# left at its pre-step value 4.7e-3 at that statistic
+MRU_F64_TOL = 1e-2
+MRU_STAT_TOL = 2e-6
 # the fused augmentation chain: 268 x 268 host windows (256 + 2 x 6 of crop
 # jitter, data/pipeline.py:host_crop) cropped to 256 x 256, with the warp
 # options of data_options.yaml (d = 8) and of augment_options.yaml (d = 18)
@@ -660,33 +725,28 @@ STENCIL_BWD_LAUNCHES = 1
 WARP_LAUNCHES = 1
 
 
-def _chain_bwd_split(name, call):
-    '''Prints the chain backward's device time by kernel (deferred profiler
-    windows, ``_fullest_split``) and raises unless it launched
-    CHAIN_BWD_LAUNCHES kernels a call.'''
-    split = _fullest_split(call)
-    log(f'  {name} by kernel, device ms a call:')
-    for key, (ms, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
-        log(f'    {ms:.4f} ms {count:4.1f}x  {key[:90]}')
-    count = sum(c for _, c in split.values())
-    if count != CHAIN_BWD_LAUNCHES:
-        raise AssertionError(f'{name}: {count} launches a call, want '
-                             f'{CHAIN_BWD_LAUNCHES}')
+def library_launches(call, calls=10):
+    '''Kernels the kernel library launched a call of ``call``, from its own
+    count (``_build.library_launches``), no profiler.'''
+    from dnncancerannotator_torch.ops.kernels import _build
+    torch.cuda.synchronize()
+    before = _build.library_launches()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    return (_build.library_launches() - before) / calls
 
 
 def _launch_split(name, call, want):
-    '''Prints a call's device time by kernel (deferred profiler windows,
-    ``_fullest_split``) and raises unless it launched ``want`` kernels a
-    call. The count is rounded: on an H100 the profiler dropped one record
-    of 30 in every window of one CCA set (2.9 launches a call on the
-    three-launch route), which a kernel too many or too few a call still
-    exceeds.'''
-    split = _fullest_split(call)
+    '''Prints a call's device time by kernel (a deferred profiler window,
+    ``_device_split``) and raises unless the call launched ``want`` of the
+    library's kernels (``library_launches``).'''
     log(f'  {name} by kernel, device ms a call:')
-    for key, (ms, count) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+    for key, (ms, count) in sorted(_device_split(call).items(),
+                                   key=lambda kv: -kv[1][0]):
         log(f'    {ms:.4f} ms {count:4.1f}x  {key[:90]}')
-    count = sum(c for _, c in split.values())
-    if round(count) != want:
+    count = library_launches(call)
+    if count != want:
         raise AssertionError(f'{name}: {count} launches a call, want {want}')
 
 
@@ -768,8 +828,8 @@ def backward_sites(model, device, results):
         times = _time_site(lambda: CCB.conv_chain_bwd(*args),
                            lambda: CCB.plain(*args))
         _DEFERRED.append(functools.partial(
-            _chain_bwd_split, name, functools.partial(CCB.conv_chain_bwd,
-                                                      *args)))
+            _launch_split, name, functools.partial(CCB.conv_chain_bwd, *args),
+            CHAIN_BWD_LAUNCHES))
         # dc1 and dw2 through conv_1, dw1 (and dx) through conv_0
         pix = x[:, :1].numel() * w1.shape[2] * w1.shape[3]
         flops = 2 * pix * (2 * w2.shape[0] * w2.shape[1]
@@ -1295,7 +1355,8 @@ EVAL_CHUNK, EVAL_CHUNK_256 = 20, 5
 @torch.no_grad()
 def cca_sites(eng, data_paths, results):
     '''The CCA kernel against its plain version: exactly equal labels, on
-    both routes, with each set's launches a call from the profiler.'''
+    both routes, with each set's launches a call from the kernel library's
+    count.'''
     from dnncancerannotator_torch.metrics import region
     from dnncancerannotator_torch.ops.kernels import cca as K
     from dnncancerannotator_torch.ops.morphology import morph_open
@@ -1607,11 +1668,14 @@ def eval_slice(device, val_paths, train_paths, run):
 
 
 # -- phase 3e ----------------------------------------------------------------
+def _config(configs):
+    from dnncancerannotator_torch.utils import config as config_lib
+    return config_lib.load_config([os.path.join(REPO, c) for c in configs])
+
+
 def _big_config(gates_on=True):
     '''The unet_big stack, with or without pallas_decoder.yaml.'''
-    from dnncancerannotator_torch.utils import config as config_lib
-    configs = BIG_CONFIGS if gates_on else BIG_CONFIGS[:-1]
-    return config_lib.load_config([os.path.join(REPO, c) for c in configs])
+    return _config(BIG_CONFIGS if gates_on else BIG_CONFIGS[:-1])
 
 
 def _nhwc_modules():
@@ -1715,11 +1779,164 @@ def big_kernel_sites(device, results):
                tf32x3_bound(*work))
 
 
+# -- phase 3g ----------------------------------------------------------------
+@torch.no_grad()
+def mulmo_kernel_sites(device, results, site_results):
+    '''The NHWC stencil conv at MulmoUNet's six sites, and the NHWC pool
+    and tconv kernels at its five down_3 sites and at up_0 (Ci 640), on the
+    activations of a seeded MulmoUNet forward (B=8, train mode): each
+    against its plain version as phase 3e holds them, the stencil conv to
+    KERNEL_TOL at STENCIL_NHWC_LAUNCHES a call (the library's count); the
+    stencil conv also at B=64, as evaluate and predict call it. The stencil
+    conv's sites go into ``results``, the pool's and tconv's into
+    ``site_results`` (their kernels line entries stay unet_big's).'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+    PN, PNB, TN, TNB = _nhwc_modules()
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    eng = engine.Engine(_config(MULMO_CONFIGS), seed=SEED, device=device)
+    eng.build((TRAIN_BATCH, SIZE, SIZE, 5))
+    modules = dict(eng.model.named_modules())
+    seen = {}
+    hooks = [modules[path].register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, args[0]))
+        for path in MULMO_STENCIL_SITES]
+    hooks += [modules[path + '.convchain'].register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, out))
+        for path in MULMO_POOL_SITES]
+    hooks.append(modules[MULMO_TCONV_SITE + '.tconv'].register_forward_hook(
+        lambda mod, args, out: seen.__setitem__(MULMO_TCONV_SITE, args[0])))
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    batch = torch.rand((BATCH, SIZE, SIZE, 5), generator=gen, device=device)
+    with eng.scope(training=True):
+        eng.model(batch[:TRAIN_BATCH])
+    for hook in hooks:
+        hook.remove()
+
+    log(f'MulmoUNet kernels (B={TRAIN_BATCH}, {SIZE}x{SIZE} input, '
+        'activations of a train-mode forward):')
+    for path in MULMO_STENCIL_SITES:
+        conv = modules[path]
+        w, b, relu = conv.weight, conv.bias, conv.relu
+        co, ci, kh, kw = w.shape
+        pads = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+        inputs = {TRAIN_BATCH: seen[path]}
+        if path in (MULMO_STENCIL_SITES[0], 'last_conv'):
+            # the site at B=64 (evaluate, predict): the first encoder reads
+            # its channel of the batch in place
+            inputs[BATCH] = batch[..., :1] if path != 'last_conv' else \
+                torch.rand((BATCH,) + tuple(seen[path].shape[1:]),
+                           generator=gen, device=device)
+        for bsz, x in inputs.items():
+            name = (f'stencil_conv_nhwc B={bsz} {path} {kh}x{kw} {ci}->{co}'
+                    f'{" relu" if relu else ""} @{x.shape[1]}')
+            got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
+            err = _check_close(name, got, SN.plain(x, w, b, pads, relu))
+            log(f'    x strides {tuple(x.stride())}')
+            per_call = library_launches(
+                lambda: SN.stencil_conv_nhwc(x, w, b, pads, relu))
+            if per_call != STENCIL_NHWC_LAUNCHES:
+                raise AssertionError(f'{name}: {per_call} launches a call, '
+                                     f'want {STENCIL_NHWC_LAUNCHES}')
+            # no library call fuses the relu: F.conv2d alone
+            times = _time_site(
+                lambda: SN.stencil_conv_nhwc(x, w, b, pads, relu),
+                lambda: SN.plain(x, w, b, pads, relu),
+                lambda: F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                                 padding=(kh // 2, kw // 2)))
+            # x read once: the channels the conv takes, not the batch's
+            work = (4 * x[..., :ci].numel() + nbytes(w, b, got),
+                    2 * got.numel() * ci * kh * kw)
+            if bsz == TRAIN_BATCH:
+                record(results, 'stencil_conv_nhwc', err, times, bound(*work))
+            else:
+                times['label'] = name
+                site_bound = bound(*work)
+                log(f'  {name:44s} bound {site_bound[0]:.4f} ms '
+                    f'({site_bound[1]})')
+
+    for path in MULMO_POOL_SITES:
+        x = seen[path].contiguous()
+        got, want = PN.pool2x2_nhwc(x), PN.plain(x)
+        g = torch.randn(want.shape, generator=gen, device=device)
+        dx, dx_want = PNB.pool2x2_nhwc_bwd(x, g), PNB.plain(x, g)
+        torch.cuda.synchronize()
+        errs = []
+        for name, k, ref in (('pool2x2_nhwc', got, want),
+                             ('pool2x2_nhwc_bwd', dx, dx_want)):
+            errs.append(float((k - ref).abs().max()))
+            log(f'  {name} {path} {list(x.shape)} max|diff| {errs[-1]:.3e}')
+            if not torch.equal(k, ref):
+                raise AssertionError(f'{name} at {path} differs from its '
+                                     f'plain version by {errs[-1]}')
+        times = _time_site(lambda: PN.pool2x2_nhwc(x), lambda: PN.plain(x),
+                           lambda: F.max_pool2d(x.permute(0, 3, 1, 2), 2))
+        record(site_results, 'pool2x2_nhwc', errs[0], times,
+               bound(nbytes(x, got), 3 * got.numel()))
+        times = _time_site(lambda: PNB.pool2x2_nhwc_bwd(x, g),
+                           lambda: PNB.plain(x, g))
+        record(site_results, 'pool2x2_nhwc_bwd', errs[1], times,
+               bound(nbytes(x, g, dx), 12 * g.numel()))
+
+    tconv = modules[MULMO_TCONV_SITE + '.tconv']
+    x, w, bias = seen[MULMO_TCONV_SITE].contiguous(), tconv.weight, tconv.bias
+    site = f'{MULMO_TCONV_SITE} {w.shape[0]}->{w.shape[1]} @{x.shape[1]}'
+    got, want = TN.tconv2x2_nhwc(x, w, bias), TN.plain(x, w, bias)
+    name = f'tconv2x2_nhwc {site}'
+    err = _check_close(name, got, want, DX_TOL)
+    _f64_errors(name, got, want, TN.plain(*_f64(x, w, bias)), F64_RATIO)
+    times = _time_site(
+        lambda: TN.tconv2x2_nhwc(x, w, bias), lambda: TN.plain(x, w, bias),
+        lambda: F.conv_transpose2d(x.permute(0, 3, 1, 2), w, bias, stride=2))
+    work = (nbytes(x, w, bias, got), 2 * got.numel() * w.shape[0])
+    record(site_results, 'tconv2x2_nhwc', err, times, bound(*work),
+           tf32x3_bound(*work))
+    g = torch.randn(got.shape, generator=gen, device=device)
+    wpt = TN.pack(w)
+    grads = TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt)
+    again = TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f'tconv2x2_nhwc_bwd {site}: two calls differ')
+    err = _check_grads(f'tconv2x2_nhwc_bwd {site}', grads,
+                       TNB.plain(x, g, w), TNB.plain(*_f64(x, g, w)),
+                       F64_RATIO)
+    times = _time_site(
+        lambda: TNB.tconv2x2_nhwc_bwd(x, g, w, wpt=wpt),
+        lambda: TNB.plain(x, g, w),
+        lambda: conv_bwd(g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w,
+                         [w.shape[1]], [2, 2], [0, 0], [1, 1], True, [0, 0],
+                         1, [True, True, True]))
+    work = (nbytes(x, g, w, *grads), 4 * g.numel() * w.shape[0])
+    record(site_results, 'tconv2x2_nhwc_bwd', err, times, bound(*work),
+           tf32x3_bound(*work))
+
+
 # -- phase 7 -----------------------------------------------------------------
+def _busy_us(prof):
+    '''Microseconds of a profiler window in which the device ran a kernel,
+    copy or fill: the union of their intervals, so that kernels that
+    overlap (on cuDNN's or the allocator's other streams) count once.'''
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False))
+    if not spans:
+        raise AssertionError('the profiler window holds no device event')
+    busy, end = 0.0, float('-inf')
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy
+
+
 def _profile_steps(label, step, steps=5, top=12):
     '''Where a step's device time goes: ``steps`` calls of ``step`` under
-    torch.profiler, the device's busy share of the wall time and the
-    ``top`` kernels by device time.'''
+    torch.profiler, the device's busy time (``_busy_us``) and its share of
+    the window's wall time, the kernel times summed, and the ``top``
+    kernels by device time.'''
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1732,10 +1949,12 @@ def _profile_steps(label, step, steps=5, top=12):
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, 'is_user_annotation', False)]
-    busy_us = sum(e.self_device_time_total for e in device)
+    summed_us = sum(e.self_device_time_total for e in device)
+    busy_us = _busy_us(prof)
     log(f'{label} under torch.profiler: {wall * 1e3 / steps:.3f} ms a step, '
         f'device busy {busy_us / 1e3 / steps:.3f} ms a step '
-        f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time); by kernel:')
+        f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time; kernel times '
+        f'summed {summed_us / 1e3 / steps:.3f} ms); by kernel:')
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
             f'{e.count // steps:4d}x  {e.key[:90]}')
@@ -1746,19 +1965,21 @@ def _batch_stats(path):
         return {k: npz[k] for k in npz.files if k.startswith('batch_stats/')}
 
 
-def _big_step(eng, ds, raw, draws, plain, f64=False):
+def _big_step(eng, ds, raw, draws, plain, f64=False, modules=None):
     '''Loss, parameter gradients and updated BatchNorm statistics of one
     train-mode step on ``raw`` with the given draws, through the kernels or
-    their plain versions; the statistics are put back after. With ``f64``
+    their plain versions (those of ``modules``, by default unet_big's NHWC
+    kernels and the warp); the statistics are put back after. With ``f64``
     the plain step's model and loss run in f64 on the same augmented f32
     batch (the kernels take f32 only, so none routes), and the model is
     put back in f32 after: an exact reference for ``_compare_step``.'''
     from dnncancerannotator_torch.data import augment
-    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
 
+    if modules is None:
+        modules = (*_nhwc_modules(), _warp_module())
     start = {n: b.clone() for n, b in eng.model.named_buffers()}
     try:
-        with (_plain_versions(*_nhwc_modules(), WT) if plain
+        with (_plain_versions(*modules) if plain
               else contextlib.nullcontext()):
             images = augment.apply_chain(
                 ds.augment_methods, raw.float() / 255.0, draws,
@@ -1817,7 +2038,7 @@ def _step_errors(got, want, exact):
     return out
 
 
-def _compare_step(got, want, exact):
+def _compare_step(got, want, exact, label='unet_big'):
     '''One step through the kernels against the plain step
     (``_step_errors``): the loss to LOSS_TOL relative, each gradient to
     STEP_TOL and each statistic to STATS_TOL of its scale.
@@ -1831,7 +2052,7 @@ def _compare_step(got, want, exact):
     step is no truth there.'''
     errors = _step_errors(got, want, exact)
     loss = errors.pop('loss')
-    log(f'one unet_big train step: loss {loss["got"]:.7f} kernels, '
+    log(f'one {label} train step: loss {loss["got"]:.7f} kernels, '
         f'{loss["plain"]:.7f} plain')
     if not loss['err'] <= LOSS_TOL * loss['scale']:
         raise AssertionError(f'train-step loss {loss["got"]} vs plain '
@@ -1896,36 +2117,151 @@ def step_digest(step):
     return digest.hexdigest()[:16]
 
 
-def check_big_step(eng, ds, raw, draws):
+def check_big_step(eng, ds, raw, draws, modules=None, label='unet_big'):
     '''Phase 7's one-step check (``_compare_step``) with cuDNN
     deterministic; the kernel step is taken twice and must give the same
-    bits (its digest printed, to compare across runs).'''
+    bits (its digest printed, to compare across runs). ``modules``: the
+    kernel modules the plain step swaps (``_big_step``).'''
     with _deterministic_cudnn():
-        got = _big_step(eng, ds, raw, draws, plain=False)
-        again = step_digest(_big_step(eng, ds, raw, draws, plain=False))
-        log(f'one unet_big train step on the seeded state: digest '
+        got = _big_step(eng, ds, raw, draws, plain=False, modules=modules)
+        again = step_digest(_big_step(eng, ds, raw, draws, plain=False,
+                                      modules=modules))
+        log(f'one {label} train step on the seeded state: digest '
             f'{step_digest(got)}, again {again}')
         if again != step_digest(got):
             raise AssertionError('the one-step check is not deterministic')
-        _compare_step(got, _big_step(eng, ds, raw, draws, plain=True),
+        _compare_step(got, _big_step(eng, ds, raw, draws, plain=True,
+                                     modules=modules),
                       lambda: _big_step(eng, ds, raw, draws, plain=True,
-                                        f64=True))
+                                        f64=True, modules=modules), label)
 
 
-def big_train_slice(device, data_paths):
-    '''Phase 7; returns the launch counts of the first train call and of
-    the predict call.'''
+def f64_step_shares(got, exact):
+    '''(loss, {'grad': (share, name), 'stat': (share, name)}): how far a
+    step (``_big_step``'s loss, gradients, statistics) is from the f64 step
+    of the same weights, batch and draws, as a share of each value's scale:
+    the loss's own; each gradient's max|f64| or its layer's weight (or
+    BatchNorm scale, or for a BatchNorm without one its conv's weight)
+    gradient's, whichever is larger (a BatchNorm bias whose output reaches
+    the next BatchNorm through linear layers alone has an exact gradient of
+    0); each running mean's its own or the root of its running variance's.
+    The worst gradient and statistic.'''
+    worst = {}
+    for kind, ours, ref in (('grad', got[1], exact[1]),
+                            ('stat', got[2], exact[2])):
+        for name, want in ref.items():
+            layer, leaf = name.rsplit('.', 1)
+            conv = layer.rsplit('.', 1)[0] + '.conv.weight'
+            peer = (ref.get(layer + '.weight', ref.get(
+                layer + '.scale', ref.get(conv, want)))
+                    if kind == 'grad' else ref[layer + '.var'].sqrt()
+                    if leaf == 'mean' else want)
+            scale = max(float(want.abs().max()), float(peer.abs().max()))
+            share = float((ours[name].double() - want).abs().max()) / scale
+            if share > worst.get(kind, (0.0, ''))[0]:
+                worst[kind] = (share, name)
+    return abs(got[0] - exact[0]) / abs(exact[0]), worst
+
+
+def check_f64_step(eng, ds, raw, draws, modules, label):
+    '''A step with no kernel but the bit-equal warp (MultiResUnet) against
+    the f64 step of the same weights, batch and draws
+    (``f64_step_shares``): the loss and every updated statistic within
+    MRU_STAT_TOL of its scale, every gradient within MRU_F64_TOL.'''
+    with _deterministic_cudnn():
+        got = _big_step(eng, ds, raw, draws, plain=False, modules=modules)
+        exact = _big_step(eng, ds, raw, draws, plain=True, f64=True,
+                          modules=modules)
+    loss_share, worst = f64_step_shares(got, exact)
+    log(f'one {label} train step against the f64 step: loss {got[0]:.7f} '
+        f'(f64 {exact[0]:.7f}, {loss_share:.3e}); worst gradient '
+        f'{worst["grad"][0]:.3e} of its scale ({worst["grad"][1]}), worst '
+        f'statistic {worst["stat"][0]:.3e} ({worst["stat"][1]}); tolerances '
+        f'{MRU_F64_TOL} (gradients), {MRU_STAT_TOL} (loss, statistics)')
+    if not (max(loss_share, worst['stat'][0]) <= MRU_STAT_TOL
+            and worst['grad'][0] <= MRU_F64_TOL):
+        raise AssertionError(f'{label}: the train step is further from the '
+                             f'f64 step than its tolerances: loss '
+                             f'{loss_share}, {worst}')
+
+
+def model_eval(device, val_paths, run, step, label):
+    '''The evaluate CLI with metrics.yaml on ckpt-``step`` of ``run``
+    (batch 64, the phase-4 records, the Visualizer with the casewise
+    metrics): one results row with the loss and the 13 metrics, the CCA
+    kernel at least once a batch, every region count equal to the plain
+    CCA's; the input sensitivity of a batch through the model finite and
+    normalized. Returns the launch counts of the evaluate call.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+    from dnncancerannotator_torch.utils import viz
+
+    tag = f'{EVAL_TAG}_{step}'
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    cli(argv=['evaluate', '--save_path', run, '--data_path', *val_paths,
+              '--tag', tag, '--config', os.path.join(REPO, METRICS_CONFIG),
+              '--step_range', str(step), str(step), '--export_csv',
+              '--export_casewise_metrics', '--device', device.type])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+    n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    log(f'{label} evaluate ckpt-{step}: {n_slices} slices in {seconds:.3f} s '
+        f'({n_slices / seconds:.2f} slices/s, host clock); launches '
+        f'{launches}')
+    out = os.path.join(run, 'tfevents', tag)
+    table = _read_csv(os.path.join(out, 'results.csv'))
+    header, rows = table[0], table[1:]
+    if len(rows) != 1 or int(rows[0][0]) != step or len(header) != 2 + 13:
+        raise AssertionError(f'results.csv: {header}, {rows}')
+    casewise = _read_csv(os.path.join(out, 'casewise_results.csv'))
+    (events,) = [os.path.join(out, f) for f in os.listdir(out)
+                 if f.startswith('events')]
+    if launches['cca'] < -(-n_slices // BATCH):
+        raise AssertionError(f'cca launched {launches["cca"]} times')
+    _check_region_counts(device, run, val_paths, header, rows, casewise,
+                         _pr_curves(events)[1])
+
+    config = config_lib.load_config(os.path.join(run, 'options.yaml'))[
+        'config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng.build((BATCH, SIZE, SIZE, 5))
+    eng.load(os.path.join(run, 'checkpoints', f'ckpt-{step}'))
+    x = torch.rand((4, SIZE, SIZE, 5), device=device)
+    with eng.scope():
+        _, sens = viz.input_sensitivity(eng.model, x)
+    log(f'{label} input sensitivity of 4 slices: {sens.cpu().numpy()}')
+    if not (torch.isfinite(sens).all()
+            and torch.allclose(sens.sum(1), torch.ones(4, device=device))):
+        raise AssertionError(f'{label}: input sensitivity {sens}')
+    return launches
+
+
+def bn_train_slice(device, data_paths, spec, val_paths=None):
+    '''Phase 7 (unet_big), 10 (MulmoUNet) or 11 (MultiResUnet), as
+    ``spec`` (BIG_SPEC, MULMO_SPEC, MRU_SPEC) says: the train CLI for
+    BIG_STEPS steps in chunks of BIG_SAVE_FREQ, a resume to BIG_STEPS +
+    BIG_SAVE_FREQ, predict from the last checkpoint against a plain forward
+    of its weights, the one-step check on a seeded state, the stack without
+    pallas_decoder.yaml, with ``val_paths`` the evaluate CLI on the last
+    checkpoint (``model_eval``), the train step's time and the throughput.
+    Returns the launch counts of the first train call, of the predict call
+    and of the evaluate call (None without ``val_paths``).'''
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.data import pipeline
     from dnncancerannotator_torch.ops import kernels
-    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
     from dnncancerannotator_torch.runs.__main__ import main as cli
     from dnncancerannotator_torch.utils import config as config_lib
 
+    label, modules = spec['label'], spec['modules']()
     overlay = os.path.join(WORK, 'big_steps_per_call.json')
     with open(overlay, 'w') as fh:
         json.dump({'deploy_options.steps_per_call': BIG_SAVE_FREQ}, fh)
-    save_path = os.path.join(WORK, 'big_run')
+    save_path = os.path.join(WORK, spec['run'])
     ckpt_dir = os.path.join(save_path, 'checkpoints')
 
     def argv(configs, save, save_freq, steps):
@@ -1938,25 +2274,23 @@ def big_train_slice(device, data_paths):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     start = time.perf_counter()
-    res = cli(argv=argv(BIG_CONFIGS, save_path, BIG_SAVE_FREQ, BIG_STEPS))
+    res = cli(argv=argv(spec['configs'], save_path, BIG_SAVE_FREQ, BIG_STEPS))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = kernels.launch_counts()
     losses = res.history['loss']
-    log(f'unet_big train: {BIG_STEPS} steps of B={TRAIN_BATCH} in '
+    log(f'{label} train: {BIG_STEPS} steps of B={TRAIN_BATCH} in '
         f'{seconds:.3f} s (host clock; bank solve, data load and checkpoints '
         f'included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak device '
         f'memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    log(f'launches during unet_big train: {launches}')
+    log(f'launches during {label} train: {launches}')
     if res.epoch != list(range(1, BIG_STEPS + 1)) or \
             not np.isfinite(losses).all():
         raise AssertionError(f'train steps {res.epoch}, losses {losses}')
-    for name in NHWC_KERNELS:
-        if launches[name] < 3 * BIG_STEPS:
+    for name, sites in spec['sites'].items():
+        if launches[name] < sites * BIG_STEPS:
             raise AssertionError(f'{name} launched {launches[name]} times, '
-                                 f'want >= 3 x {BIG_STEPS}')
-    if launches['warp_twopass'] < BIG_STEPS:
-        raise AssertionError('the warp kernel did not run every step')
+                                 f'want >= {sites} x {BIG_STEPS}')
     for step in range(BIG_SAVE_FREQ, BIG_STEPS + 1, BIG_SAVE_FREQ):
         path = os.path.join(ckpt_dir, f'ckpt-{step}')
         with np.load(os.path.join(path, 'opt_state.npz')) as npz:
@@ -1965,47 +2299,48 @@ def big_train_slice(device, data_paths):
         stats = _batch_stats(path)
         still = [k for k, v in stats.items()
                  if np.array_equal(v, np.full_like(v, k.endswith('/var')))]
-        # mean and var of 24 BatchNorms: 4 levels x (bn_0, bn_1 and pool_bn
-        # down, tconv_bn, bn_0 and bn_1 up)
-        if len(stats) != 2 * 4 * 6 or still:
+        if len(stats) != spec['n_stats'] or still:
             raise AssertionError(f'ckpt-{step}: {len(stats)} batch_stats, '
                                  f'unmoved {still}')
     last = BIG_STEPS + BIG_SAVE_FREQ
-    res = cli(argv=argv(BIG_CONFIGS, save_path, BIG_SAVE_FREQ, last))
+    res = cli(argv=argv(spec['configs'], save_path, BIG_SAVE_FREQ, last))
     if res.epoch != list(range(BIG_STEPS + 1, last + 1)):
         raise AssertionError(f'the second train call ran steps {res.epoch}')
     before, after = (_batch_stats(os.path.join(ckpt_dir, f'ckpt-{s}'))
                      for s in (BIG_STEPS, last))
     moved = sum(not np.array_equal(before[k], after[k]) for k in before)
-    log(f'unet_big train resumed at step {BIG_STEPS}: steps {res.epoch[0]}-'
+    log(f'{label} train resumed at step {BIG_STEPS}: steps {res.epoch[0]}-'
         f'{res.epoch[-1]}, loss {res.history["loss"][-1]:.4f}; '
         f'{len(before)} batch_stats in each checkpoint, {moved} moved from '
         f'ckpt-{BIG_STEPS} to ckpt-{last}')
     if moved != len(before):
         raise AssertionError('batch_stats did not move after the resume')
 
-    # predict from ckpt-30 against the plain forward in eval mode
+    # predict from the last checkpoint against the plain forward in eval
+    # mode
     config = config_lib.load_config(
         os.path.join(save_path, 'options.yaml'))['config']
     eng = engine.Engine(config, seed=SEED, device=device)
     ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
     eng._setup_training(ds)
     eng.load(os.path.join(ckpt_dir, f'ckpt-{last}'))
-    out_dir = os.path.join(WORK, 'big_maps')
+    out_dir = os.path.join(WORK, spec['run'] + '_maps')
     kernels.reset_launches()
     count = cli(argv=['predict', '--save_path', save_path, '--data_path',
                       *data_paths, '--output_path', out_dir, '--batch_size',
                       str(BATCH), '--output_format', 'npy', '--device',
                       device.type])
     predict_launches = kernels.launch_counts()
-    log(f'predict from unet_big ckpt-{last}: {count} maps; launches '
+    log(f'predict from {label} ckpt-{last}: {count} maps; launches '
         f'{predict_launches}')
-    if min(predict_launches['pool2x2_nhwc'],
-           predict_launches['tconv2x2_nhwc']) < 3:
-        raise AssertionError('predict did not run the NHWC kernels')
+    for name, sites in spec['predict_sites'].items():
+        if predict_launches[name] < sites:
+            raise AssertionError(f'predict launched {name} '
+                                 f'{predict_launches[name]} times, want >= '
+                                 f'{sites}')
 
     def reference(x):
-        with _plain_versions(*_nhwc_modules()), eng.scope():
+        with _plain_versions(*modules[:-1]), eng.scope():
             return eng.model(x)
 
     def exact(x):
@@ -2022,38 +2357,50 @@ def big_train_slice(device, data_paths):
     # one step: the kernels against a plain step, same batch and draws, on
     # a seeded state (the trained steps above differ run to run)
     check_eng, raw, draws = big_check_state(config, ds, SEED, device)
-    check_big_step(check_eng, ds, raw, draws)
+    if spec['f64_step']:
+        check_f64_step(check_eng, ds, raw, draws, modules, label)
+    else:
+        check_big_step(check_eng, ds, raw, draws, modules, label)
     del check_eng
 
     # the stack without pallas_decoder.yaml: the NHWC kernels stay off
-    kernels.reset_launches()
-    cli(argv=argv(BIG_CONFIGS[:-1], os.path.join(WORK, 'big_run_off'), 2, 2))
-    off = kernels.launch_counts()
-    log(f'unet_big without pallas_decoder.yaml, 2 steps: launches {off}')
-    if any(off[name] for name in NHWC_KERNELS) or off['warp_twopass'] < 2:
-        raise AssertionError('a gate that is off launched a kernel')
+    if spec['gated']:
+        kernels.reset_launches()
+        cli(argv=argv(spec['configs'][:-1],
+                      os.path.join(WORK, spec['run'] + '_off'), 2, 2))
+        off = kernels.launch_counts()
+        log(f'{label} without pallas_decoder.yaml, 2 steps: launches {off}')
+        kept = {n: s for n, s in spec['sites'].items()
+                if n not in NHWC_KERNELS}
+        if any(off[name] for name in NHWC_KERNELS) or any(
+                off[name] < 2 * sites for name, sites in kept.items()):
+            raise AssertionError('a gate that is off launched a kernel, or '
+                                 'a kernel of the path did not run')
+
+    eval_launches = (model_eval(device, val_paths, save_path, last, label)
+                     if val_paths else None)
 
     # the train step's time, kernels vs plain (the trained engine)
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
 
     def plain_step():
-        with _plain_versions(*_nhwc_modules(), WT):
+        with _plain_versions(*modules):
             eng.train_step(raw, last, gen)
 
     ms, plain_ms = _time_pair(lambda: eng.train_step(raw, last, gen),
                               plain_step)
-    log(f'unet_big train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
+    log(f'{label} train step B={TRAIN_BATCH}: kernels {ms:.4f} ms  plain '
         f'{plain_ms:.4f} ms (CUDA events, median of {TIMED_RUNS})')
 
     _DEFERRED.append(lambda: _profile_steps(
-        'unet_big train step', lambda: eng.train_step(raw, last, gen)))
+        f'{label} train step', lambda: eng.train_step(raw, last, gen)))
 
-    # throughput: train calls that differ only in step count, min of three
-    short, long = 10, 40
+    # throughput: train calls that differ only in step count, min of two
+    short, long = BIG_THROUGHPUT
     eng.train(ds, max_steps=eng.current_step + 5, save_freq=1 << 30)
     times = {}
     for n in (short, long):
-        for _ in range(3):
+        for _ in range(2):
             torch.cuda.synchronize()
             start = time.perf_counter()
             eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
@@ -2061,10 +2408,56 @@ def big_train_slice(device, data_paths):
             times.setdefault(n, []).append(time.perf_counter() - start)
     rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
                                            min(times[short]))
-    log(f'unet_big train throughput: {rate:.2f} slices/s ({short}-step calls '
+    log(f'{label} train throughput: {rate:.2f} slices/s ({short}-step calls '
         f'{times[short]} s, {long}-step calls {times[long]} s; '
         f'steps_per_call {BIG_SAVE_FREQ})')
-    return launches, predict_launches
+    return launches, predict_launches, eval_launches
+
+
+def _warp_module():
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+    return WT
+
+
+def _mulmo_modules():
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+    return (*_nhwc_modules(), SN, _warp_module())
+
+
+# phases 7, 10 and 11 (bn_train_slice): the stack, each kernel's sites a
+# step (launches >= sites x steps) and in a predict call, the BatchNorm
+# statistics of a checkpoint, the kernel modules the plain step swaps (the
+# warp last; the plain forward swaps the others), whether the stack ends
+# with pallas_decoder.yaml, and whether the one-step check is against the
+# f64 step alone
+BIG_SPEC = dict(
+    label='unet_big', configs=BIG_CONFIGS, run='big_run',
+    sites={**{name: 3 for name in NHWC_KERNELS}, 'warp_twopass': 1},
+    predict_sites={'pool2x2_nhwc': 3, 'tconv2x2_nhwc': 3},
+    # mean and var of 24 BatchNorms: 4 levels x (bn_0, bn_1 and pool_bn
+    # down, tconv_bn, bn_0 and bn_1 up)
+    n_stats=2 * 4 * 6,
+    modules=lambda: (*_nhwc_modules(), _warp_module()), gated=True,
+    f64_step=False)
+MULMO_SPEC = dict(
+    label='MulmoUNet', configs=MULMO_CONFIGS, run='mulmo_run',
+    sites={'stencil_conv_nhwc': len(MULMO_STENCIL_SITES),
+           'pool2x2_nhwc': len(MULMO_POOL_SITES),
+           'pool2x2_nhwc_bwd': len(MULMO_POOL_SITES), 'tconv2x2_nhwc': 1,
+           'tconv2x2_nhwc_bwd': 1, 'warp_twopass': 1},
+    predict_sites={'stencil_conv_nhwc': len(MULMO_STENCIL_SITES),
+                   'pool2x2_nhwc': len(MULMO_POOL_SITES), 'tconv2x2_nhwc': 1},
+    # 5 encoders x 4 levels x (bn_0, bn_1, pool_bn) and 4 decoder levels x
+    # (tconv_bn, bn_0, bn_1): 72 BatchNorms
+    n_stats=2 * (5 * 4 * 3 + 4 * 3), modules=_mulmo_modules, gated=True,
+    f64_step=False)
+MRU_SPEC = dict(
+    label='MultiResUnet', configs=MRU_CONFIGS, run='mru_run',
+    sites={'warp_twopass': 1}, predict_sites={},
+    # 9 MultiResBlocks x 6, ResPaths of 4 + 3 + 2 + 1 steps x 3, head_bn
+    n_stats=2 * (9 * 6 + 10 * 3 + 1), modules=lambda: (_warp_module(),),
+    gated=False, f64_step=True)
+
 
 # -- phase 3f ----------------------------------------------------------------
 def crop_inputs(device):
@@ -2409,7 +2802,7 @@ def main():
 
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    results = {}
+    results, mulmo_sites = {}, {}
     try:
         data_paths = write_records(os.path.join(WORK, 'data'))
         save_path = os.path.join(WORK, 'run')
@@ -2429,6 +2822,8 @@ def main():
             big_kernel_sites(device, results)
         with phase('3f crop-fused warp kernel'):
             crop_kernel_sites(device, results)
+        with phase('3g MulmoUNet kernels'):
+            mulmo_kernel_sites(device, results, mulmo_sites)
         with phase('4 predict'):
             predict_launches = run_slice(eng, data_paths, save_path,
                                          os.path.join(WORK, 'maps'))
@@ -2438,9 +2833,15 @@ def main():
             eval_launches = eval_slice(device, data_paths, train_paths,
                                        train_run)
         with phase('7 unet_big train'):
-            big_launches, big_predict = big_train_slice(device, train_paths)
+            big_launches, big_predict, _ = bn_train_slice(
+                device, train_paths, BIG_SPEC)
         with phase('8 fused augmentation'):
             fused_launches = fused_aug_slice(device, train_paths)
+        with phase('10 MulmoUNet'):
+            mulmo_launches = bn_train_slice(device, train_paths, MULMO_SPEC,
+                                            data_paths)
+        with phase('11 MultiResUnet'):
+            bn_train_slice(device, train_paths, MRU_SPEC, data_paths)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -2450,21 +2851,30 @@ def main():
             sums['bound_ms'] = sum(b for _, _, b in TRAIN_FORWARD)
             log(f'conv_chain B={TRAIN_BATCH} need_c1, six sites: '
                 + json.dumps(sums))
+            log('MulmoUNet sites of the NHWC pool and tconv kernels: '
+                + json.dumps({name: dict(
+                    max_abs_err=acc['max_abs_err'], **summed_times(acc),
+                    bound_ms=acc['bound_ms'], sites=acc['sites'])
+                    for name, acc in mulmo_sites.items()}))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     # each kernel's launches in the run of its path: train for the seven of
     # the unet.yaml train step, evaluate for the CCA, the unet_big train and
     # predict for the four NHWC kernels, the fused-chain train for the crop
-    # warp
+    # warp, the MulmoUNet train, predict and evaluate for the NHWC stencil
     launches['cca'] = eval_launches['cca']
     launches['warp_crop'] = fused_launches['warp_crop']
     for name in NHWC_KERNELS:
         launches[name] = big_launches[name]
         predict_launches[name] = big_predict[name]
+    for counts, mulmo in zip((launches, predict_launches, eval_launches),
+                             mulmo_launches):
+        counts['stencil_conv_nhwc'] = mulmo['stencil_conv_nhwc']
     csrc = 'dnncancerannotator_torch/csrc/'
     kernels_line = {'kernels': [
-        {'name': name, 'route': 'cuda', 'source': f'{csrc}{name}.cu',
+        {'name': name, 'route': 'cuda',
+         'source': f'{csrc}{SOURCE.get(name, name)}.cu',
          'replaces': ', '.join(PALLAS + r for r in REPLACES[name]),
          'launches': launches[name],
          'predict_launches': predict_launches[name],

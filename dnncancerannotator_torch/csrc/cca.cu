@@ -398,7 +398,7 @@ cudaError_t launch_shared(const unsigned char* masks, int* labels, int N,
   cudaError_t err = dnnca::allow_smem(shared_kernel<L>, bytes);
   if (err != cudaSuccess) return err;
   shared_kernel<L><<<N, kSharedThreads, bytes, s>>>(masks, labels, H, W);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 }  // namespace
@@ -424,11 +424,11 @@ extern "C" int dnnca_cca(const unsigned char* masks, int* labels, int N,
   const long long n = rows * W;
   runs_kernel<<<blocks_for(rows, kWarps), kThreads, 0, s>>>(masks, labels,
                                                             rows, H, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = dnnca::launched(cudaGetLastError())) != cudaSuccess) return err;
   merge_kernel<<<blocks_for(n, kThreads), kThreads, 0, s>>>(masks, labels, n,
                                                             H, W);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = dnnca::launched(cudaGetLastError())) != cudaSuccess) return err;
   flatten_kernel<<<blocks_for(n, kThreads), kThreads, 0, s>>>(masks, labels,
                                                               n, H, W);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

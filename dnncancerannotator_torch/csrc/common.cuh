@@ -4,6 +4,9 @@
 // stream), launches on the caller's stream, never synchronises and
 // returns cudaGetLastError() so that a refused launch (too much shared
 // memory, a bad grid) is reported to the Python wrapper, which raises.
+// Every launch site passes that error through ``launched``, which counts
+// the launches the card accepted (``dnnca_launches`` reads the count, so
+// a caller counts a call's kernels without a profiler).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,5 +25,9 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// Adds one to the library's launch count when ``err`` is cudaSuccess;
+// returns ``err``.
+cudaError_t launched(cudaError_t err);
 
 }  // namespace dnnca

@@ -183,7 +183,7 @@ cudaError_t launch(const ChainArgs& a, int threads, int smem_bytes,
   const dim3 grid((a.W + a.tile_w - 1) / a.tile_w,
                   (a.H + a.tile_h - 1) / a.tile_h, a.B);
   conv_chain_kernel<CPT, KT><<<grid, threads, smem_bytes, stream>>>(a);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 template <int KT>

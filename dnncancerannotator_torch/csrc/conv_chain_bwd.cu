@@ -407,7 +407,7 @@ cudaError_t launch(const BwdArgs& a, int blocks, int threads, int smem_bytes,
       dnnca::allow_smem(chain_bwd_kernel<CPT, KT, WGRAD>, smem_bytes);
   if (err != cudaSuccess) return err;
   chain_bwd_kernel<CPT, KT, WGRAD><<<blocks, threads, smem_bytes, stream>>>(a);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 cudaError_t dispatch(const BwdArgs& a, int cpt, bool fused, int blocks,
@@ -464,7 +464,7 @@ extern "C" int dnnca_conv_chain_bwd(
   if (fused) {
     chain_bwd_finish_kernel<<<(n_out + 7) / 8, 256, 0, s>>>(partial, out,
                                                              n_out, blocks);
-    return cudaGetLastError();
+    return dnnca::launched(cudaGetLastError());
   }
   const int p = K / 2;
   const dnnca::WgradArgs w2g{g, c2, c1, partial, out + n1 + Cm, B, Co, Cm, H,

@@ -61,5 +61,5 @@ extern "C" int dnnca_pool2x2_nhwc(const float* x, float* out, int B, int H,
                 kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(out), B,
       H, W, C / 4);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

@@ -82,5 +82,5 @@ extern "C" int dnnca_pool2x2_nhwc_bwd(const float* x, const float* g,
                     kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(x), reinterpret_cast<const float4*>(g),
       reinterpret_cast<float4*>(dx), B, H, W, C / 4);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

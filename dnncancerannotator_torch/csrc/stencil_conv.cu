@@ -5,10 +5,11 @@
 //
 // Replaces conv_kernel.stencil_conv2d_pallas
 // (dnncancerannotator_tpu/ops/pallas/conv_kernel.py:84), which keeps a
-// whole padded image in VMEM and reads the weights as SMEM scalars.
-// NCHW f32, w [Co, Ci, KH, KW] (PyTorch OIHW), Ci, Co <= 32. On the model's
-// path it runs the 1 x 1, 3 -> 1 logits head. Two routes
-// (ops/kernels/stencil_conv.py: route):
+// whole padded image in VMEM and reads the weights as SMEM scalars, in
+// both of its layouts. w [Co, Ci, KH, KW] (PyTorch OIHW), Ci, Co <= 32, f32.
+//
+// NCHW (``nchw=True``): on the unet.yaml path it runs the 1 x 1, 3 -> 1
+// logits head. Two routes (ops/kernels/stencil_conv.py: route):
 //
 // - pointwise (1 x 1, zero pads: the head): a pure stream of Ci reads and
 //   Co writes a pixel, 16 bytes a pixel at the head against 3 FMAs, so
@@ -30,6 +31,19 @@
 //   output access is coalesced; the padding is a bounds test on the input
 //   index, never a padded copy. Wider stencils at these widths do at most a
 //   few hundred FMAs per pixel and stay near the bytes bound.
+//
+// NHWC (``nchw=False``, entry dnnca_stencil_conv_nhwc): MulmoUNet's first
+// conv of each per-channel encoder (3 x 3 SAME, 1 -> 16, fused relu) and its
+// 1 x 1, 16 -> 1 head. Both move 68 bytes a pixel for at most 144 FMAs, so
+// bytes bound them. One thread an output pixel, all Co accumulators in
+// registers, weights and bias in shared memory as [KH][KW][Ci][CO]
+// (broadcast reads). A pixel's Ci inputs are read as float4 where Ci % 4 ==
+// 0 and every pixel's channels are 16-byte aligned (the head's 16 inputs as
+// 4 float4s), its Co outputs written as float4 where Co fills its bucket
+// (the encoder conv's 16 as 4 float4s), so a warp reads and writes
+// contiguous runs of 32 pixels. The input's pixels may lie ``xs`` floats
+// apart (xs >= Ci): an encoder reads its channel of the [B, H, W, 5] batch
+// in place, with no copy.
 #include "common.cuh"
 
 namespace {
@@ -103,7 +117,7 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   stencil_conv_kernel<CO><<<grid, kThreads, smem_bytes, stream>>>(
       x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 
@@ -184,7 +198,7 @@ cudaError_t launch_pointwise(const float* x, const float* w, const float* bias,
                   B < 65535 ? B : 65535);
   pointwise_conv_kernel<T, CI, V><<<grid, kPwThreads, 0, stream>>>(
       x, w, bias, out, B, Ci, Co, P, relu, streaming);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 template <typename T>
@@ -203,6 +217,114 @@ cudaError_t pointwise(const float* x, const float* w, const float* bias,
                                              : DNNCA_PW(32, 1);
   }
 #undef DNNCA_PW
+}
+
+
+// -- NHWC ----------------------------------------------------------------------
+// CO: the output-channel bucket (1, 4, 8, 16 or 32); VI: 4 to read a pixel's
+// Ci inputs as float4 (Ci % 4 == 0, xs % 4 == 0, x 16-byte aligned), else 1;
+// VO: 4 to write its Co outputs as float4 (Co == CO, CO % 4 == 0), else 1.
+template <int CO, int VI, int VO>
+__global__ void __launch_bounds__(kThreads)
+stencil_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
+                    int B, int Ci, int Co, int H, int W, int xs, int KH,
+                    int KW, int pt, int pl, int OH, int OW, int relu) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int taps = KH * KW;
+  const int n_w = taps * Ci * CO;
+  float* ws = smem;         // [KH][KW][Ci][CO]
+  float* bs = smem + n_w;   // [CO]
+  for (int i = threadIdx.x; i < n_w; i += kThreads) {
+    const int o = i % CO, c = (i / CO) % Ci, t = i / (CO * Ci);
+    ws[i] = o < Co ? w[(o * Ci + c) * taps + t] : 0.f;
+  }
+  for (int i = threadIdx.x; i < CO; i += kThreads)
+    bs[i] = i < Co ? bias[i] : 0.f;
+  __syncthreads();
+
+  const size_t oplane = static_cast<size_t>(OH) * OW;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= static_cast<size_t>(B) * oplane) return;
+  const int b = static_cast<int>(idx / oplane);
+  const size_t pix = idx % oplane;
+  const int oy = static_cast<int>(pix / OW), ox = static_cast<int>(pix % OW);
+
+  float acc[CO];
+#pragma unroll
+  for (int o = 0; o < CO; ++o) acc[o] = bs[o];
+  const float* xb = x + static_cast<size_t>(b) * H * W * xs;
+  for (int ky = 0; ky < KH; ++ky) {
+    const int iy = oy - pt + ky;
+    if (iy < 0 || iy >= H) continue;
+    for (int kx = 0; kx < KW; ++kx) {
+      const int ix = ox - pl + kx;
+      if (ix < 0 || ix >= W) continue;
+      const float* px = xb + (static_cast<size_t>(iy) * W + ix) * xs;
+      const float* wt = ws + (ky * KW + kx) * Ci * CO;
+      for (int c = 0; c < Ci; c += VI) {
+        float v[VI];
+        if constexpr (VI == 4) {
+          const float4 q = __ldg(reinterpret_cast<const float4*>(px + c));
+          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+        } else {
+          v[0] = __ldg(px + c);
+        }
+#pragma unroll
+        for (int j = 0; j < VI; ++j) {
+          const float* wc = wt + (c + j) * CO;
+#pragma unroll
+          for (int o = 0; o < CO; ++o) acc[o] = fmaf(v[j], wc[o], acc[o]);
+        }
+      }
+    }
+  }
+  if (relu) {
+#pragma unroll
+    for (int o = 0; o < CO; ++o) acc[o] = fmaxf(acc[o], 0.f);
+  }
+  float* ob = out + idx * Co;
+  if constexpr (VO == 4) {
+#pragma unroll
+    for (int o = 0; o < CO; o += 4)
+      reinterpret_cast<float4*>(ob)[o / 4] =
+          make_float4(acc[o], acc[o + 1], acc[o + 2], acc[o + 3]);
+  } else {
+#pragma unroll
+    for (int o = 0; o < CO; ++o)
+      if (o < Co) ob[o] = acc[o];
+  }
+}
+
+template <int CO, int VI, int VO>
+cudaError_t launch_nhwc(const float* x, const float* w, const float* bias,
+                        float* out, int B, int Ci, int Co, int H, int W,
+                        int xs, int KH, int KW, int pt, int pl, int OH,
+                        int OW, int relu, cudaStream_t stream) {
+  const size_t smem_bytes = (static_cast<size_t>(KH) * KW * Ci + 1) * CO * 4;
+  cudaError_t err =
+      dnnca::allow_smem(stencil_nhwc_kernel<CO, VI, VO>, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const size_t n = static_cast<size_t>(B) * OH * OW;
+  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  stencil_nhwc_kernel<CO, VI, VO><<<grid, kThreads, smem_bytes, stream>>>(
+      x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, relu);
+  return dnnca::launched(cudaGetLastError());
+}
+
+template <int CO>
+cudaError_t nhwc_co(const float* x, const float* w, const float* bias,
+                    float* out, int B, int Ci, int Co, int H, int W, int xs,
+                    int KH, int KW, int pt, int pl, int OH, int OW, int relu,
+                    int vec_in, cudaStream_t s) {
+#define DNNCA_NHWC(VI, VO)                                                  \
+  launch_nhwc<CO, VI, VO>(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, \
+                          pl, OH, OW, relu, s)
+  constexpr int kVo = CO % 4 == 0 ? 4 : 1;
+  if (Co == CO) return vec_in ? DNNCA_NHWC(4, kVo) : DNNCA_NHWC(1, kVo);
+  return vec_in ? DNNCA_NHWC(4, 1) : DNNCA_NHWC(1, 1);
+#undef DNNCA_NHWC
 }
 
 }  // namespace
@@ -241,4 +363,27 @@ extern "C" int dnnca_pointwise_conv(const float* x, const float* w,
                                  streaming, s)
              : pointwise<float>(x, w, bias, out, B, Ci, Co, P, relu,
                                 streaming, s);
+}
+
+// The NHWC form: x [B, H, W, *] with its pixels xs floats apart (its Ci
+// channels contiguous), out [B, OH, OW, Co] contiguous. vec_in: Ci % 4 == 0,
+// xs % 4 == 0 and x 16-byte aligned (float4 reads); out is 16-byte aligned.
+extern "C" int dnnca_stencil_conv_nhwc(const float* x, const float* w,
+                                       const float* bias, float* out, int B,
+                                       int Ci, int Co, int H, int W, int xs,
+                                       int KH, int KW, int pt, int pl, int OH,
+                                       int OW, int relu, int vec_in,
+                                       int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DNNCA_NHWC_CO(CO)                                                   \
+  nhwc_co<CO>(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, \
+              relu, vec_in, s)
+  if (Co <= 1) return DNNCA_NHWC_CO(1);
+  if (Co <= 4) return DNNCA_NHWC_CO(4);
+  if (Co <= 8) return DNNCA_NHWC_CO(8);
+  if (Co <= 16) return DNNCA_NHWC_CO(16);
+  return DNNCA_NHWC_CO(32);
+#undef DNNCA_NHWC_CO
 }

@@ -97,7 +97,7 @@ cudaError_t launch_dgrad(const float* g, const float* w, float* dx, int B,
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   stencil_dgrad_kernel<CI><<<grid, kThreads, smem_bytes, stream>>>(
       g, w, dx, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 
@@ -352,5 +352,5 @@ extern "C" int dnnca_pointwise_conv_bwd(
                  chunks,  B * chunks, per_block, slices, vec,    smem};
   pointwise_bwd_kernel<<<blocks, kPwThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(a);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

@@ -90,7 +90,7 @@ cudaError_t launch(const float* x, const float* w, const float* bias,
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   tconv2x2_kernel<CI><<<grid, kThreads, smem_bytes, stream>>>(
       x, w, bias, out, B, Ci, Co, H, W);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 }  // namespace

@@ -409,7 +409,8 @@ cudaError_t launch(const Args& a, int blocks, int cluster_size,
   cluster.val.clusterDim.z = 1;
   config.attrs = &cluster;
   config.numAttrs = 1;
-  return cudaLaunchKernelEx(&config, tconv_bwd_kernel<CPT>, a);
+  return dnnca::launched(
+      cudaLaunchKernelEx(&config, tconv_bwd_kernel<CPT>, a));
 }
 
 }  // namespace

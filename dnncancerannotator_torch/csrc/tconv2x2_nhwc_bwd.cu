@@ -118,5 +118,5 @@ extern "C" int dnnca_tconv2x2_nhwc_bwd(
       w_partial, db_partial, reinterpret_cast<const float4*>(dx_partial),
       reinterpret_cast<float4*>(dw), db, reinterpret_cast<float4*>(dx), Ci, Co,
       wgrad_splits, dx_n4, dx_splits, w_blocks, db_blocks);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

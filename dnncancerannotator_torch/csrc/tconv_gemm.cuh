@@ -439,7 +439,7 @@ inline cudaError_t launch(const Params& q, int splits, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid(n / kBN, (rows + kBM - 1) / kBM, splits);
   gemm_kernel<M><<<grid, kThreads, kSmemBytes, stream>>>(q);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 }  // namespace tgemm

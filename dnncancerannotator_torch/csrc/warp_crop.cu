@@ -107,5 +107,5 @@ extern "C" int dnnca_warp_crop(const float* img, const float* fy_ext,
   warp_crop_kernel<<<grid, kThreads, 0, st>>>(
       img, fy_ext, fx, off, out, B, Hin, Win, Hout, Wout, C,
       static_cast<float>(max_displacement));
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

@@ -417,7 +417,7 @@ cudaError_t launch_c(const float* img, const float* fa, const float* fb,
   if (err != cudaSuccess) return err;
   const dim3 grid((f.W + p.tw - 1) / p.tw, (f.H + p.seg - 1) / p.seg, f.B);
   kernel<<<grid, kThreads, smem, stream>>>(img, fa, fb, off, out, f, p, di);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 // Launch the tile kernel over a grid of (strips, segments, images), its

@@ -93,5 +93,5 @@ extern "C" int dnnca_warp_twopass(const float* img, const float* flow,
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   warp_twopass_kernel<<<grid, kThreads, 0, st>>>(
       img, flow, out, B, H, W, C, static_cast<float>(max_displacement));
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }

@@ -157,7 +157,7 @@ cudaError_t launch(const dnnca::WgradArgs& a, cudaStream_t stream) {
   cudaError_t err = dnnca::allow_smem(wgrad_kernel<C>, smem_bytes);
   if (err != cudaSuccess) return err;
   wgrad_kernel<C><<<a.blocks, kThreads, smem_bytes, stream>>>(a);
-  err = cudaGetLastError();
+  err = dnnca::launched(cudaGetLastError());
   if (err != cudaSuccess) return err;
   return dnnca::launch_sum_partials(a.partial, a.out,
                                     a.O * a.Cin * a.KH * a.KW + a.O,
@@ -171,7 +171,7 @@ namespace dnnca {
 cudaError_t launch_sum_partials(const float* partial, float* out, int n,
                                 int blocks, cudaStream_t stream) {
   sum_partials_kernel<<<n, kThreads, 0, stream>>>(partial, out, blocks);
-  return cudaGetLastError();
+  return dnnca::launched(cudaGetLastError());
 }
 
 cudaError_t launch_wgrad(const WgradArgs& a, cudaStream_t stream) {

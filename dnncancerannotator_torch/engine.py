@@ -32,7 +32,7 @@ per-step spline solve). The sampler and the augmentation draw from device
 generators reseeded at every step from (seed, step), so a resumed run draws
 what an unbroken one would. Not ported yet (they raise or are not offered):
 the profiler window, SIGTERM draining, host streaming, the kernel
-regularizer.
+regularizer, ``debug_asserts`` and ``spatial_partition``.
 
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
@@ -140,7 +140,15 @@ class Engine:
         if deploy.get('precision') in ('bfloat16', 'bf16'):
             raise NotImplementedError(
                 'precision bfloat16 is not ported yet; the port computes in '
-                'float32 (ROADMAP.md queue 2)')
+                'float32 (ROADMAP.md queue 1 item 3)')
+        if deploy.get('debug_asserts'):
+            raise NotImplementedError(
+                'debug_asserts (the weight, label and positive-rate checks) '
+                'is not ported yet (ROADMAP.md queue 1 item 5)')
+        if int(deploy.get('spatial_partition', 1)) > 1:
+            raise NotImplementedError(
+                'spatial_partition is not ported yet (ROADMAP.md queue 1 '
+                'item 8)')
         self.schedule = schedules_lib.solve_schedule(
             deploy.get('LearningRateScheduler'))
         self.steps_per_call = int(deploy.get('steps_per_call', 1))

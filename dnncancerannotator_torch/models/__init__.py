@@ -1,20 +1,13 @@
 '''Model registry (counterpart of dnncancerannotator_tpu.models).'''
 
-from .unet import UNet, UNetAnnotator
+from .multiresunet import MultiResUnet
+from .unet import MulmoUNetAnnotator, UNet, UNetAnnotator
 from . import blocks, fastconv  # noqa: F401
-
-
-def _not_ported(name):
-    def build(**_):
-        raise NotImplementedError(
-            f'{name} is not ported to PyTorch yet (ROADMAP.md queue 2)')
-    return build
-
 
 _REGISTRY = {
     'UNetAnnotator': UNetAnnotator,
-    'MulmoUNetAnnotator': _not_ported('MulmoUNetAnnotator'),
-    'MultiResUnet': _not_ported('MultiResUnet'),
+    'MulmoUNetAnnotator': MulmoUNetAnnotator,
+    'MultiResUnet': MultiResUnet,
 }
 
 

@@ -5,7 +5,10 @@
 
 - parameters ``scale`` (ones) and ``bias`` (zeros), buffers ``mean``
   (zeros) and ``var`` (ones), as flax names ``params/.../{scale,bias}`` and
-  ``batch_stats/.../{mean,var}`` (convert.py carries them across);
+  ``batch_stats/.../{mean,var}`` (convert.py carries them across); with
+  ``use_scale=False`` (MultiResUnet's ``ConvBN`` and ``head_bn``) there is
+  no ``scale`` parameter, as the flax tree has no ``scale`` leaf, and the
+  apply multiplies by ``rsqrt(var + eps)`` alone;
 - in training mode: f32 batch statistics over every axis but the last, the
   mean and the biased variance ``E[x^2] - mean^2``; the running statistics
   move as ``momentum * running + (1 - momentum) * batch`` with momentum
@@ -18,7 +21,7 @@
 - in training mode the closed-form BN backward of ``_bn_train_bwd``
   (fastbn.py:68-87) as a ``torch.autograd.Function``: the batch statistics'
   dependence on x is differentiated analytically, not by autograd through
-  the reductions.
+  the reductions; without a scale it has no dgamma output.
 '''
 
 import torch
@@ -26,7 +29,9 @@ from torch import nn
 
 
 def _apply(x, scale, bias, mean, var, eps):
-    mul = torch.rsqrt(var + eps) * scale
+    mul = torch.rsqrt(var + eps)
+    if scale is not None:
+        mul = mul * scale
     shift = bias - mean * mul
     return x * mul + shift
 
@@ -50,19 +55,23 @@ class _BNTrainFn(torch.autograd.Function):
         xhat = (x - mean) * r
         dbeta = g.sum(red)
         dgamma = (g * xhat).sum(red)
-        dx = (r * scale) * (g - dbeta / count - xhat * (dgamma / count))
-        return dx, dgamma, dbeta, None, None, None
+        gscale = r if scale is None else r * scale
+        dx = gscale * (g - dbeta / count - xhat * (dgamma / count))
+        return (dx, None if scale is None else dgamma, dbeta, None, None,
+                None)
 
 
 class BatchNormFast(nn.Module):
     '''BatchNorm of [..., C] f32 tensors; ``train()`` / ``eval()`` select
     batch or running statistics.'''
 
-    def __init__(self, features, momentum=0.99, epsilon=1e-3):
+    def __init__(self, features, momentum=0.99, epsilon=1e-3,
+                 use_scale=True):
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(features))
+        self.scale = (nn.Parameter(torch.ones(features)) if use_scale
+                      else None)
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))

@@ -7,7 +7,10 @@ PyTorch version on the CPU, forward and backward (the autograd Functions of
 ops/functions.py):
 
 - ``Conv2DFast``: NCHW stride-1 convs with at most 32 channels ->
-  stencil_conv;
+  stencil_conv; NHWC stride-1 convs with at most 32 channels, a string
+  padding and kh * kw * Ci * Co <= 1024 -> stencil_conv_nhwc (the JAX
+  package's ``small`` convs that reach ``stencil_conv2d_pallas`` with
+  ``nchw=False``: MulmoUNet's first conv of each encoder and its head);
 - ``ConvTranspose2DFast``: kernel == stride == 2 -> tconv2x2 (NCHW, at most
   64 channels), or tconv2x2_nhwc (NHWC where its gate and eligibility hold,
   ops/kernels/tconv2x2_nhwc.py);
@@ -37,11 +40,12 @@ from torch import nn
 from ..ops import functions
 from ..ops.kernels import conv_chain_bwd as conv_chain_bwd_mod
 from ..ops.kernels import stencil_conv_bwd as stencil_bwd_mod
+from ..ops.kernels import stencil_conv_nhwc as stencil_nhwc_mod
 from ..ops.kernels import tconv2x2 as tconv_mod
 from ..ops.kernels import tconv2x2_nhwc as tconv_nhwc_mod
 
-_NOT_PORTED = ('not ported yet (ROADMAP.md queue 2: the strided convs of '
-               'MultiResUnet)')
+_NOT_PORTED = ('not ported yet (ROADMAP.md queue 1 item 4: strided convs and '
+               'the valid-padding centre crop)')
 
 
 def same_or_valid_pads(kh, kw, padding):
@@ -81,12 +85,13 @@ def _plain_conv(x, w, pads):
 
 
 class Conv2DFast(nn.Module):
-    '''Conv2D with optional fused relu: in NCHW the stencil_conv kernel at
-    small channel counts, plain F.conv2d otherwise (every conv of the
-    BatchNorm models the port runs, which are NHWC, is wider than the
-    kernel takes). ``activation='relu'`` applies the relu after the bias;
-    callers that pass it must not apply it again. In NHWC the input may be a
-    tuple of parts (see the module docstring).'''
+    '''Conv2D with optional fused relu: at small channel counts the
+    stencil_conv kernel (NCHW) or the stencil_conv_nhwc kernel (NHWC, where
+    ``stencil_conv_nhwc.eligible``), plain F.conv2d otherwise.
+    ``activation='relu'`` applies the relu after the bias; callers that
+    pass it must not apply it again. In NHWC the input may be a tuple of
+    parts (see the module docstring); a tuple that routes to the kernel is
+    concatenated first, as the JAX package does.'''
 
     def __init__(self, in_channels, features, kernel_size, strides=(1, 1),
                  padding='SAME', activation=None, data_format='NCHW',
@@ -116,6 +121,10 @@ class Conv2DFast(nn.Module):
             return functions.stencil_conv(x, self.weight, self.bias, pads,
                                           self.relu)
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
+        if nhwc and stencil_nhwc_mod.eligible(ci, co, kh, kw, self.padding):
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+            return functions.stencil_conv_nhwc(x, self.weight, self.bias,
+                                               pads, self.relu)
         out, off = None, 0
         for part in parts:
             c = part.shape[-1] if nhwc else part.shape[1]

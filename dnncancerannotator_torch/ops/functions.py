@@ -18,6 +18,7 @@ from .kernels import pool2x2_nhwc as pool_mod
 from .kernels import pool2x2_nhwc_bwd as pool_bwd_mod
 from .kernels import stencil_conv as stencil_mod
 from .kernels import stencil_conv_bwd as stencil_bwd_mod
+from .kernels import stencil_conv_nhwc as stencil_nhwc_mod
 from .kernels import tconv2x2 as tconv_mod
 from .kernels import tconv2x2_bwd as tconv_bwd_mod
 from .kernels import tconv2x2_nhwc as tconv_nhwc_mod
@@ -114,6 +115,28 @@ class StencilConvFn(torch.autograd.Function):
         return dx, dw, db, None, None
 
 
+class StencilConvNHWCFn(torch.autograd.Function):
+    '''The NHWC form of StencilConvFn: the forward kernel, and the plain
+    version's gradient (the library's conv backward), as the JAX package
+    takes this conv's backward outside Pallas at its model's shapes.'''
+
+    @staticmethod
+    def forward(ctx, x, w, b, pads, relu):
+        out = stencil_nhwc_mod.stencil_conv_nhwc(x, w, b, pads, relu)
+        ctx.pads, ctx.relu = pads, relu
+        ctx.save_for_backward(x, w, out if relu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, out = ctx.saved_tensors
+        if ctx.relu:
+            g = g * (out > 0)
+        dx, dw, db = stencil_nhwc_mod.grads(x, g, w, ctx.pads,
+                                            need_dx=ctx.needs_input_grad[0])
+        return dx, dw, db, None, None
+
+
 def conv_chain(x, w1, b1, w2, b2):
     if _recording(x, w1, b1, w2, b2):
         return ConvChainFn.apply(x, w1, b1, w2, b2)
@@ -142,3 +165,9 @@ def tconv2x2_nhwc(x, w, b):
     if _recording(x, w, b):
         return TConv2x2NHWCFn.apply(x, w, b)
     return tconv_nhwc_mod.tconv2x2_nhwc(x, w, b)
+
+
+def stencil_conv_nhwc(x, w, b, pads, relu=False):
+    if _recording(x, w, b):
+        return StencilConvNHWCFn.apply(x, w, b, pads, relu)
+    return stencil_nhwc_mod.stencil_conv_nhwc(x, w, b, pads, relu)

@@ -7,13 +7,14 @@ and the shape bounds the kernel takes.
 '''
 
 from . import (cca, conv_chain, conv_chain_bwd, pool2x2_nhwc,
-               pool2x2_nhwc_bwd, stencil_conv, stencil_conv_bwd, tconv2x2,
-               tconv2x2_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_crop,
-               warp_twopass)
+               pool2x2_nhwc_bwd, stencil_conv, stencil_conv_bwd,
+               stencil_conv_nhwc, tconv2x2, tconv2x2_bwd, tconv2x2_nhwc,
+               tconv2x2_nhwc_bwd, warp_crop, warp_twopass)
 
 KERNELS = (conv_chain, conv_chain_bwd, tconv2x2, tconv2x2_bwd, stencil_conv,
            stencil_conv_bwd, warp_twopass, cca, pool2x2_nhwc,
-           pool2x2_nhwc_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_crop)
+           pool2x2_nhwc_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_crop,
+           stencil_conv_nhwc)
 
 
 def reset_launches():

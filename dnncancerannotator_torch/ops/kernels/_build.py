@@ -63,6 +63,9 @@ _SIGNATURES = {
     'dnnca_stencil_conv_bwd': [_P] * 6 + [_I] * 13 + [_P],
     # x, w, bias, out, B, Ci, Co, P, relu, streaming, vec, device, stream
     'dnnca_pointwise_conv': [_P] * 4 + [_I] * 8 + [_P],
+    # x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, relu,
+    # vec_in, device, stream
+    'dnnca_stencil_conv_nhwc': [_P] * 4 + [_I] * 15 + [_P],
     # x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P, tile, per_block,
     # blocks, slices, vec, smem, device, stream
     'dnnca_pointwise_conv_bwd': [_P] * 8 + [_I] * 11 + [_P],
@@ -163,6 +166,8 @@ def library():
                 fn.restype = ctypes.c_int
             lib.dnnca_error_string.argtypes = [ctypes.c_int]
             lib.dnnca_error_string.restype = ctypes.c_char_p
+            lib.dnnca_launches.argtypes = []
+            lib.dnnca_launches.restype = ctypes.c_longlong
             _lib = lib
         return _lib
 
@@ -174,6 +179,14 @@ def launch(name, *args):
     if code != 0:
         msg = lib.dnnca_error_string(code).decode()
         raise RuntimeError(f'{name} failed: CUDA error {code} ({msg})')
+
+
+def library_launches():
+    '''Kernel launches the card accepted from the library in this process,
+    counted by every launch site in csrc (``dnnca::launched``): the
+    difference across a call is the kernels that call launched, with no
+    profiler.'''
+    return int(library().dnnca_launches())
 
 
 def check_cuda_f32(**tensors):

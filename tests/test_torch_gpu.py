@@ -20,6 +20,7 @@ from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc as PN
 from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc_bwd as PNB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
 from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
@@ -278,16 +279,17 @@ def test_pointwise_conv_bwd_same_bits_and_f64(cuda, b, hw, ci, co):
 
 
 def test_pointwise_conv_bwd_one_launch_at_the_head(cuda):
-    '''The head's backward at B=8: one kernel a call (the profiler counts
-    every launch, the memsets of an allocation included; the fullest of
-    chip_smoke.py's three windows of 10 calls, as phase 3b: a window now
-    and then records no kernel at all).'''
-    from chip_smoke import _fullest_split
+    '''The head's backward at B=8: one kernel a call, by the kernel
+    library's own launch count over 10 calls (chip_smoke.library_launches;
+    the profiler drops records now and then), and the profiler's fullest of
+    chip_smoke.py's windows sees the pointwise backward kernel alone, the
+    memsets of an allocation included.'''
+    from chip_smoke import _fullest_split, library_launches
     x, wk, _, g = _pw_inputs(10, 8, (256, 256), 3, 1, False)
-    split = _fullest_split(
-        lambda: SCB.stencil_conv_bwd(x, g, wk, _PW_PADS))
-    assert round(sum(n for _, n in split.values())) == 1, split
-    assert all('pointwise_bwd_kernel' in k for k in split), split
+    call = lambda: SCB.stencil_conv_bwd(x, g, wk, _PW_PADS)  # noqa: E731
+    assert library_launches(call) == 1
+    split = _fullest_split(call)
+    assert split and all('pointwise_bwd_kernel' in k for k in split), split
 
 
 def test_pointwise_conv_unaligned_planes(cuda):
@@ -469,35 +471,35 @@ def test_warp_crop_unaligned(cuda, monkeypatch, route, shift):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-def _one_tile_kernel(split):
-    '''The profiler saw the tile kernel and nothing else, at most once a
-    call: it drops records now and then (one window of this file read 0.4
-    launches a call on an H100), never adds any; the wrappers' launch
-    counters give the one call into the kernel library a call.'''
+def _one_tile_kernel(call):
+    '''One kernel a call by the kernel library's own launch count over 10
+    calls (chip_smoke.library_launches), and the profiler's fullest window
+    (which counts every launch, the memsets of an allocation included, but
+    drops records now and then: one window of this file read 0.4 launches
+    a call on an H100) sees the tile kernel alone.'''
+    from chip_smoke import _fullest_split, library_launches
+    assert library_launches(call) == 1
+    split = _fullest_split(call)
     assert split and all('warp_tile_kernel' in key for key in split), split
-    assert 0 < sum(c for _, c in split.values()) <= 1.0 + 1e-9, split
 
 
 def test_warp_one_launch_at_the_main_shapes(cuda):
     '''One kernel a call on the tile route at the banked step's and the
-    fused chain's shapes: the launch counters move by one a call, and the
-    profiler (chip_smoke._fullest_split, which counts every launch, the
-    memsets of an allocation included) sees the tile kernel alone.'''
-    from chip_smoke import _fullest_split
+    fused chain's shapes (``_one_tile_kernel``); the wrapper's launch
+    counter moves by one a call.'''
     gen = torch.Generator().manual_seed(3)
     img = _rand(gen, 8, 256, 256, 6)
     flow = _rand(gen, 8, 256, 256, 2) * 12.0
     assert WT.route(8, 256, 256, 6, 8) == 'tile'
     before = WT.launches
-    _one_tile_kernel(_fullest_split(lambda: WT.warp_twopass(img, flow, 8)))
+    _one_tile_kernel(lambda: WT.warp_twopass(img, flow, 8))
     assert WT.launches > before
     img = _rand(gen, 8, 268, 268, 6)
     fy, fx = _rand(gen, 8, 256, 268), _rand(gen, 8, 256, 256)
     off = torch.full((8, 2), 6, dtype=torch.int32, device=cuda)
     for d in (8, 18):
         assert WC.route(8, 256, 256, 6, d) == 'tile'
-        _one_tile_kernel(
-            _fullest_split(lambda: WC.warp_crop(img, fy, fx, off, d)))
+        _one_tile_kernel(lambda: WC.warp_crop(img, fy, fx, off, d))
 
 
 @pytest.mark.parametrize('case', ['spiral', 'checkerboard', 'full', 'empty',
@@ -620,3 +622,65 @@ def test_wrappers_reject_non_contiguous_and_f64(cuda):
     with pytest.raises(ValueError, match='contiguous'):
         SCB.stencil_conv_bwd(x, g.transpose(2, 3), w, ((0, 0), (0, 0)))
     kernels.reset_launches()
+
+
+
+# -- the NHWC stencil conv (MulmoUNet) ----------------------------------------
+@pytest.mark.parametrize('b,h,w,ci,co,k,pads,relu,stride', [
+    (8, 256, 256, 1, 16, 3, ((1, 1), (1, 1)), True, 5),   # an encoder's conv_0
+    (8, 256, 256, 16, 1, 1, ((0, 0), (0, 0)), False, 16),  # the head
+    (64, 256, 256, 1, 16, 3, ((1, 1), (1, 1)), True, 5),
+    (64, 256, 256, 16, 1, 1, ((0, 0), (0, 0)), False, 16),
+    (2, 37, 70, 1, 16, 3, ((1, 1), (1, 1)), True, 1),     # ragged
+    (2, 33, 20, 4, 8, 3, ((0, 0), (0, 0)), False, 4),     # VALID, float4 in
+    (2, 16, 16, 4, 8, 3, ((1, 1), (1, 1)), True, 6),      # scalar in
+    (2, 17, 19, 3, 5, 2, ((0, 1), (0, 1)), True, 3),      # odd pads
+    (3, 20, 20, 32, 32, 1, ((0, 0), (0, 0)), False, 32),  # widest
+    (2, 9, 9, 2, 3, 5, ((2, 2), (2, 2)), False, 2),
+])
+def test_stencil_conv_nhwc_kernel(cuda, b, h, w, ci, co, k, pads, relu,
+                                  stride):
+    '''Against the plain version, one launch a call; x a channel slice of
+    a wider tensor where ``stride`` > ci.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(ci * 31 + co)
+    x = _rand(gen, b, h, w, stride)[..., stride - ci:]
+    wk, bias = _rand(gen, co, ci, k, k), _rand(gen, co)
+    got = SN.stencil_conv_nhwc(x, wk, bias, pads, relu)
+    assert got.is_contiguous() and got.shape == (
+        b, h + sum(pads[0]) - k + 1, w + sum(pads[1]) - k + 1, co)
+    _assert_close(got, SN.plain(x, wk, bias, pads, relu))
+    before = SN.launches
+    assert library_launches(
+        lambda: SN.stencil_conv_nhwc(x, wk, bias, pads, relu)) == 1
+    assert SN.launches == before + 10
+
+
+def test_stencil_conv_nhwc_autograd(cuda):
+    '''The autograd Function at an encoder site: the forward kernel and
+    the library conv backward on the relu-masked cotangent against
+    autograd of the plain version, dx into the channel slice.'''
+    from dnncancerannotator_torch.ops import functions
+    gen = torch.Generator().manual_seed(5)
+    base = _rand(gen, 8, 64, 64, 5)
+    wk, bias = _rand(gen, 16, 1, 3, 3), _rand(gen, 16)
+    g = _rand(gen, 8, 64, 64, 16)
+    grads = []
+    for fn in (functions.stencil_conv_nhwc, SN.plain):
+        x = base.clone().requires_grad_()
+        w_, b_ = wk.clone().requires_grad_(), bias.clone().requires_grad_()
+        (fn(x[..., 2:3], w_, b_, ((1, 1), (1, 1)), True) * g).sum().backward()
+        grads.append((x.grad, w_.grad, b_.grad))
+    for got, want in zip(*grads):
+        _assert_close(got, want, _W_TOL)
+
+
+def test_stencil_conv_nhwc_rejects_bad_inputs(cuda):
+    gen = torch.Generator().manual_seed(6)
+    wk, bias = _rand(gen, 16, 1, 3, 3), _rand(gen, 16)
+    x = _rand(gen, 2, 8, 8, 5)
+    with pytest.raises(ValueError):   # pixels not evenly spaced
+        SN.stencil_conv_nhwc(x.transpose(1, 2)[..., :1], wk, bias,
+                             ((1, 1), (1, 1)))
+    with pytest.raises((TypeError, ValueError)):
+        SN.stencil_conv_nhwc(x[..., :1].double(), wk, bias, ((1, 1), (1, 1)))

@@ -16,12 +16,13 @@ from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import metrics
 from dnncancerannotator_torch.data import augment, pipeline
 from dnncancerannotator_torch.metrics import pixel, region
-from dnncancerannotator_torch.models import fastbn
+from dnncancerannotator_torch.models import fastbn, multiresunet, unet
 from dnncancerannotator_torch.ops import (cca, functions, gates, image,
                                           morphology, pooling, warp)
 from dnncancerannotator_torch.ops.kernels import (
     conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd, stencil_conv_bwd,
-    tconv2x2_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_twopass)
+    stencil_conv_nhwc, tconv2x2_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd,
+    warp_twopass)
 from dnncancerannotator_torch.runs import evaluate, predict, train
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
@@ -70,3 +71,21 @@ def test_bf16_precision_raises():
         engine.Engine({'model': 'UNetAnnotator', 'model_options': {},
                        'deploy_options': {'precision': 'bfloat16'}},
                       device='cpu')
+
+
+@pytest.mark.parametrize('option,value,item', [
+    ('debug_asserts', True, 'queue 1 item 5'),
+    ('spatial_partition', 2, 'queue 1 item 8'),
+])
+def test_unported_deploy_options_raise(option, value, item):
+    '''A deploy option the port does not run raises, naming the ROADMAP
+    item that ports it, instead of being dropped; its off value is
+    accepted.'''
+    from dnncancerannotator_torch import engine
+
+    config = {'model': 'UNetAnnotator', 'model_options': {},
+              'deploy_options': {option: value}}
+    with pytest.raises(NotImplementedError, match=f'{option}.*{item}'):
+        engine.Engine(config, device='cpu')
+    config['deploy_options'][option] = False if value is True else 1
+    engine.Engine(config, device='cpu')

@@ -21,6 +21,7 @@ from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc as PN
 from dnncancerannotator_torch.ops.kernels import pool2x2_nhwc_bwd as PNB
 from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
 from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
 from dnncancerannotator_torch.ops.kernels import tconv2x2 as TC
 from dnncancerannotator_torch.ops.kernels import tconv2x2_bwd as TCB
 from dnncancerannotator_torch.ops.kernels import tconv2x2_nhwc as TN
@@ -161,12 +162,15 @@ def test_cpu_tensors_launch_no_kernel():
     PNB.pool2x2_nhwc_bwd(xn, PN.pool2x2_nhwc(xn))
     wn = torch.rand(128, 128, 2, 2)
     TNB.tconv2x2_nhwc_bwd(xn, TN.tconv2x2_nhwc(xn, wn, torch.rand(128)), wn)
+    SN.stencil_conv_nhwc(torch.rand(2, 8, 8, 5)[..., 1:2],
+                         torch.rand(16, 1, 3, 3), torch.rand(16),
+                         ((1, 1), (1, 1)), relu=True)
     assert kernels.launch_counts() == {
         'conv_chain': 0, 'conv_chain_bwd': 0, 'tconv2x2': 0,
         'tconv2x2_bwd': 0, 'stencil_conv': 0, 'stencil_conv_bwd': 0,
         'warp_twopass': 0, 'cca': 0, 'pool2x2_nhwc': 0,
         'pool2x2_nhwc_bwd': 0, 'tconv2x2_nhwc': 0, 'tconv2x2_nhwc_bwd': 0,
-        'warp_crop': 0}
+        'warp_crop': 0, 'stencil_conv_nhwc': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():

@@ -1,7 +1,7 @@
 '''Phase 7's one-step check of unet_big over many seeds, on one GPU:
 
     python3 tools/check_torch_big_step.py [--seeds 16] [--trained 20]
-                                          [--out FILE]
+                                          [--decisions] [--out FILE]
 
 For each seed a unet_big engine (chip_smoke.BIG_CONFIGS: f32, BatchNorm,
 NHWC, the pool and tconv gates on; B=8, 256 x 256 crops of chip_smoke.py's
@@ -25,6 +25,16 @@ entries whose ratio of errors from f64 (kernel way / plain) is largest by
 its median, and how many seeds failed the rule. ``--out`` writes every
 entry's numbers as JSON. It imports nothing of JAX and builds the kernels
 with nvcc.
+
+``--decisions`` also records, in the kernel step, the plain step and the
+f64 step, every relu decision (the sign of each relu conv's output) and
+every 2x2 max-pool decision (the argmax of each window of each pool's
+input) of the forward, and prints for each seed how many of them the
+kernel step and the plain step take otherwise than the f64 step, by
+layer; then it takes the f64 step twice more, each time with the relu
+decisions of the kernel step or of the plain step forced on it, and holds
+each step to the f64 step of its own decisions: an entry past F64_RATIO
+there is not explained by flipped decisions.
 '''
 
 import argparse
@@ -63,20 +73,96 @@ def _errors64(step, exact):
     return out
 
 
-def check_seed(eng, ds, raw, draws):
+def _argmax2x2(x):
+    '''Argmax (0-3, the first at a tie) of each 2x2 window of NHWC x.'''
+    b, h, w, c = x.shape
+    win = x[:, :h // 2 * 2, :w // 2 * 2].reshape(b, h // 2, 2, w // 2, 2, c)
+    return win.permute(0, 1, 3, 5, 2, 4).reshape(
+        b, h // 2, w // 2, c, 4).argmax(-1).to(torch.uint8)
+
+
+@contextlib.contextmanager
+def recording(model, store):
+    '''Within the block a forward of ``model`` records its relu and pool
+    decisions into ``store`` ({layer: tensor}).'''
+    from dnncancerannotator_torch.models import blocks, fastconv
+    hooks = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, fastconv.Conv2DFast) and mod.relu:
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, out, name=name: store.__setitem__(
+                    'relu ' + name, out > 0)))
+        elif isinstance(mod, blocks.Downsample):
+            hooks.append(mod.convchain.register_forward_hook(
+                lambda m, a, out, name=name: store.__setitem__(
+                    'pool ' + name, _argmax2x2(out))))
+    try:
+        yield store
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+@contextlib.contextmanager
+def forcing(model, masks):
+    '''Within the block every relu conv of ``model`` takes the relu
+    decisions recorded in ``masks`` (``recording``): its output is its
+    pre-activation times the recorded mask.'''
+    from dnncancerannotator_torch.models import fastconv
+    hooks, convs = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, fastconv.Conv2DFast) and mod.relu:
+            mod.relu = False
+            convs.append(mod)
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, out, mask=masks['relu ' + name]:
+                out * mask.to(out.dtype)))
+    try:
+        yield
+    finally:
+        for hook in hooks:
+            hook.remove()
+        for mod in convs:
+            mod.relu = True
+
+
+def flips(got, exact):
+    '''{layer: decisions taken otherwise than in ``exact``}, nonzero ones.'''
+    out = {}
+    for name, want in exact.items():
+        n = int((got[name] != want).sum())
+        if n:
+            out[name] = n
+    return out
+
+
+def check_seed(eng, ds, raw, draws, decisions=False):
     '''({way: {entry: dict}}, {way: digest}) of one state: each kernel
     way's entry errors (chip_smoke._step_errors), every entry's error from
-    f64, and the digest of the way's step (chip_smoke.step_digest).'''
+    f64, and the digest of the way's step (chip_smoke.step_digest). With
+    ``decisions`` also {way: {layer: flips}} of the kernel and plain steps
+    against the f64 step's decisions, and {entry: (kernel step's error,
+    plain step's error)} each from the f64 step that takes that step's own
+    relu decisions (``forcing``): what is left once no decision differs.'''
     big_step = chip_smoke._big_step
+    seen = {}
     with chip_smoke._deterministic_cudnn():
-        plain = big_step(eng, ds, raw, draws, plain=True)
-        exact = big_step(eng, ds, raw, draws, plain=True, f64=True)
+        with recording(eng.model, seen.setdefault('plain', {})) \
+                if decisions else contextlib.nullcontext():
+            plain = big_step(eng, ds, raw, draws, plain=True)
+        with recording(eng.model, seen.setdefault('f64', {})) \
+                if decisions else contextlib.nullcontext():
+            exact = big_step(eng, ds, raw, draws, plain=True, f64=True)
         plain64 = _errors64(plain, exact)
         out, digests = {}, {'plain': chip_smoke.step_digest(plain)}
         for way, ctx in _ways().items():
-            with ctx():
+            with ctx(), (recording(eng.model, seen.setdefault(way, {}))
+                         if decisions and way == 'kernels'
+                         else contextlib.nullcontext()):
                 got = big_step(eng, ds, raw, draws, plain=False)
             digests[way] = chip_smoke.step_digest(got)
+            if way == 'kernels':
+                kernel_step = got
             entries = chip_smoke._step_errors(got, plain, lambda: exact)
             errs64 = _errors64(got, exact)
             for name, e in entries.items():
@@ -84,6 +170,17 @@ def check_seed(eng, ds, raw, draws):
                     continue
                 e['all_err64'], e['all_plain64'] = errs64[name], plain64[name]
             out[way] = entries
+        if decisions:
+            same = {}
+            for way, step in (('kernels', kernel_step), ('plain', plain)):
+                with forcing(eng.model, seen[way]):
+                    same[way] = _errors64(step, big_step(
+                        eng, ds, raw, draws, plain=True, f64=True))
+            forced = {n: (same['kernels'][n], same['plain'][n])
+                      for n in same['plain']}
+    if decisions:
+        return out, digests, {way: flips(seen[way], seen['f64'])
+                              for way in ('kernels', 'plain')}, forced
     return out, digests
 
 
@@ -103,6 +200,9 @@ def main():
     parser.add_argument('--trained', type=int, default=20,
                         help='steps before the check in the second '
                              'population (0: none)')
+    parser.add_argument('--decisions', action='store_true',
+                        help='count the relu and pool decisions each step '
+                             'takes otherwise than the f64 step')
     parser.add_argument('--out', default=None)
     args = parser.parse_args()
 
@@ -131,8 +231,22 @@ def main():
                                                          device)
             if steps:
                 _train(eng, ds, steps, seed)
-            result, digests = check_seed(eng, ds, raw, draws)
+            result, digests, *flipped = check_seed(eng, ds, raw, draws,
+                                                   args.decisions)
             print(f'{label} seed {seed:2d} digests {digests}', flush=True)
+            for way, layers in (flipped[0].items() if flipped else ()):
+                print(f'{label} seed {seed:2d} {way:7s} decisions other than '
+                      f'f64: {sum(layers.values())} {layers}', flush=True)
+            if flipped:
+                ratios = {n: k / p if p else float('inf') if k else 1.0
+                          for n, (k, p) in flipped[1].items()}
+                worst = max(ratios, key=ratios.get)
+                print(f'{label} seed {seed:2d} with the f64 step taking each '
+                      f'step\'s own relu decisions: worst entry {worst} '
+                      f'kernels {flipped[1][worst][0]:.3e} plain '
+                      f'{flipped[1][worst][1]:.3e} ratio {ratios[worst]:.2f}; '
+                      f'{sum(r > chip_smoke.F64_RATIO for r in ratios.values())}'
+                      f' entries past F64_RATIO', flush=True)
             for way, entries in result.items():
                 held = {n: e for n, e in entries.items() if 'err64' in e}
                 fails = [n for n, e in held.items()
@@ -151,7 +265,16 @@ def main():
                           + ('  FAIL' if name in fails else ''), flush=True)
                 records.append(dict(population=label, seed=seed, way=way,
                                     entries=entries, fails=fails,
-                                    digest=digests[way]))
+                                    digest=digests[way],
+                                    flips=flipped[0] if flipped else None,
+                                    forced=flipped[1] if flipped else None))
+                if flipped:
+                    for name in fails:
+                        k, p = flipped[1][name]
+                        print(f'    {name:44s} with its own decisions in the '
+                              f'f64 step: {way} {k:.3e}  plain {p:.3e}  '
+                              f'ratio {k / p if p else float("inf"):.2f}',
+                              flush=True)
             del eng
             torch.cuda.empty_cache()
 

@@ -156,17 +156,50 @@ Phases (each raises on failure, so the process exits non-zero):
    warp, is held to the f64 step of the same weights, batch and draws
    (gradients within MRU_F64_TOL of their scale, the loss and statistics
    within MRU_STAT_TOL).
+3h. bf16 kernel forms: a seeded bf16 forward of unet.yaml + bf16.yaml
+   gives the inputs of its four whole chains and two stencil convs
+   (down_2's first conv, the head), at B=8 as training calls them (the
+   chain with c1 and the f32 c2, each backward on the relu-masked
+   cotangent) and at B=64 as predict calls the forwards; one of MulmoUNet
+   + bf16.yaml those of its six NHWC stencil sites (B=8). Each bf16 form
+   is bit-equal to its f32 form on the upcast inputs, rounded to bf16
+   (the chain's c1 and f32 c2 bit-equal unrounded), launches what its f32
+   form does a call by the library's count, and is timed as in 3 (the
+   library call: F.conv2d or the conv backward in bf16), with its bound in
+   bf16 bytes; the B=8 sites make the kernels line's ``<kernel>_bf16``
+   entries;
+12. unet_big in bf16: unet_big.yaml as shipped (precision bfloat16) +
+   data_options.yaml + deploy_options.yaml + pallas_decoder.yaml +
+   bf16.yaml (last: deploy_options.yaml replaces the whole dict) as phase
+   7 runs unet_big, with the four NHWC kernels at 0 launches (their gates
+   take f32 only) and the evaluate CLI on ckpt-30 as in 10; its seeded
+   step (cuDNN deterministic) within BF16_LOSS_TOL (the loss),
+   BF16_STAT_TOL (every statistic) and BF16_F64_TOL (every gradient) of
+   the f64 step of an f32
+   model on the same weights, batch and draws, a broken control (the same
+   step with models/fastbn.py's ``wide`` the identity) past those limits,
+   the step at least BF16_ON_SHARE from the f32 step (bf16 is on), and the
+   dtype census of every conv, transposed conv and BatchNorm output; then
+   for bf16_f32head.yaml and bf16_f32level0.yaml each the seeded step held
+   to the same limits, the census, the step's time and the throughput;
+12b. unet.yaml and MulmoUNet in bf16: each stack + bf16.yaml trains
+   BF16_SLICE_STEPS steps through the CLI (every loss finite, each bf16
+   form launched at least its sites x steps times, the f32 forms and the
+   f32-only kernels never), then one seeded step through the bf16 forms
+   against the plain bf16 step, by tests/test_torch_bf16.py's rule (each
+   value within BF16_STEP_TOL of its scale, else no further from the f64
+   step than F64_RATIO times the plain step).
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
-   so the device times of phases 3-3g and the train-step profiles of
-   phases 5, 7, 8, 10 and 11 are taken last, after every host-clock and
+   so the device times of phases 3-3h and the train-step profiles of
+   phases 5, 7, 8, 10, 11 and 12 are taken last, after every host-clock and
    CUDA-event measurement; then a line of the B=8 chain forward's times
    summed over the six sites, and one of the NHWC pool and tconv kernels'
    times summed over MulmoUNet's sites.
 
 Each phase's wall time is printed when it ends. The last three lines of
 stdout are a JSON object of per-kernel results for all fourteen kernels
-(with each kernel's bound:
+and the five bf16 forms (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
 f32 outside the tensor cores, from the inputs of this run, for the 3xTF32
 tconv GEMM also 3 x its FLOPs over the 495 TFLOP/s of TF32, the device
@@ -261,8 +294,17 @@ REPLACES = {
     'stencil_conv_nhwc': ('conv_kernel.py:84 stencil_conv2d_pallas '
                           '(nchw=False)',),
 }
+# the bf16 forms (their entries ``<entry>_bf16``) replace the same kernels
+REPLACES.update({name + '_bf16': REPLACES[name] for name in (
+    'conv_chain', 'conv_chain_bwd', 'stencil_conv', 'stencil_conv_bwd',
+    'stencil_conv_nhwc')})
 # a kernel's source where it is not csrc/<name>.cu
-SOURCE = {'stencil_conv_nhwc': 'stencil_conv'}
+SOURCE = {'stencil_conv_nhwc': 'stencil_conv',
+          'conv_chain_bf16': 'conv_chain',
+          'conv_chain_bwd_bf16': 'conv_chain_bwd',
+          'stencil_conv_bf16': 'stencil_conv',
+          'stencil_conv_bwd_bf16': 'stencil_conv_bwd',
+          'stencil_conv_nhwc_bf16': 'stencil_conv'}
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
 # unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
@@ -1140,7 +1182,7 @@ def _plain_versions(*modules):
     saved = [(mod, mod.__name__.rsplit('.', 1)[-1]) for mod in modules]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     for mod, name, _ in saved:
-        setattr(mod, name, mod.plain)
+        setattr(mod, name, _plain_chain if name == 'conv_chain' else mod.plain)
     try:
         yield
     finally:
@@ -1913,6 +1955,244 @@ def mulmo_kernel_sites(device, results, site_results):
            tf32x3_bound(*work))
 
 
+# -- phase 3h ----------------------------------------------------------------
+# bf16 compute: bf16.yaml (or a policy's overlay) goes last, after
+# deploy_options.yaml, which replaces the whole deploy_options dict
+BF16 = 'configs/additionals/bf16.yaml'
+BF16_POLICIES = ('configs/additionals/bf16_f32head.yaml',
+                 'configs/additionals/bf16_f32level0.yaml')
+# unet.yaml + bf16.yaml's kernel sites: the chains the stencil chain's rule
+# keeps whole in bf16 (K * K * Ci * Cm and K * K * Cm * Co <= 1024) and the
+# two stencil convs (down_2's first, 6 -> 12, and the head); MulmoUNet's are
+# its f32 sites (MULMO_STENCIL_SITES)
+BF16_CHAIN_SITES = ('unet.encoder.down_0', 'unet.encoder.down_1',
+                    'unet.decoder.up_1', 'unet.decoder.up_2')
+BF16_STENCIL_SITES = ('unet.encoder.down_2.convchain.conv_0', 'last_conv')
+# the stencil backward's launches a call by route: the pointwise kernel, or
+# dgrad, wgrad and its fixed-order sum
+STENCIL_BWD_ROUTE_LAUNCHES = {'pointwise': 1, 'stencil': 3}
+
+
+def _bits_equal(name, got, want):
+    '''Raise unless got and want hold the same bits in the same dtype.'''
+    torch.cuda.synchronize()
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if got.dtype != want.dtype or not torch.equal(
+            got.contiguous().view(view), want.contiguous().view(view)):
+        raise AssertionError(f'{name}: the bf16 form is not bit-equal to its '
+                             'f32 form on the upcast inputs, rounded')
+
+
+def _bf16_err(name, got, want):
+    '''A bf16 form's max|diff| from its plain version (f32 sums of the same
+    values in another order, rounded: an ulp where a rounding moves).'''
+    err = float((got.float() - want.float()).abs().max())
+    log(f'  {name:60s} bits = f32 form; max|diff| from plain {err:.3e}  '
+        f'max|ref| {float(want.float().abs().max()):.3e}')
+    return err
+
+
+def _upcast(*tensors):
+    return [None if t is None else t.float() for t in tensors]
+
+
+def _bf16(*tensors):
+    return [None if t is None else t.to(torch.bfloat16) for t in tensors]
+
+
+def _site_inputs(configs, paths, batch, device):
+    '''(modules, {path: the input of the module at path}) of a seeded
+    eval-mode forward of ``batch`` through the model of ``configs``.'''
+    from dnncancerannotator_torch import engine
+    eng = engine.Engine(_config(configs), seed=SEED, device=device)
+    eng.build(tuple(batch.shape))
+    modules = dict(eng.model.named_modules())
+    seen = {}
+    hooks = [modules[path].register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, args[0]))
+        for path in paths]
+    with eng.scope():
+        eng.model(batch)
+    for hook in hooks:
+        hook.remove()
+    return modules, seen
+
+
+def _check_launches(name, call, want):
+    per_call = library_launches(call)
+    if per_call != want:
+        raise AssertionError(f'{name}: {per_call} launches a call, want '
+                             f'{want}')
+
+
+@torch.no_grad()
+def bf16_kernel_sites(device, results):
+    '''The five bf16 forms at their bf16 sites, on the activations of a
+    seeded bf16 forward: unet.yaml + bf16.yaml's four chains and two stencil
+    convs at B=8 as training calls them (the chain with c1 and the f32 c2,
+    each backward with the relu-masked cotangent) and at B=64 as predict
+    and evaluate call the forwards, and MulmoUNet's six NHWC stencil sites
+    at B=8. Each bit-equal to its f32 form on the upcast inputs, rounded;
+    its launches a call by the library's count; its max|diff| from its
+    plain version; timings as in 3 (the library call: F.conv2d or the conv
+    backward in bf16). The B=8 sites go into ``results`` as the
+    ``<kernel>_bf16`` entries, with their bounds in bf16 bytes.'''
+    from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+    from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+    bf16 = torch.bfloat16
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    batch = torch.rand((BATCH, SIZE, SIZE, 5), generator=gen, device=device)
+    modules, seen = _site_inputs(
+        CONFIGS + (BF16,), [p + '.convchain' for p in BF16_CHAIN_SITES]
+        + list(BF16_STENCIL_SITES), batch, device)
+    log(f'bf16 forms at unet.yaml + bf16.yaml\'s sites ({SIZE}x{SIZE}, the '
+        'activations of a bf16 forward):')
+    for path in BF16_CHAIN_SITES:
+        chain = modules[path + '.convchain']
+        w1, b1, w2, b2 = _bf16(chain.conv_0.weight, chain.conv_0.bias,
+                               chain.conv_1.weight, chain.conv_1.bias)
+        x_all = seen[path + '.convchain'].to(bf16)
+        desc = (f'{path} {w1.shape[1]}->{w1.shape[0]}->{w2.shape[0]} '
+                f'@{x_all.shape[-1]}')
+        for bsz in (BATCH, TRAIN_BATCH):
+            train = bsz == TRAIN_BATCH
+            x = x_all[:bsz].contiguous()
+            args = (x, w1, b1, w2, b2)
+            name = f'conv_chain_bf16 B={bsz}{" need_c1" if train else ""} {desc}'
+            c1, c2, c2f = CC.conv_chain(*args, need_c1=train, need_c2f=True)
+            f1, f2 = CC.conv_chain(*_upcast(*args), need_c1=train)
+            if train:
+                _bits_equal(name + ' c1', c1, f1)
+            _bits_equal(name + ' c2f', c2f, f2)
+            _bits_equal(name, c2, f2.to(bf16))
+            err = _bf16_err(name, c2, CC.plain(*args)[1].to(bf16))
+
+            def call():
+                return CC.conv_chain(*args, need_c1=train, need_c2f=train)
+            _check_launches(name, call, 1)
+            times = _time_site(call, lambda: CC.plain(*args)[1].to(bf16))
+            taps = w1.shape[2] * w1.shape[3]
+            flops = 2 * x[:, :1].numel() * taps * (w1.shape[0] * w1.shape[1]
+                                                   + w2.shape[0] * w2.shape[1])
+            site = bound(nbytes(*args, c2, *((c1, c2f) if train else ())),
+                         flops)
+            if not train:
+                times['label'] = name
+                log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
+                continue
+            record(results, 'conv_chain_bf16', err, times, site)
+            # the backward on this forward's residuals, as training calls it
+            g = torch.randn(c2.shape, generator=gen, device=device).to(bf16)
+            need_dx = path != 'unet.encoder.down_0'
+            bargs = (x, c1, c2f, g, w1, w2, need_dx)
+            name = f'conv_chain_bwd_bf16 {desc}'
+            got = CCB.conv_chain_bwd(*bargs)
+            want = CCB.conv_chain_bwd(x.float(), c1, c2f, g.float(),
+                                      w1.float(), w2.float(), need_dx)
+            plain = CCB.plain(*bargs)
+            errs = []
+            for label, a, f, p in zip(('dx', 'dw1', 'db1', 'dw2', 'db2'),
+                                      got, want, plain):
+                if f is not None:
+                    _bits_equal(f'{name} {label}', a, f.to(bf16))
+                    errs.append(_bf16_err(f'{name} {label}', a, p))
+            _check_launches(name, lambda: CCB.conv_chain_bwd(*bargs),
+                            CHAIN_BWD_LAUNCHES)
+            times = _time_site(lambda: CCB.conv_chain_bwd(*bargs),
+                               lambda: CCB.plain(*bargs))
+            pix = x[:, :1].numel() * taps
+            flops = 2 * pix * (2 * w2.shape[0] * w2.shape[1]
+                               + (2 if need_dx else 1) * w1.shape[0]
+                               * w1.shape[1])
+            record(results, 'conv_chain_bwd_bf16', max(errs), times,
+                   bound(nbytes(*bargs[:6], *got), flops))
+
+    for path in BF16_STENCIL_SITES:
+        conv = modules[path]
+        w, b = _bf16(conv.weight, conv.bias)
+        relu = conv.relu
+        co, ci, kh, kw = w.shape
+        pads = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+        x_all = seen[path].to(bf16)
+        route = SC.route(ci, co, kh, kw, pads, *x_all.shape[2:])
+        desc = (f'{path} {kh}x{kw} {ci}->{co}{" relu" if relu else ""} '
+                f'@{x_all.shape[-1]} ({route})')
+        for bsz in (BATCH, TRAIN_BATCH):
+            train = bsz == TRAIN_BATCH
+            x = x_all[:bsz].contiguous()
+            name = f'stencil_conv_bf16 B={bsz} {desc}'
+            got = SC.stencil_conv(x, w, b, pads, relu)
+            _bits_equal(name, got, SC.stencil_conv(
+                *_upcast(x, w, b), pads, relu).to(bf16))
+            err = _bf16_err(name, got, SC.plain(x, w, b, pads, relu))
+            _check_launches(name, lambda: SC.stencil_conv(x, w, b, pads,
+                                                          relu), 1)
+            # no library call fuses the relu: F.conv2d alone
+            times = _time_site(
+                lambda: SC.stencil_conv(x, w, b, pads, relu),
+                lambda: SC.plain(x, w, b, pads, relu),
+                lambda: F.conv2d(x, w, b, padding=(kh // 2, kw // 2)))
+            site = bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw)
+            if not train:
+                times['label'] = name
+                log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
+                continue
+            record(results, 'stencil_conv_bf16', err, times, site)
+            g = torch.randn(got.shape, generator=gen, device=device).to(bf16)
+            if relu:
+                g = g * (got > 0)
+            name = f'stencil_conv_bwd_bf16 B={bsz} {desc}'
+            bgot = SCB.stencil_conv_bwd(x, g, w, pads)
+            want = SCB.stencil_conv_bwd(*_upcast(x, g, w), pads)
+            plain = SCB.plain(x, g, w, pads)
+            errs = []
+            for label, a, f, p in zip(('dx', 'dw', 'db'), bgot, want, plain):
+                _bits_equal(f'{name} {label}', a, f.to(bf16))
+                errs.append(_bf16_err(f'{name} {label}', a, p))
+            _check_launches(name, lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                            STENCIL_BWD_ROUTE_LAUNCHES[route])
+            times = _time_site(
+                lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                lambda: SCB.plain(x, g, w, pads),
+                lambda: conv_bwd(g, x, w, [co], [1, 1], [kh // 2, kw // 2],
+                                 [1, 1], False, [0, 0], 1, [True] * 3))
+            record(results, 'stencil_conv_bwd_bf16', max(errs), times,
+                   bound(nbytes(x, g, w, *bgot),
+                         4 * g.numel() * ci * kh * kw))
+
+    modules, seen = _site_inputs(MULMO_CONFIGS + (BF16,), MULMO_STENCIL_SITES,
+                                 batch[:TRAIN_BATCH], device)
+    log(f'bf16 forms at MulmoUNet + bf16.yaml\'s sites (B={TRAIN_BATCH}):')
+    for path in MULMO_STENCIL_SITES:
+        conv = modules[path]
+        w, b = _bf16(conv.weight, conv.bias)
+        relu = conv.relu
+        co, ci, kh, kw = w.shape
+        pads = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+        x = seen[path].to(bf16)   # an encoder casts its channel of the batch
+        name = (f'stencil_conv_nhwc_bf16 {path} {kh}x{kw} {ci}->{co}'
+                f'{" relu" if relu else ""} @{x.shape[1]}')
+        got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
+        _bits_equal(name, got, SN.stencil_conv_nhwc(
+            *_upcast(x, w, b), pads, relu).to(bf16))
+        err = _bf16_err(name, got, SN.plain(x, w, b, pads, relu))
+        _check_launches(name, lambda: SN.stencil_conv_nhwc(x, w, b, pads,
+                                                           relu),
+                        STENCIL_NHWC_LAUNCHES)
+        times = _time_site(
+            lambda: SN.stencil_conv_nhwc(x, w, b, pads, relu),
+            lambda: SN.plain(x, w, b, pads, relu),
+            lambda: F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                             padding=(kh // 2, kw // 2)))
+        record(results, 'stencil_conv_nhwc_bf16', err, times,
+               bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw))
+
 # -- phase 7 -----------------------------------------------------------------
 def _busy_us(prof):
     '''Microseconds of a profiler window in which the device ran a kernel,
@@ -2291,6 +2571,9 @@ def bn_train_slice(device, data_paths, spec, val_paths=None):
         if launches[name] < sites * BIG_STEPS:
             raise AssertionError(f'{name} launched {launches[name]} times, '
                                  f'want >= {sites} x {BIG_STEPS}')
+    ran = [name for name in spec.get('zero', ()) if launches[name]]
+    if ran:
+        raise AssertionError(f'{label}: {ran} launched')
     for step in range(BIG_SAVE_FREQ, BIG_STEPS + 1, BIG_SAVE_FREQ):
         path = os.path.join(ckpt_dir, f'ckpt-{step}')
         with np.load(os.path.join(path, 'opt_state.npz')) as npz:
@@ -2338,6 +2621,9 @@ def bn_train_slice(device, data_paths, spec, val_paths=None):
             raise AssertionError(f'predict launched {name} '
                                  f'{predict_launches[name]} times, want >= '
                                  f'{sites}')
+    ran = [name for name in spec.get('zero', ()) if predict_launches[name]]
+    if ran:
+        raise AssertionError(f'predict from {label}: {ran} launched')
 
     def reference(x):
         with _plain_versions(*modules[:-1]), eng.scope():
@@ -2351,17 +2637,22 @@ def bn_train_slice(device, data_paths, spec, val_paths=None):
         finally:
             eng.model.float()
 
+    # in bf16 the model's double() still computes in bf16: no f64 forward
     _check_maps(eng.model, data_paths, out_dir,
-                sum(TRAIN_EXAMS) * TRAIN_SLICES, reference, exact)
+                sum(TRAIN_EXAMS) * TRAIN_SLICES, reference,
+                None if spec.get('bf16_step') else exact)
 
     # one step: the kernels against a plain step, same batch and draws, on
     # a seeded state (the trained steps above differ run to run)
-    check_eng, raw, draws = big_check_state(config, ds, SEED, device)
-    if spec['f64_step']:
-        check_f64_step(check_eng, ds, raw, draws, modules, label)
+    if spec.get('bf16_step'):
+        raw = check_bf16_step(config, ds, device, label)
     else:
-        check_big_step(check_eng, ds, raw, draws, modules, label)
-    del check_eng
+        check_eng, raw, draws = big_check_state(config, ds, SEED, device)
+        if spec['f64_step']:
+            check_f64_step(check_eng, ds, raw, draws, modules, label)
+        else:
+            check_big_step(check_eng, ds, raw, draws, modules, label)
+        del check_eng
 
     # the stack without pallas_decoder.yaml: the NHWC kernels stay off
     if spec['gated']:
@@ -2395,22 +2686,7 @@ def bn_train_slice(device, data_paths, spec, val_paths=None):
     _DEFERRED.append(lambda: _profile_steps(
         f'{label} train step', lambda: eng.train_step(raw, last, gen)))
 
-    # throughput: train calls that differ only in step count, min of two
-    short, long = BIG_THROUGHPUT
-    eng.train(ds, max_steps=eng.current_step + 5, save_freq=1 << 30)
-    times = {}
-    for n in (short, long):
-        for _ in range(2):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
-            torch.cuda.synchronize()
-            times.setdefault(n, []).append(time.perf_counter() - start)
-    rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
-                                           min(times[short]))
-    log(f'{label} train throughput: {rate:.2f} slices/s ({short}-step calls '
-        f'{times[short]} s, {long}-step calls {times[long]} s; '
-        f'steps_per_call {BIG_SAVE_FREQ})')
+    _throughput(eng, ds, label)
     return launches, predict_launches, eval_launches
 
 
@@ -2458,6 +2734,353 @@ MRU_SPEC = dict(
     n_stats=2 * (9 * 6 + 10 * 3 + 1), modules=lambda: (_warp_module(),),
     gated=False, f64_step=True)
 
+
+# -- phases 12 and 12b ---------------------------------------------------------
+# unet_big as shipped, in bf16, with the NHWC gates asked for (they stay off
+# for bf16 levels, as the JAX gates do): bf16.yaml last, after
+# deploy_options.yaml
+BF16_BIG_CONFIGS = BIG_CONFIGS[:3] + ('configs/additionals/pallas_decoder.yaml',
+                                      BF16)
+# unet_big's seeded bf16 step against the f64 step of the same weights,
+# batch and draws (f64_step_shares): the loss within BF16_LOSS_TOL of its
+# value, every updated statistic within BF16_STAT_TOL and every gradient
+# within BF16_F64_TOL of its scale. Read on an NVIDIA H100 80GB HBM3 at
+# 700 W over seeds 0-2 and the three bf16 overlays
+# (tools/check_torch_bf16_step.py): the sound step's loss 3.6e-6-1.9e-3,
+# worst statistic 4.3e-5-9.6e-5, worst gradient 0.25-0.73 (a BatchNorm
+# network's gradients in bf16); a broken control, the same step with
+# models/fastbn.py's ``wide`` the identity (the BatchNorm statistics, its
+# backward's sums and the logits left in bf16), reads 3.2e-4-4.6e-4 at
+# its worst statistic, so BF16_STAT_TOL lies between the two and the check
+# requires the control to fail it; the control's loss (3.6e-5-1.9e-2) and
+# gradients (0.27-1.42) overlap the sound step's, so those limits are set
+# at about twice the sound step's worst reading, against gross faults
+BF16_LOSS_TOL = 5e-3
+BF16_STAT_TOL = 1.75e-4
+BF16_F64_TOL = 1.5
+# bf16 is really on: the step's worst gradient at least this share of its
+# scale away from the f32 step of the same weights, batch and draws (0.25-
+# 0.73 read; a step that quietly computes in f32 reads 0, cuDNN
+# deterministic)
+BF16_ON_SHARE = 1e-2
+# phase 12b: a step through the bf16 kernel forms against the plain bf16
+# step, by tests/test_torch_bf16.py's rule: each value within BF16_STEP_TOL
+# of its scale, else no further from the f64 step than F64_RATIO times the
+# plain step by root-mean-square distance
+BF16_STEP_TOL = 2e-2
+BF16_SLICE_STEPS = 4
+BF16_BIG_SPEC = dict(
+    label='unet_big bf16', configs=BF16_BIG_CONFIGS, run='big16_run',
+    sites={'warp_twopass': 1}, zero=NHWC_KERNELS, predict_sites={},
+    n_stats=2 * 4 * 6, modules=lambda: (_warp_module(),), gated=False,
+    f64_step=False, bf16_step=True)
+
+
+def _unset_precision(config):
+    out = copy.deepcopy(config)
+    out['deploy_options'].pop('precision', None)
+    return out
+
+
+def dtype_census(model, x):
+    '''{module path: output dtype} of every conv, transposed conv and
+    BatchNorm of ``model`` in one train-mode forward of ``x``.'''
+    from dnncancerannotator_torch.models import fastbn, fastconv
+    kinds = (fastconv.Conv2DFast, fastconv.ConvTranspose2DFast,
+             fastbn.BatchNormFast)
+    seen = {}
+    hooks = [mod.register_forward_hook(
+        lambda m, args, out, path=path: seen.__setitem__(path, out.dtype))
+        for path, mod in model.named_modules() if isinstance(mod, kinds)]
+    try:
+        model.train()
+        with torch.no_grad():
+            logits = model(x, return_logits=True)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    seen['logits'] = logits.dtype
+    return seen
+
+
+def check_census(label, model, x, options):
+    '''The dtype census of a bf16 UNetAnnotator is the JAX model's
+    (tests/test_torch_bf16.py holds the two against each other): bf16 but
+    the f32 logits, the head under f32_head, and under f32_level0 down_0
+    and the last Upsample.'''
+    census = dtype_census(model, x)
+    last_up = f'unet.decoder.up_{options["n_downsample"] - 1}.'
+    want = {}
+    for path in census:
+        f32 = (path == 'logits'
+               or (options.get('f32_head') and path == 'last_conv')
+               or (options.get('f32_level0') and path.startswith(
+                   ('unet.encoder.down_0.', last_up))))
+        want[path] = torch.float32 if f32 else torch.bfloat16
+    wrong = {p: str(d) for p, d in census.items() if d != want[p]}
+    n32 = sum(d == torch.float32 for d in census.values())
+    log(f'{label} dtype census: {len(census)} outputs, {n32} in f32')
+    if wrong:
+        raise AssertionError(f'{label}: dtypes unlike the JAX model\'s: '
+                             f'{wrong}')
+
+
+def bf16_step(config, ds, device, seed=SEED, control=False):
+    '''(bf16 step, f32 step, f64 step, control step or None, the bf16
+    engine, the batch) of unet_big (the steps ``_big_step``'s) on the
+    seeded state of ``seed``: the f32 and f64 steps on an f32 engine of the
+    same weights, batch and draws; the control, the bf16 step with
+    ``fastbn.wide`` the identity; cuDNN deterministic.'''
+    from dnncancerannotator_torch.models import fastbn
+    eng, raw, draws = big_check_state(config, ds, seed, device)
+    eng32, raw32, _ = big_check_state(_unset_precision(config), ds, seed,
+                                      device)
+    state, state32 = eng.model.state_dict(), eng32.model.state_dict()
+    if not torch.equal(raw, raw32) or any(
+            not torch.equal(v, state32[k]) for k, v in state.items()):
+        raise AssertionError('the bf16 and f32 engines start apart')
+    modules = (_warp_module(),)
+    with _deterministic_cudnn():
+        got = _big_step(eng, ds, raw, draws, plain=False, modules=modules)
+        f32 = _big_step(eng32, ds, raw, draws, plain=False, modules=modules)
+        exact = _big_step(eng32, ds, raw, draws, plain=True, f64=True,
+                          modules=modules)
+        ctl = None
+        if control:
+            wide = fastbn.wide
+            fastbn.wide = lambda t: t
+            try:
+                ctl = _big_step(eng, ds, raw, draws, plain=False,
+                                modules=modules)
+            finally:
+                fastbn.wide = wide
+    return got, f32, exact, ctl, eng, raw
+
+
+def grad_rms_share(step, exact):
+    '''The root-mean-square distance of all a step's parameter gradients
+    from the f64 step's, over the f64 gradients' root mean square.'''
+    diff = sum(float((step[1][n].double() - g).pow(2).sum())
+               for n, g in exact[1].items())
+    norm = sum(float(g.pow(2).sum()) for g in exact[1].values())
+    return (diff / norm) ** 0.5
+
+
+def _reading(label, step, exact):
+    loss, worst = f64_step_shares(step, exact)
+    log(f'  {label}: loss {step[0]:.7f} ({loss:.3e} from f64), worst '
+        f'gradient {worst["grad"][0]:.3e} ({worst["grad"][1]}), worst '
+        f'statistic {worst["stat"][0]:.3e} ({worst["stat"][1]})')
+    return (loss <= BF16_LOSS_TOL and worst['stat'][0] <= BF16_STAT_TOL
+            and worst['grad'][0] <= BF16_F64_TOL)
+
+
+def check_bf16_step(config, ds, device, label):
+    '''Phase 12's one-step checks on the seeded state: the bf16 step within
+    BF16_LOSS_TOL / BF16_STAT_TOL / BF16_F64_TOL of the f64 step, the
+    broken control past them, the step at least BF16_ON_SHARE from the f32 step, and the dtype
+    census. Returns the seeded batch.'''
+    got, f32, exact, ctl, eng, raw = bf16_step(config, ds, device,
+                                              control=True)
+    log(f'one {label} train step on the seeded state against the f64 step '
+        f'(limits: loss {BF16_LOSS_TOL}, statistics {BF16_STAT_TOL}, '
+        f'gradients {BF16_F64_TOL}):')
+    sound = _reading('bf16 step', got, exact)
+    _reading('f32 step', f32, exact)
+    broken = _reading('control (fastbn.wide the identity)', ctl, exact)
+    _, on = f64_step_shares(got, f32)
+    log(f'  bf16 step from the f32 step: worst gradient {on["grad"][0]:.3e} '
+        f'({on["grad"][1]}); bf16 is on at >= {BF16_ON_SHARE}')
+    if not sound:
+        raise AssertionError(f'{label}: the bf16 step is further from the '
+                             'f64 step than its limits')
+    if broken:
+        raise AssertionError(f'{label}: the broken control passes the limits')
+    if not on['grad'][0] >= BF16_ON_SHARE:
+        raise AssertionError(f'{label}: the step is the f32 step: bf16 is off')
+    check_census(label, eng.model, raw.float()[..., :5] / 255.0,
+                 config['model_options'])
+    return raw
+
+
+def _throughput(eng, ds, label):
+    '''Train throughput from calls that differ only in step count
+    (BIG_THROUGHPUT), each the minimum of two, after a warm-up call.'''
+    short, long = BIG_THROUGHPUT
+    eng.train(ds, max_steps=eng.current_step + 5, save_freq=1 << 30)
+    times = {}
+    for n in (short, long):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
+            torch.cuda.synchronize()
+            times.setdefault(n, []).append(time.perf_counter() - start)
+    rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
+                                           min(times[short]))
+    log(f'{label} train throughput: {rate:.2f} slices/s ({short}-step calls '
+        f'{times[short]} s, {long}-step calls {times[long]} s; '
+        f'steps_per_call {eng.steps_per_call})')
+    return rate
+
+
+def bf16_policy(device, data_paths, overlay):
+    '''unet_big bf16 under a policy's overlay (after bf16.yaml): the dtype
+    census, the seeded step against the f64 step (logged, held to phase
+    12's limits), the train step's time and the throughput.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    config = _config(BF16_BIG_CONFIGS + (overlay,))
+    label = 'unet_big ' + os.path.basename(overlay)[:-5]
+    ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
+    got, _, exact, _, check_eng, raw = bf16_step(config, ds, device)
+    log(f'one {label} train step on the seeded state against the f64 step:')
+    if not _reading(label, got, exact):
+        raise AssertionError(f'{label}: the step is further from the f64 '
+                             'step than phase 12\'s limits')
+    check_census(label, check_eng.model, raw.float()[..., :5] / 255.0,
+                 config['model_options'])
+    del check_eng
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng._setup_training(ds)
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    ms = _time_fns({'step': lambda: eng.train_step(raw, 1, gen)})['step']
+    log(f'{label} train step B={TRAIN_BATCH}: {ms:.4f} ms (CUDA events, '
+        f'median of {TIMED_RUNS})')
+    _DEFERRED.append(lambda: _profile_steps(
+        f'{label} train step', lambda: eng.train_step(raw, 1, gen)))
+    _throughput(eng, ds, label)
+
+
+def _plain_chain(x, w1, b1, w2, b2, need_c1=False, need_c2f=False):
+    '''conv_chain's plain version with its wrapper's outputs: c2 in x's
+    dtype, c1 and the f32 c2 where asked for.'''
+    from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+    c1, c2f = CC.plain(x, w1, b1, w2, b2)
+    out = (c1 if need_c1 else None, c2f.to(x.dtype))
+    return out + (c2f,) if need_c2f else out
+
+
+def _unet_modules():
+    from dnncancerannotator_torch.ops.kernels import (
+        conv_chain, conv_chain_bwd, stencil_conv, stencil_conv_bwd, tconv2x2,
+        tconv2x2_bwd)
+    return (conv_chain, conv_chain_bwd, stencil_conv, stencil_conv_bwd,
+            tconv2x2, tconv2x2_bwd, _warp_module())
+
+
+# phase 12b: each stack with bf16.yaml, the bf16 forms' launches a step
+# (and the f32 forms' and the f32-only kernels', none), and the kernel
+# modules the plain step swaps
+BF16_SLICES = (
+    dict(label='unet.yaml bf16', configs=CONFIGS + (BF16,), run='unet16_run',
+         sites={'conv_chain_bf16': len(BF16_CHAIN_SITES),
+                'conv_chain_bwd_bf16': len(BF16_CHAIN_SITES),
+                'stencil_conv_bf16': len(BF16_STENCIL_SITES),
+                'stencil_conv_bwd_bf16': len(BF16_STENCIL_SITES),
+                'warp_twopass': 1},
+         zero=('conv_chain', 'conv_chain_bwd', 'stencil_conv',
+               'stencil_conv_bwd', 'tconv2x2', 'tconv2x2_bwd'),
+         modules=_unet_modules),
+    dict(label='MulmoUNet bf16', configs=MULMO_CONFIGS + (BF16,),
+         run='mulmo16_run',
+         sites={'stencil_conv_nhwc_bf16': len(MULMO_STENCIL_SITES),
+                'warp_twopass': 1},
+         zero=('stencil_conv_nhwc',) + NHWC_KERNELS, modules=_mulmo_modules),
+)
+
+
+def _compare_bf16_step(label, got, plain, exact):
+    '''The loss, every gradient and every statistic of a step through the
+    bf16 forms against the plain bf16 step: within BF16_STEP_TOL of its
+    scale (a bias is held on its layer's weight gradient's), else no
+    further from the f64 step than F64_RATIO times the plain step by
+    root-mean-square distance.'''
+    def rms(a, b):
+        return float((torch.as_tensor(a).double()
+                      - torch.as_tensor(b).double()).pow(2).mean().sqrt())
+
+    items = [('loss', got[0], plain[0], exact[0], abs(plain[0]))]
+    for part in (1, 2):
+        for name, want in plain[part].items():
+            layer = name.rsplit('.', 1)[0]
+            scale = max(float(want.abs().max()), float(
+                plain[part].get(layer + '.weight', want).abs().max()))
+            items.append((name, got[part][name], want, exact[part][name],
+                          scale))
+    held, worst = [], 0.0
+    for name, ours, want, ref, scale in items:
+        err = float((torch.as_tensor(ours).double()
+                     - torch.as_tensor(want).double()).abs().max())
+        if err <= BF16_STEP_TOL * scale:
+            worst = max(worst, err / scale) if scale else worst
+            continue
+        held.append(name)
+        mine, theirs = rms(ours, ref), rms(want, ref)
+        log(f'  {name}: {err:.3e} > {BF16_STEP_TOL} * {scale:.3e} from the '
+            f'plain step; from the f64 step (rms): kernels {mine:.3e}, '
+            f'plain {theirs:.3e}')
+        if not mine <= F64_RATIO * theirs:
+            raise AssertionError(f'{label}: {name} through the bf16 forms is '
+                                 f'{mine} from the f64 step against the '
+                                 f'plain step\'s {theirs}')
+    log(f'one {label} step: {len(items) - len(held)} values within '
+        f'{worst:.3e} of their scale of the plain bf16 step, {len(held)} '
+        'held to the f64 step above')
+
+
+def bf16_slices(device, data_paths):
+    '''Phase 12b: each BF16_SLICES stack trains BF16_SLICE_STEPS steps
+    through the CLI (every loss finite; each bf16 form launched at least
+    its sites x steps times, the f32 forms and the f32-only kernels never),
+    then one seeded step through the kernels against the plain bf16 step
+    (``_compare_bf16_step``). Returns the launch counts of the train calls
+    (the bf16 forms' from their stack).'''
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    counts = {}
+    for spec in BF16_SLICES:
+        label = spec['label']
+        kernels.reset_launches()
+        res = cli(argv=[
+            'train', '--config', *[os.path.join(REPO, c)
+                                   for c in spec['configs']],
+            '--save_path', os.path.join(WORK, spec['run']), '--data_path',
+            *data_paths, '--save_freq', str(BF16_SLICE_STEPS), '--seed',
+            str(SEED), '--device', device.type, '--max_steps',
+            str(BF16_SLICE_STEPS)])
+        launches = kernels.launch_counts()
+        log(f'{label} train, {BF16_SLICE_STEPS} steps: loss '
+            f'{res.history["loss"]}; launches {launches}')
+        if not np.isfinite(res.history['loss']).all():
+            raise AssertionError(f'{label}: losses {res.history["loss"]}')
+        for name, sites in spec['sites'].items():
+            if launches[name] < sites * BF16_SLICE_STEPS:
+                raise AssertionError(f'{name} launched {launches[name]} '
+                                     f'times, want >= {sites} x '
+                                     f'{BF16_SLICE_STEPS}')
+        ran = [n for n in spec['zero'] if launches[n]]
+        if ran:
+            raise AssertionError(f'{label}: {ran} launched in bf16')
+        counts.update({n: launches[n] for n in spec['sites']
+                       if n.endswith('_bf16')})
+
+        config = _config(spec['configs'])
+        ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
+        eng, raw, draws = big_check_state(config, ds, SEED, device)
+        eng32, _, _ = big_check_state(_unset_precision(config), ds, SEED,
+                                      device)
+        modules = spec['modules']()
+        with _deterministic_cudnn():
+            got = _big_step(eng, ds, raw, draws, plain=False, modules=modules)
+            plain = _big_step(eng, ds, raw, draws, plain=True,
+                              modules=modules)
+            exact = _big_step(eng32, ds, raw, draws, plain=True, f64=True,
+                              modules=modules)
+        _compare_bf16_step(label, got, plain, exact)
+    return counts
 
 # -- phase 3f ----------------------------------------------------------------
 def crop_inputs(device):
@@ -2824,6 +3447,8 @@ def main():
             crop_kernel_sites(device, results)
         with phase('3g MulmoUNet kernels'):
             mulmo_kernel_sites(device, results, mulmo_sites)
+        with phase('3h bf16 kernel forms'):
+            bf16_kernel_sites(device, results)
         with phase('4 predict'):
             predict_launches = run_slice(eng, data_paths, save_path,
                                          os.path.join(WORK, 'maps'))
@@ -2842,6 +3467,12 @@ def main():
                                             data_paths)
         with phase('11 MultiResUnet'):
             bn_train_slice(device, train_paths, MRU_SPEC, data_paths)
+        with phase('12 unet_big bf16'):
+            bn_train_slice(device, train_paths, BF16_BIG_SPEC, data_paths)
+            for overlay in BF16_POLICIES:
+                bf16_policy(device, train_paths, overlay)
+        with phase('12b unet.yaml and MulmoUNet in bf16'):
+            bf16_launches = bf16_slices(device, train_paths)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -2871,6 +3502,8 @@ def main():
     for counts, mulmo in zip((launches, predict_launches, eval_launches),
                              mulmo_launches):
         counts['stencil_conv_nhwc'] = mulmo['stencil_conv_nhwc']
+    # the bf16 forms': phase 12b's train calls
+    launches.update(bf16_launches)
     csrc = 'dnncancerannotator_torch/csrc/'
     kernels_line = {'kernels': [
         {'name': name, 'route': 'cuda',

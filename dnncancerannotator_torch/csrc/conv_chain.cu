@@ -38,6 +38,13 @@
 // 3-12 output channels an mma tile is mostly padding, and f32 accuracy
 // needs the 3xTF32 split, which the tconv GEMM's first design measured as
 // issue-bound (PERF.md): under 2x the FMA rate at best.
+//
+// bf16 form (entry dnnca_conv_chain_bf16): x, the weights and the biases in
+// bf16, converted to f32 as they are staged (conv_tile.cuh), so the sums
+// are the f32 form's in its order; c1 (when asked for) and c2f, the f32 c2
+// the backward's relu mask reads, are written in f32, as
+// conv_chain_pallas returns them, and c2 rounded to bf16 (nearest-even):
+// the output equals the f32 form's on the upcast inputs, rounded.
 #include "conv_tile.cuh"
 
 namespace {
@@ -49,14 +56,16 @@ using dnnca::tile::stage_weights;
 using dnnca::tile::stage_window;
 using dnnca::tile::store_run;
 
+template <typename T>
 struct ChainArgs {
-  const float* x;
-  const float* w1;
-  const float* b1;
-  const float* w2;
-  const float* b2;
+  const T* x;
+  const T* w1;
+  const T* b1;
+  const T* w2;
+  const T* b2;
   float* c1_out;  // may be null
-  float* c2;
+  T* c2;
+  float* c2f;     // the f32 c2 of the bf16 form; may be null
   int B, Ci, Cm, Co, H, W, K;
   // geometry from the wrapper: the output tile, the width of the c1 tile
   // (a multiple of the run length), and the row strides of the c1 and the
@@ -65,8 +74,8 @@ struct ChainArgs {
   int tile_h, tile_w, c1_w, c1_s, xs_w;
 };
 
-template <int CPT, int KT>
-__global__ void __launch_bounds__(256, 2) conv_chain_kernel(ChainArgs a) {
+template <int CPT, int KT, typename T>
+__global__ void __launch_bounds__(256, 2) conv_chain_kernel(ChainArgs<T> a) {
   constexpr int PX = run_px(CPT), CP = pad4(CPT);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -93,8 +102,8 @@ __global__ void __launch_bounds__(256, 2) conv_chain_kernel(ChainArgs a) {
 
   stage_window(xs, a.x + static_cast<size_t>(b) * Ci * plane, Ci, xs_h,
                c1_w + 2 * p, xs_w, y0 - 2 * p, x0 - 2 * p, H, W);
-  stage_weights<false>(w1s, a.w1, Cm, Ci, KK, CPT, g1);
-  stage_weights<false>(w2s, a.w2, Co, Cm, KK, CPT, g2);
+  stage_weights<false, T>(w1s, a.w1, Cm, Ci, KK, CPT, g1);
+  stage_weights<false, T>(w2s, a.w2, Co, Cm, KK, CPT, g2);
   dnnca::tile::stage_bias(b1s, a.b1, Cm, CPT, g1);
   dnnca::tile::stage_bias(b2s, a.b2, Co, CPT, g2);
   dnnca::tile::cp_async_wait_all();
@@ -148,7 +157,10 @@ __global__ void __launch_bounds__(256, 2) conv_chain_kernel(ChainArgs a) {
 
     // conv2 over the tile
     const int per_g2 = th * (tw / PX);
-    float* c2b = a.c2 + static_cast<size_t>(b) * Co * plane;
+    T* c2b = a.c2 + static_cast<size_t>(b) * Co * plane;
+    float* c2fb = a.c2f == nullptr
+                      ? nullptr
+                      : a.c2f + static_cast<size_t>(b) * Co * plane;
     for (int it = tid; it < g2 * per_g2; it += nt) {
       const int g = it / per_g2, rem = it - g * per_g2;
       const int run = rem / th, r = rem - run * th, col = run * PX;
@@ -167,27 +179,29 @@ __global__ void __launch_bounds__(256, 2) conv_chain_kernel(ChainArgs a) {
         float v[PX];
 #pragma unroll
         for (int j = 0; j < PX; ++j) v[j] = fmaxf(acc[j][o], 0.f);
-        store_run<PX>(c2b + (g * CPT + o) * plane +
-                          static_cast<size_t>(gy) * W + gx,
-                      v, W - gx);
+        const size_t at = (g * CPT + o) * plane +
+                          static_cast<size_t>(gy) * W + gx;
+        store_run<PX>(c2b + at, v, W - gx);
+        if (c2fb != nullptr) store_run<PX>(c2fb + at, v, W - gx);
       }
     }
   }
 }
 
-template <int CPT, int KT>
-cudaError_t launch(const ChainArgs& a, int threads, int smem_bytes,
+template <int CPT, int KT, typename T>
+cudaError_t launch(const ChainArgs<T>& a, int threads, int smem_bytes,
                    cudaStream_t stream) {
-  cudaError_t err = dnnca::allow_smem(conv_chain_kernel<CPT, KT>, smem_bytes);
+  cudaError_t err =
+      dnnca::allow_smem(conv_chain_kernel<CPT, KT, T>, smem_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.W + a.tile_w - 1) / a.tile_w,
                   (a.H + a.tile_h - 1) / a.tile_h, a.B);
-  conv_chain_kernel<CPT, KT><<<grid, threads, smem_bytes, stream>>>(a);
+  conv_chain_kernel<CPT, KT, T><<<grid, threads, smem_bytes, stream>>>(a);
   return dnnca::launched(cudaGetLastError());
 }
 
-template <int KT>
-cudaError_t dispatch(const ChainArgs& a, int cpt, int threads, int smem,
+template <int KT, typename T>
+cudaError_t dispatch(const ChainArgs<T>& a, int cpt, int threads, int smem,
                      cudaStream_t s) {
   switch (cpt) {
     case 3: return launch<3, KT>(a, threads, smem, s);
@@ -197,6 +211,16 @@ cudaError_t dispatch(const ChainArgs& a, int cpt, int threads, int smem,
     case 12: return launch<12, KT>(a, threads, smem, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int run(const ChainArgs<T>& a, int cpt, int threads, int smem_bytes,
+        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a.K == 3 ? dispatch<3>(a, cpt, threads, smem_bytes, s)
+                  : dispatch<0>(a, cpt, threads, smem_bytes, s);
 }
 
 }  // namespace
@@ -210,11 +234,22 @@ extern "C" int dnnca_conv_chain(const float* x, const float* w1,
                                 int cpt, int tile_h, int tile_w, int c1_w,
                                 int c1_s, int xs_w, int threads,
                                 int smem_bytes, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const ChainArgs a{x, w1, b1, w2, b2, c1, c2, B, Ci, Cm, Co, H, W, K,
-                    tile_h, tile_w, c1_w, c1_s, xs_w};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return K == 3 ? dispatch<3>(a, cpt, threads, smem_bytes, s)
-                : dispatch<0>(a, cpt, threads, smem_bytes, s);
+  const ChainArgs<float> a{x,  w1, b1, w2, b2, c1, c2, nullptr, B,     Ci,
+                           Cm, Co, H,  W,  K,  tile_h, tile_w,  c1_w, c1_s,
+                           xs_w};
+  return run(a, cpt, threads, smem_bytes, device, stream);
+}
+
+// The bf16 form: x, w1, b1, w2, b2 and c2 bf16; c1 and c2f (the f32 c2)
+// f32 and each may be null; the rest as dnnca_conv_chain.
+extern "C" int dnnca_conv_chain_bf16(
+    const dnnca::bf16* x, const dnnca::bf16* w1, const dnnca::bf16* b1,
+    const dnnca::bf16* w2, const dnnca::bf16* b2, float* c1, dnnca::bf16* c2,
+    float* c2f, int B, int Ci, int Cm, int Co, int H, int W, int K, int cpt,
+    int tile_h, int tile_w, int c1_w, int c1_s, int xs_w, int threads,
+    int smem_bytes, int device, void* stream) {
+  const ChainArgs<dnnca::bf16> a{x,  w1, b1, w2, b2, c1,     c2,     c2f,
+                                 B,  Ci, Cm, Co, H,  W,      K,      tile_h,
+                                 tile_w, c1_w, c1_s, xs_w};
+  return run(a, cpt, threads, smem_bytes, device, stream);
 }

@@ -44,6 +44,14 @@
 // Where the items outnumber the threads (32 channels) or K != 3, the first
 // kernel writes dc1 to device memory instead and the weight gradients go
 // through wgrad.cu, two launches each (five in all).
+//
+// bf16 form (entry dnnca_conv_chain_bwd_bf16): x, g and the weights in
+// bf16, c1 and c2 in f32 (the forward's residuals), as
+// conv_chain_bwd_pallas takes them; the bf16 inputs are converted to f32
+// as they are staged, so every sum is the f32 form's in its order, and dx,
+// dw and db are rounded to bf16 (nearest-even) from the f32 form's f32
+// results: equal to the f32 form's on the upcast inputs, rounded. dc1 and
+// the partials stay f32.
 #include "conv_tile.cuh"
 #include "wgrad.cuh"
 
@@ -56,14 +64,15 @@ using dnnca::tile::stage_weights;
 using dnnca::tile::stage_window;
 using dnnca::tile::store_run;
 
+template <typename T>
 struct BwdArgs {
-  const float* g;
+  const T* g;
   const float* c1;
   const float* c2;
-  const float* x;
-  const float* w1;
-  const float* w2;
-  float* dx;       // may be null
+  const T* x;
+  const T* w1;
+  const T* w2;
+  T* dx;           // may be null
   float* dc1;      // the five-launch path only
   float* partial;  // [n_out][gridDim.x], the two-launch path only
   int B, Ci, Cm, Co, H, W, K;
@@ -154,8 +163,8 @@ __device__ __forceinline__ void wgrad_strip(float (&wacc)[CPT * KT * KT],
   for (int e = 0; e < CPT * KKT; ++e) wacc[e] += part[e];
 }
 
-template <int CPT, int KT, bool WGRAD>
-__global__ void __launch_bounds__(256, 2) chain_bwd_kernel(BwdArgs a) {
+template <int CPT, int KT, bool WGRAD, typename T>
+__global__ void __launch_bounds__(256, 2) chain_bwd_kernel(BwdArgs<T> a) {
   constexpr int PX = run_px(CPT), CP = pad4(CPT);
   constexpr int KKT = KT > 0 ? KT * KT : 1;  // taps of the dw sums
   extern __shared__ float4 smem4[];
@@ -185,8 +194,8 @@ __global__ void __launch_bounds__(256, 2) chain_bwd_kernel(BwdArgs a) {
   const int tiles_x = (W + tw - 1) / tw, tiles_y = (H + th - 1) / th;
   const int n_tiles = a.B * tiles_y * tiles_x;
 
-  stage_weights<true>(w2f, a.w2, Cm, Co, KK, CPT, gm);
-  if (need_dx) stage_weights<true>(w1f, a.w1, Ci, Cm, KK, CPT, gx);
+  stage_weights<true, T>(w2f, a.w2, Cm, Co, KK, CPT, gm);
+  if (need_dx) stage_weights<true, T>(w1f, a.w1, Ci, Cm, KK, CPT, gx);
 
   // this thread's weight-gradient item: (input channel or the bias, group)
   // of dw2 (input c1, groups over Co) or of dw1 (input x, groups over Cm)
@@ -282,7 +291,7 @@ __global__ void __launch_bounds__(256, 2) chain_bwd_kernel(BwdArgs a) {
 
     if (need_dx) {  // dx over the tile from the shared dc1
       const int per_g2 = th * (tw / PX);
-      float* dxb = a.dx + static_cast<size_t>(b) * Ci * plane;
+      T* dxb = a.dx + static_cast<size_t>(b) * Ci * plane;
       for (int it = tid; it < gx * per_g2; it += nt) {
         const int g = it / per_g2, rem = it - g * per_g2;
         const int run = rem / th, r = rem - run * th, col = run * PX;
@@ -387,9 +396,10 @@ __global__ void __launch_bounds__(256, 2) chain_bwd_kernel(BwdArgs a) {
 // an f32 sum round at the total's magnitude, a bias gradient of ~1e3 then
 // lands an ulp or more from the f64 result, where a plain f32 sum that
 // happens to round well lands within a fraction of one.
+template <typename TO>
 __global__ void __launch_bounds__(256)
 chain_bwd_finish_kernel(const float* __restrict__ partial,
-                        float* __restrict__ out, int n, int blocks) {
+                        TO* __restrict__ out, int n, int blocks) {
   const int e = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (e >= n) return;
   const float* row = partial + static_cast<size_t>(e) * blocks;
@@ -397,20 +407,22 @@ chain_bwd_finish_kernel(const float* __restrict__ partial,
   for (int i = lane; i < blocks; i += 32) s += row[i];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(~0u, s, off);
-  if (lane == 0) out[e] = static_cast<float>(s);
+  if (lane == 0) dnnca::put(out + e, static_cast<float>(s));
 }
 
-template <int CPT, int KT, bool WGRAD>
-cudaError_t launch(const BwdArgs& a, int blocks, int threads, int smem_bytes,
-                   cudaStream_t stream) {
+template <int CPT, int KT, bool WGRAD, typename T>
+cudaError_t launch(const BwdArgs<T>& a, int blocks, int threads,
+                   int smem_bytes, cudaStream_t stream) {
   cudaError_t err =
-      dnnca::allow_smem(chain_bwd_kernel<CPT, KT, WGRAD>, smem_bytes);
+      dnnca::allow_smem(chain_bwd_kernel<CPT, KT, WGRAD, T>, smem_bytes);
   if (err != cudaSuccess) return err;
-  chain_bwd_kernel<CPT, KT, WGRAD><<<blocks, threads, smem_bytes, stream>>>(a);
+  chain_bwd_kernel<CPT, KT, WGRAD, T>
+      <<<blocks, threads, smem_bytes, stream>>>(a);
   return dnnca::launched(cudaGetLastError());
 }
 
-cudaError_t dispatch(const BwdArgs& a, int cpt, bool fused, int blocks,
+template <typename T>
+cudaError_t dispatch(const BwdArgs<T>& a, int cpt, bool fused, int blocks,
                      int threads, int smem, cudaStream_t s) {
   if (fused && a.K == 3) {
     switch (cpt) {
@@ -433,6 +445,46 @@ cudaError_t dispatch(const BwdArgs& a, int cpt, bool fused, int blocks,
 #undef DNNCA_CHAIN_DGRAD
 }
 
+
+template <typename T>
+int run(const T* x, const float* c1, const float* c2, const T* g, const T* w1,
+        const T* w2, T* dx, T* out, float* scratch, int B, int Ci, int Cm,
+        int Co, int H, int W, int K, int cpt, int tile_h, int tile_w,
+        int c1_w, int c1_s, int gs_w, int slices, int threads, int blocks,
+        int fused, int smem_bytes, int wgrad_blocks, int device,
+        void* stream) {
+  constexpr bool kBf16 = !std::is_same_v<T, float>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int KK = K * K, n1 = Cm * Ci * KK, n2 = Co * Cm * KK;
+  const int n_out = n1 + Cm + n2 + Co;
+  float* partial = scratch;
+  const int wg_rows = n1 + Cm > n2 + Co ? n1 + Cm : n2 + Co;
+  float* dc1 = fused ? nullptr
+                     : partial + static_cast<size_t>(wg_rows) * wgrad_blocks;
+  const BwdArgs<T> a{g,  c1, c2, x, w1, w2, dx,     dc1,    partial, B,  Ci,
+                     Cm, Co, H,  W, K,  tile_h, tile_w, c1_w, c1_s, gs_w,
+                     slices};
+  err = dispatch(a, cpt, fused != 0, blocks, threads, smem_bytes, s);
+  if (err != cudaSuccess) return err;
+  if (fused) {
+    chain_bwd_finish_kernel<T><<<(n_out + 7) / 8, 256, 0, s>>>(
+        partial, out, n_out, blocks);
+    return dnnca::launched(cudaGetLastError());
+  }
+  const int p = K / 2;
+  const dnnca::WgradArgs w2g{g,  c2, c1, partial, out + n1 + Cm, B,  Co,
+                             Cm, H,  W,  H,       W,             K,  K,
+                             p,  p,  wgrad_blocks, kBf16, false, kBf16};
+  err = dnnca::launch_wgrad(w2g, s);
+  if (err != cudaSuccess) return err;
+  const dnnca::WgradArgs w1g{dc1, nullptr, x, partial, out, B,     Cm,
+                             Ci,  H,       W, H,       W,   K,     K,
+                             p,   p,       wgrad_blocks, false, kBf16, kBf16};
+  return dnnca::launch_wgrad(w1g, s);
+}
+
 }  // namespace
 
 // dx may be null (no data gradient). out is the result, [dw1 | db1 | dw2 |
@@ -448,30 +500,21 @@ extern "C" int dnnca_conv_chain_bwd(
     int tile_w, int c1_w, int c1_s, int gs_w, int slices, int threads,
     int blocks, int fused, int smem_bytes, int wgrad_blocks, int device,
     void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int KK = K * K, n1 = Cm * Ci * KK, n2 = Co * Cm * KK;
-  const int n_out = n1 + Cm + n2 + Co;
-  float* partial = scratch;
-  const int wg_rows = n1 + Cm > n2 + Co ? n1 + Cm : n2 + Co;
-  float* dc1 = fused ? nullptr
-                     : partial + static_cast<size_t>(wg_rows) * wgrad_blocks;
-  const BwdArgs a{g,  c1, c2, x, w1, w2, dx,     dc1,    partial, B,     Ci,
-                  Cm, Co, H,  W, K,  tile_h, tile_w, c1_w, c1_s, gs_w, slices};
-  err = dispatch(a, cpt, fused != 0, blocks, threads, smem_bytes, s);
-  if (err != cudaSuccess) return err;
-  if (fused) {
-    chain_bwd_finish_kernel<<<(n_out + 7) / 8, 256, 0, s>>>(partial, out,
-                                                             n_out, blocks);
-    return dnnca::launched(cudaGetLastError());
-  }
-  const int p = K / 2;
-  const dnnca::WgradArgs w2g{g, c2, c1, partial, out + n1 + Cm, B, Co, Cm, H,
-                             W, H,  W,  K, K,       p,  p, wgrad_blocks};
-  err = dnnca::launch_wgrad(w2g, s);
-  if (err != cudaSuccess) return err;
-  const dnnca::WgradArgs w1g{dc1, nullptr, x, partial, out, B, Cm, Ci, H, W,
-                             H,   W,       K, K,       p,   p, wgrad_blocks};
-  return dnnca::launch_wgrad(w1g, s);
+  return run(x, c1, c2, g, w1, w2, dx, out, scratch, B, Ci, Cm, Co, H, W, K,
+             cpt, tile_h, tile_w, c1_w, c1_s, gs_w, slices, threads, blocks,
+             fused, smem_bytes, wgrad_blocks, device, stream);
+}
+
+// The bf16 form: x, g, w1, w2, dx and out bf16; c1, c2 and scratch f32;
+// the rest as dnnca_conv_chain_bwd.
+extern "C" int dnnca_conv_chain_bwd_bf16(
+    const dnnca::bf16* x, const float* c1, const float* c2,
+    const dnnca::bf16* g, const dnnca::bf16* w1, const dnnca::bf16* w2,
+    dnnca::bf16* dx, dnnca::bf16* out, float* scratch, int B, int Ci, int Cm,
+    int Co, int H, int W, int K, int cpt, int tile_h, int tile_w, int c1_w,
+    int c1_s, int gs_w, int slices, int threads, int blocks, int fused,
+    int smem_bytes, int wgrad_blocks, int device, void* stream) {
+  return run(x, c1, c2, g, w1, w2, dx, out, scratch, B, Ci, Cm, Co, H, W, K,
+             cpt, tile_h, tile_w, c1_w, c1_s, gs_w, slices, threads, blocks,
+             fused, smem_bytes, wgrad_blocks, device, stream);
 }

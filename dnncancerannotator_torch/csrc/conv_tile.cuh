@@ -17,13 +17,71 @@
 // Weights sit in shared memory as [in channel][tap][groups * pad4(CPT)]:
 // output o is slot (o / CPT) * pad4(CPT) + o % CPT, so a group's weights of
 // one tap are pad4(CPT) / 4 aligned float4s.
+//
+// bf16 forms: the staging helpers take an element type T, float or
+// __nv_bfloat16. A bf16 source is read with ordinary loads (pairs as one
+// 4-byte __nv_bfloat162 where the copy is pairwise), converted to f32 on
+// load (exact) and stored to shared memory as f32, so everything computed
+// from shared memory is the f32 form's arithmetic in the f32 form's order;
+// ``put`` rounds a result to nearest-even on its store. cp.async cannot
+// convert, so only the f32 form copies asynchronously.
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace dnnca {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// Store v at p, rounded to nearest-even for a bf16 p.
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Four consecutive values at p (16-byte aligned for float, 8 for bf16) as
+// one float4, and the store of four the same way.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// Four bf16 packed in 8 bytes, as f32.
+__device__ __forceinline__ float4 unpack4(uint2 u) {
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &u.x, 4);
+  memcpy(&hi, &u.y, 4);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  return unpack4(*reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  memcpy(&u.x, &lo, 4);
+  memcpy(&u.y, &hi, 4);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// A read-only load as f32.
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 namespace tile {
 
 // pixels a work item computes along a row for CPT channels
@@ -66,31 +124,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // staged as it is. FLIP = true: w is [n_in][n_out][KK], the OIHW weight of
 // the conv that runs the other way; it is staged transposed and spatially
 // flipped, so a "same" conv with it is that conv's data gradient.
-template <bool FLIP>
-__device__ void stage_weights(float* dst, const float* w, int n_out,
+template <bool FLIP, typename T = float>
+__device__ void stage_weights(float* dst, const T* w, int n_out,
                               int n_in, int KK, int cpt, int groups) {
   const int cp = pad4(cpt), row = groups * cp, n = n_in * KK * row;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int s = i % row, t = (i / row) % KK, c = i / (row * KK);
     const int r = s % cp, o = s / cp * cpt + r;
     const bool ok = r < cpt && o < n_out;
-    cp_async4(dst + i,
-              ok ? w + (FLIP ? (c * n_out + o) * KK + (KK - 1 - t)
-                             : (o * n_in + c) * KK + t)
-                 : w,
-              ok);
+    const T* src = ok ? w + (FLIP ? (c * n_out + o) * KK + (KK - 1 - t)
+                                  : (o * n_in + c) * KK + t)
+                      : w;
+    if constexpr (std::is_same_v<T, float>)
+      cp_async4(dst + i, src, ok);
+    else
+      dst[i] = ok ? to_f32(*src) : 0.f;
   }
 }
 
 // The bias of n_out outputs into ``groups`` slots of pad4(cpt), zero in
 // the padding, with cp.async.
-__device__ __forceinline__ void stage_bias(float* dst, const float* b,
+template <typename T = float>
+__device__ __forceinline__ void stage_bias(float* dst, const T* b,
                                            int n_out, int cpt, int groups) {
   const int cp = pad4(cpt);
   for (int i = threadIdx.x; i < groups * cp; i += blockDim.x) {
     const int o = i / cp * cpt + i % cp;
     const bool ok = i % cp < cpt && o < n_out;
-    cp_async4(dst + i, ok ? b + o : b, ok);
+    if constexpr (std::is_same_v<T, float>)
+      cp_async4(dst + i, ok ? b + o : b, ok);
+    else
+      dst[i] = ok ? to_f32(b[o]) : 0.f;
   }
 }
 
@@ -101,7 +165,10 @@ __device__ __forceinline__ void stage_bias(float* dst, const float* b,
 // row, one lane a column pair (8-byte copies) where W, x0 and cols are even
 // (every pair then lies wholly inside or outside the image), else one lane
 // a column; no division per element.
-__device__ __forceinline__ void stage_window(float* dst, const float* src,
+// A bf16 src is read the same way, a __nv_bfloat162 a column pair, and
+// stored converted.
+template <typename T = float>
+__device__ __forceinline__ void stage_window(float* dst, const T* src,
                                              int n_ch, int rows, int cols,
                                              int row_w, int y0, int x0,
                                              int H, int W) {
@@ -110,20 +177,31 @@ __device__ __forceinline__ void stage_window(float* dst, const float* src,
   for (int pr = threadIdx.x >> 5; pr < n_ch * rows; pr += nw) {
     const int c = pr / rows, gy = y0 + pr - c * rows;
     const bool row_ok = gy >= 0 && gy < H;
-    const float* srow =
+    const T* srow =
         src + (static_cast<size_t>(c) * H + (row_ok ? gy : 0)) * W;
     float* drow = dst + static_cast<size_t>(pr) * row_w;
     if (pairs) {
       for (int col = 2 * lane; col < cols; col += 64) {
         const int gx = x0 + col;
         const bool ok = row_ok && gx >= 0 && gx < W;
-        cp_async8(drow + col, ok ? srow + gx : src, ok);
+        if constexpr (std::is_same_v<T, float>) {
+          cp_async8(drow + col, ok ? srow + gx : src, ok);
+        } else {
+          const float2 v =
+              ok ? __bfloat1622float2(
+                       *reinterpret_cast<const __nv_bfloat162*>(srow + gx))
+                 : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(drow + col) = v;
+        }
       }
     } else {
       for (int col = lane; col < cols; col += 32) {
         const int gx = x0 + col;
         const bool ok = row_ok && gx >= 0 && gx < W;
-        cp_async4(drow + col, ok ? srow + gx : src, ok);
+        if constexpr (std::is_same_v<T, float>)
+          cp_async4(drow + col, ok ? srow + gx : src, ok);
+        else
+          drow[col] = ok ? to_f32(srow[gx]) : 0.f;
       }
     }
   }
@@ -211,18 +289,21 @@ __device__ __forceinline__ void conv_run(float (&acc)[run_px(CPT)][CPT],
 // Write PX values of one channel at dst (a pixel of an NCHW plane):
 // float4 stores when the whole run lies inside the row and dst is aligned,
 // else the first n_valid values one by one.
-template <int PX>
-__device__ __forceinline__ void store_run(float* dst, const float (&v)[PX],
+// A bf16 dst takes the values rounded (store4: four to 8 bytes).
+template <int PX, typename T = float>
+__device__ __forceinline__ void store_run(T* dst, const float (&v)[PX],
                                           int n_valid) {
-  if (n_valid >= PX && (reinterpret_cast<std::uintptr_t>(dst) & 15) == 0) {
+  constexpr unsigned kAlign = 4 * sizeof(T) - 1;
+  if (n_valid >= PX &&
+      (reinterpret_cast<std::uintptr_t>(dst) & kAlign) == 0) {
 #pragma unroll
     for (int q = 0; q < PX / 4; ++q)
-      reinterpret_cast<float4*>(dst)[q] =
-          make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+      store4(dst + 4 * q,
+             make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
   } else {
 #pragma unroll
     for (int j = 0; j < PX; ++j)
-      if (j < n_valid) dst[j] = v[j];
+      if (j < n_valid) put(dst + j, v[j]);
   }
 }
 

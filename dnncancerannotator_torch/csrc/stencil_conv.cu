@@ -44,7 +44,15 @@
 // contiguous runs of 32 pixels. The input's pixels may lie ``xs`` floats
 // apart (xs >= Ci): an encoder reads its channel of the [B, H, W, 5] batch
 // in place, with no copy.
-#include "common.cuh"
+//
+// bf16 forms (entries dnnca_stencil_conv_bf16, dnnca_pointwise_conv_bf16,
+// dnnca_stencil_conv_nhwc_bf16): x, w and the bias in bf16, each value
+// converted to f32 as it is loaded (four at a time as 8 bytes where the
+// f32 form reads a float4), the sums the f32 form's in its order, and the
+// output rounded to bf16 (nearest-even) on its store: equal to the f32
+// form's on the upcast inputs, rounded. stencil_conv2d_pallas takes bf16
+// the same way: it upcasts, computes in f32, and its caller rounds.
+#include "conv_tile.cuh"
 
 namespace {
 
@@ -53,10 +61,14 @@ constexpr int kThreads = 256;
 // CO: the output-channel bucket (1, 4, 8, 16 or 32, the smallest that holds
 // Co). Weights are staged as [Ci][KH][KW][CO], zero-padded, so each tap
 // runs CO FMAs with no per-channel guard.
-template <int CO>
+using dnnca::put;
+using dnnca::store4;
+using dnnca::to_f32;
+
+template <int CO, typename T>
 __global__ void __launch_bounds__(kThreads)
-stencil_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
+stencil_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ out,
                     int B, int Ci, int Co, int H, int W, int KH, int KW,
                     int pt, int pl, int OH, int OW, int relu) {
   extern __shared__ float4 smem4[];
@@ -67,10 +79,10 @@ stencil_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* bs = smem + n_w;   // [CO]
   for (int i = threadIdx.x; i < n_w; i += kThreads) {
     const int o = i % CO, t = (i / CO) % taps, c = i / (CO * taps);
-    ws[i] = o < Co ? w[(o * Ci + c) * taps + t] : 0.f;
+    ws[i] = o < Co ? to_f32(w[(o * Ci + c) * taps + t]) : 0.f;
   }
   for (int i = threadIdx.x; i < CO; i += kThreads)
-    bs[i] = i < Co ? bias[i] : 0.f;
+    bs[i] = i < Co ? to_f32(bias[i]) : 0.f;
   __syncthreads();
 
   const size_t oplane = static_cast<size_t>(OH) * OW;
@@ -84,7 +96,7 @@ stencil_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
   for (int o = 0; o < CO; ++o) acc[o] = bs[o];
   const size_t plane = static_cast<size_t>(H) * W;
-  const float* xb = x + static_cast<size_t>(b) * Ci * plane;
+  const T* xb = x + static_cast<size_t>(b) * Ci * plane;
   for (int c = 0; c < Ci; ++c) {
     for (int ky = 0; ky < KH; ++ky) {
       const int iy = oy - pt + ky;
@@ -92,30 +104,31 @@ stencil_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int kx = 0; kx < KW; ++kx) {
         const int ix = ox - pl + kx;
         if (ix < 0 || ix >= W) continue;
-        const float v = xb[c * plane + static_cast<size_t>(iy) * W + ix];
+        const float v =
+            to_f32(xb[c * plane + static_cast<size_t>(iy) * W + ix]);
         const float* wt = ws + ((c * KH + ky) * KW + kx) * CO;
 #pragma unroll
         for (int o = 0; o < CO; ++o) acc[o] = fmaf(v, wt[o], acc[o]);
       }
     }
   }
-  float* ob = out + static_cast<size_t>(b) * Co * oplane + pix;
+  T* ob = out + static_cast<size_t>(b) * Co * oplane + pix;
 #pragma unroll
   for (int o = 0; o < CO; ++o)
-    if (o < Co) ob[o * oplane] = relu ? fmaxf(acc[o], 0.f) : acc[o];
+    if (o < Co) put(ob + o * oplane, relu ? fmaxf(acc[o], 0.f) : acc[o]);
 }
 
-template <int CO>
-cudaError_t launch(const float* x, const float* w, const float* bias,
-                   float* out, int B, int Ci, int Co, int H, int W, int KH,
-                   int KW, int pt, int pl, int OH, int OW, int relu,
-                   cudaStream_t stream) {
+template <int CO, typename T>
+cudaError_t launch(const T* x, const T* w, const T* bias, T* out, int B,
+                   int Ci, int Co, int H, int W, int KH, int KW, int pt,
+                   int pl, int OH, int OW, int relu, cudaStream_t stream) {
   const size_t smem_bytes = (static_cast<size_t>(Ci) * KH * KW + 1) * CO * 4;
-  cudaError_t err = dnnca::allow_smem(stencil_conv_kernel<CO>, smem_bytes);
+  cudaError_t err =
+      dnnca::allow_smem(stencil_conv_kernel<CO, T>, smem_bytes);
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(B) * OH * OW;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  stencil_conv_kernel<CO><<<grid, kThreads, smem_bytes, stream>>>(
+  stencil_conv_kernel<CO, T><<<grid, kThreads, smem_bytes, stream>>>(
       x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu);
   return dnnca::launched(cudaGetLastError());
 }
@@ -140,73 +153,98 @@ __device__ __forceinline__ float4 relu_(float4 v) {
                      fmaxf(v.w, 0.f));
 }
 __device__ __forceinline__ float relu_(float v) { return fmaxf(v, 0.f); }
+// V4 groups of 4 pixels: f32 as one float4 load, bf16 as one 8-byte load
+// (unpacked to a float4); streaming loads evict first.
 template <typename T>
-__device__ __forceinline__ T load_(const T* p, bool streaming) {
-  return streaming ? __ldcs(p) : __ldg(p);
+__device__ __forceinline__ float4 load_(const T* p, bool streaming, float4) {
+  if constexpr (std::is_same_v<T, float>) {
+    const float4* q = reinterpret_cast<const float4*>(p);
+    return streaming ? __ldcs(q) : __ldg(q);
+  } else {
+    const uint2* q = reinterpret_cast<const uint2*>(p);
+    const uint2 u = streaming ? __ldcs(q) : __ldg(q);
+    return dnnca::unpack4(u);
+  }
 }
+template <typename T>
+__device__ __forceinline__ float load_(const T* p, bool streaming, float) {
+  if constexpr (std::is_same_v<T, float>)
+    return streaming ? __ldcs(p) : __ldg(p);
+  else
+    return dnnca::ldg_f32(p);
+}
+__device__ __forceinline__ void store_(float* p, float4 v) { store4(p, v); }
+__device__ __forceinline__ void store_(dnnca::bf16* p, float4 v) {
+  store4(p, v);
+}
+__device__ __forceinline__ void store_(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_(dnnca::bf16* p, float v) { put(p, v); }
 
-// T: float4 (groups of 4 pixels) or float (single pixels); CI: Ci exactly
-// (1-4) or a bucket (8, 16, 32: channels past Ci are skipped); V: groups a
-// thread. P is H * W, in pixels; the grid's y walks the batch.
-template <typename T, int CI, int V>
+// VT: float4 (groups of 4 pixels) or float (single pixels); T: the element
+// type of x, w, bias and out; CI: Ci exactly (1-4) or a bucket (8, 16, 32:
+// channels past Ci are skipped); V: groups a thread. P is H * W, in
+// pixels; the grid's y walks the batch.
+template <typename VT, typename T, int CI, int V>
 __global__ void __launch_bounds__(kPwThreads)
-pointwise_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ bias, float* __restrict__ out,
+pointwise_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                      const T* __restrict__ bias, T* __restrict__ out,
                       int B, int Ci, int Co, int P, int relu, int streaming) {
-  constexpr int kPx = sizeof(T) / sizeof(float);
+  constexpr int kPx = sizeof(VT) / sizeof(float);
   const int groups = P / kPx;
   const int q0 = blockIdx.x * (kPwThreads * V) + threadIdx.x;
   for (int b = blockIdx.y; b < B; b += gridDim.y) {
-    const T* xb = reinterpret_cast<const T*>(x + static_cast<size_t>(b) * Ci * P);
-    T* ob = reinterpret_cast<T*>(out + static_cast<size_t>(b) * Co * P);
-    T v[V][CI];
+    const T* xb = x + static_cast<size_t>(b) * Ci * P;
+    T* ob = out + static_cast<size_t>(b) * Co * P;
+    VT v[V][CI];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       const int q = q0 + k * kPwThreads;
 #pragma unroll
       for (int c = 0; c < CI; ++c)
         v[k][c] = q < groups && (CI <= 4 || c < Ci)
-                      ? load_(xb + c * groups + q, streaming != 0)
-                      : splat(0.f, T());
+                      ? load_(xb + (c * groups + q) * kPx, streaming != 0,
+                              VT())
+                      : splat(0.f, VT());
     }
     for (int o = 0; o < Co; ++o) {
       float wr[CI];
 #pragma unroll
       for (int c = 0; c < CI; ++c)
-        wr[c] = CI <= 4 || c < Ci ? __ldg(w + o * Ci + c) : 0.f;
-      const float bo = __ldg(bias + o);
+        wr[c] = CI <= 4 || c < Ci ? dnnca::ldg_f32(w + o * Ci + c) : 0.f;
+      const float bo = dnnca::ldg_f32(bias + o);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const int q = q0 + k * kPwThreads;
         if (q >= groups) continue;
-        T acc = splat(bo, T());
+        VT acc = splat(bo, VT());
 #pragma unroll
         for (int c = 0; c < CI; ++c) acc = fma_(wr[c], v[k][c], acc);
-        ob[o * groups + q] = relu ? relu_(acc) : acc;
+        store_(ob + (o * groups + q) * kPx, relu ? relu_(acc) : acc);
       }
     }
   }
 }
 
-template <typename T, int CI, int V>
-cudaError_t launch_pointwise(const float* x, const float* w, const float* bias,
-                             float* out, int B, int Ci, int Co, int P,
-                             int relu, int streaming, cudaStream_t stream) {
-  constexpr int kPx = sizeof(T) / sizeof(float);
+template <typename VT, typename T, int CI, int V>
+cudaError_t launch_pointwise(const T* x, const T* w, const T* bias, T* out,
+                             int B, int Ci, int Co, int P, int relu,
+                             int streaming, cudaStream_t stream) {
+  constexpr int kPx = sizeof(VT) / sizeof(float);
   const int groups = P / kPx;
   const dim3 grid((groups + kPwThreads * V - 1) / (kPwThreads * V),
                   B < 65535 ? B : 65535);
-  pointwise_conv_kernel<T, CI, V><<<grid, kPwThreads, 0, stream>>>(
+  pointwise_conv_kernel<VT, T, CI, V><<<grid, kPwThreads, 0, stream>>>(
       x, w, bias, out, B, Ci, Co, P, relu, streaming);
   return dnnca::launched(cudaGetLastError());
 }
 
-template <typename T>
-cudaError_t pointwise(const float* x, const float* w, const float* bias,
-                      float* out, int B, int Ci, int Co, int P, int relu,
-                      int streaming, cudaStream_t s) {
-#define DNNCA_PW(CI, V) \
-  launch_pointwise<T, CI, V>(x, w, bias, out, B, Ci, Co, P, relu, streaming, s)
+template <typename VT, typename T>
+cudaError_t pointwise(const T* x, const T* w, const T* bias, T* out, int B,
+                      int Ci, int Co, int P, int relu, int streaming,
+                      cudaStream_t s) {
+#define DNNCA_PW(CI, V)                                                 \
+  launch_pointwise<VT, T, CI, V>(x, w, bias, out, B, Ci, Co, P, relu, \
+                                 streaming, s)
   switch (Ci) {
     case 1: return DNNCA_PW(1, 2);
     case 2: return DNNCA_PW(2, 2);
@@ -224,10 +262,12 @@ cudaError_t pointwise(const float* x, const float* w, const float* bias,
 // CO: the output-channel bucket (1, 4, 8, 16 or 32); VI: 4 to read a pixel's
 // Ci inputs as float4 (Ci % 4 == 0, xs % 4 == 0, x 16-byte aligned), else 1;
 // VO: 4 to write its Co outputs as float4 (Co == CO, CO % 4 == 0), else 1.
-template <int CO, int VI, int VO>
+// T: the element type of x, w, bias and out (VI = 4 reads four bf16 as 8
+// bytes, VO = 4 writes four as 8 bytes).
+template <int CO, int VI, int VO, typename T>
 __global__ void __launch_bounds__(kThreads)
-stencil_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
+stencil_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const T* __restrict__ bias, T* __restrict__ out,
                     int B, int Ci, int Co, int H, int W, int xs, int KH,
                     int KW, int pt, int pl, int OH, int OW, int relu) {
   extern __shared__ float4 smem4[];
@@ -238,10 +278,10 @@ stencil_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float* bs = smem + n_w;   // [CO]
   for (int i = threadIdx.x; i < n_w; i += kThreads) {
     const int o = i % CO, c = (i / CO) % Ci, t = i / (CO * Ci);
-    ws[i] = o < Co ? w[(o * Ci + c) * taps + t] : 0.f;
+    ws[i] = o < Co ? to_f32(w[(o * Ci + c) * taps + t]) : 0.f;
   }
   for (int i = threadIdx.x; i < CO; i += kThreads)
-    bs[i] = i < Co ? bias[i] : 0.f;
+    bs[i] = i < Co ? to_f32(bias[i]) : 0.f;
   __syncthreads();
 
   const size_t oplane = static_cast<size_t>(OH) * OW;
@@ -254,22 +294,22 @@ stencil_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float acc[CO];
 #pragma unroll
   for (int o = 0; o < CO; ++o) acc[o] = bs[o];
-  const float* xb = x + static_cast<size_t>(b) * H * W * xs;
+  const T* xb = x + static_cast<size_t>(b) * H * W * xs;
   for (int ky = 0; ky < KH; ++ky) {
     const int iy = oy - pt + ky;
     if (iy < 0 || iy >= H) continue;
     for (int kx = 0; kx < KW; ++kx) {
       const int ix = ox - pl + kx;
       if (ix < 0 || ix >= W) continue;
-      const float* px = xb + (static_cast<size_t>(iy) * W + ix) * xs;
+      const T* px = xb + (static_cast<size_t>(iy) * W + ix) * xs;
       const float* wt = ws + (ky * KW + kx) * Ci * CO;
       for (int c = 0; c < Ci; c += VI) {
         float v[VI];
         if constexpr (VI == 4) {
-          const float4 q = __ldg(reinterpret_cast<const float4*>(px + c));
+          const float4 q = load_(px + c, false, float4());
           v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
         } else {
-          v[0] = __ldg(px + c);
+          v[0] = load_(px + c, false, float());
         }
 #pragma unroll
         for (int j = 0; j < VI; ++j) {
@@ -284,40 +324,39 @@ stencil_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int o = 0; o < CO; ++o) acc[o] = fmaxf(acc[o], 0.f);
   }
-  float* ob = out + idx * Co;
+  T* ob = out + idx * Co;
   if constexpr (VO == 4) {
 #pragma unroll
     for (int o = 0; o < CO; o += 4)
-      reinterpret_cast<float4*>(ob)[o / 4] =
-          make_float4(acc[o], acc[o + 1], acc[o + 2], acc[o + 3]);
+      store4(ob + o, make_float4(acc[o], acc[o + 1], acc[o + 2], acc[o + 3]));
   } else {
 #pragma unroll
     for (int o = 0; o < CO; ++o)
-      if (o < Co) ob[o] = acc[o];
+      if (o < Co) put(ob + o, acc[o]);
   }
 }
 
-template <int CO, int VI, int VO>
-cudaError_t launch_nhwc(const float* x, const float* w, const float* bias,
-                        float* out, int B, int Ci, int Co, int H, int W,
-                        int xs, int KH, int KW, int pt, int pl, int OH,
-                        int OW, int relu, cudaStream_t stream) {
+template <int CO, int VI, int VO, typename T>
+cudaError_t launch_nhwc(const T* x, const T* w, const T* bias, T* out, int B,
+                        int Ci, int Co, int H, int W, int xs, int KH, int KW,
+                        int pt, int pl, int OH, int OW, int relu,
+                        cudaStream_t stream) {
   const size_t smem_bytes = (static_cast<size_t>(KH) * KW * Ci + 1) * CO * 4;
   cudaError_t err =
-      dnnca::allow_smem(stencil_nhwc_kernel<CO, VI, VO>, smem_bytes);
+      dnnca::allow_smem(stencil_nhwc_kernel<CO, VI, VO, T>, smem_bytes);
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(B) * OH * OW;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  stencil_nhwc_kernel<CO, VI, VO><<<grid, kThreads, smem_bytes, stream>>>(
+  stencil_nhwc_kernel<CO, VI, VO, T><<<grid, kThreads, smem_bytes, stream>>>(
       x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, relu);
   return dnnca::launched(cudaGetLastError());
 }
 
-template <int CO>
-cudaError_t nhwc_co(const float* x, const float* w, const float* bias,
-                    float* out, int B, int Ci, int Co, int H, int W, int xs,
-                    int KH, int KW, int pt, int pl, int OH, int OW, int relu,
-                    int vec_in, cudaStream_t s) {
+template <int CO, typename T>
+cudaError_t nhwc_co(const T* x, const T* w, const T* bias, T* out, int B,
+                    int Ci, int Co, int H, int W, int xs, int KH, int KW,
+                    int pt, int pl, int OH, int OW, int relu, int vec_in,
+                    cudaStream_t s) {
 #define DNNCA_NHWC(VI, VO)                                                  \
   launch_nhwc<CO, VI, VO>(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, \
                           pl, OH, OW, relu, s)
@@ -327,13 +366,11 @@ cudaError_t nhwc_co(const float* x, const float* w, const float* bias,
 #undef DNNCA_NHWC
 }
 
-}  // namespace
-
-extern "C" int dnnca_stencil_conv(const float* x, const float* w,
-                                  const float* bias, float* out, int B,
-                                  int Ci, int Co, int H, int W, int KH,
-                                  int KW, int pt, int pl, int OH, int OW,
-                                  int relu, int device, void* stream) {
+template <typename T>
+int stencil_entry(const T* x, const T* w, const T* bias, T* out, int B,
+                  int Ci, int Co, int H, int W, int KH, int KW, int pt,
+                  int pl, int OH, int OW, int relu, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -348,14 +385,10 @@ extern "C" int dnnca_stencil_conv(const float* x, const float* w,
 #undef DNNCA_STENCIL
 }
 
-// The pointwise route: a 1 x 1 conv with zero pads over P = H * W pixels a
-// plane. vec: P % 4 == 0 and x, out 16-byte aligned (float4 groups);
-// streaming: the call exceeds L2 (evict-first loads).
-extern "C" int dnnca_pointwise_conv(const float* x, const float* w,
-                                    const float* bias, float* out, int B,
-                                    int Ci, int Co, int P, int relu,
-                                    int streaming, int vec, int device,
-                                    void* stream) {
+template <typename T>
+int pointwise_entry(const T* x, const T* w, const T* bias, T* out, int B,
+                    int Ci, int Co, int P, int relu, int streaming, int vec,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -365,15 +398,11 @@ extern "C" int dnnca_pointwise_conv(const float* x, const float* w,
                                 streaming, s);
 }
 
-// The NHWC form: x [B, H, W, *] with its pixels xs floats apart (its Ci
-// channels contiguous), out [B, OH, OW, Co] contiguous. vec_in: Ci % 4 == 0,
-// xs % 4 == 0 and x 16-byte aligned (float4 reads); out is 16-byte aligned.
-extern "C" int dnnca_stencil_conv_nhwc(const float* x, const float* w,
-                                       const float* bias, float* out, int B,
-                                       int Ci, int Co, int H, int W, int xs,
-                                       int KH, int KW, int pt, int pl, int OH,
-                                       int OW, int relu, int vec_in,
-                                       int device, void* stream) {
+template <typename T>
+int nhwc_entry(const T* x, const T* w, const T* bias, T* out, int B, int Ci,
+               int Co, int H, int W, int xs, int KH, int KW, int pt, int pl,
+               int OH, int OW, int relu, int vec_in, int device,
+               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -386,4 +415,72 @@ extern "C" int dnnca_stencil_conv_nhwc(const float* x, const float* w,
   if (Co <= 16) return DNNCA_NHWC_CO(16);
   return DNNCA_NHWC_CO(32);
 #undef DNNCA_NHWC_CO
+}
+
+}  // namespace
+
+using dnnca::bf16;
+
+extern "C" int dnnca_stencil_conv(const float* x, const float* w,
+                                  const float* bias, float* out, int B,
+                                  int Ci, int Co, int H, int W, int KH,
+                                  int KW, int pt, int pl, int OH, int OW,
+                                  int relu, int device, void* stream) {
+  return stencil_entry(x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH,
+                       OW, relu, device, stream);
+}
+
+// The bf16 form: x, w, bias and out bf16.
+extern "C" int dnnca_stencil_conv_bf16(const bf16* x, const bf16* w,
+                                       const bf16* bias, bf16* out, int B,
+                                       int Ci, int Co, int H, int W, int KH,
+                                       int KW, int pt, int pl, int OH, int OW,
+                                       int relu, int device, void* stream) {
+  return stencil_entry(x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH,
+                       OW, relu, device, stream);
+}
+
+// The pointwise route: a 1 x 1 conv with zero pads over P = H * W pixels a
+// plane. vec: P % 4 == 0 and x, out aligned to 4 elements (float4 groups);
+// streaming: the call exceeds L2 (evict-first loads).
+extern "C" int dnnca_pointwise_conv(const float* x, const float* w,
+                                    const float* bias, float* out, int B,
+                                    int Ci, int Co, int P, int relu,
+                                    int streaming, int vec, int device,
+                                    void* stream) {
+  return pointwise_entry(x, w, bias, out, B, Ci, Co, P, relu, streaming, vec,
+                         device, stream);
+}
+
+// The bf16 form of the pointwise route (x, w, bias and out bf16).
+extern "C" int dnnca_pointwise_conv_bf16(const bf16* x, const bf16* w,
+                                         const bf16* bias, bf16* out, int B,
+                                         int Ci, int Co, int P, int relu,
+                                         int streaming, int vec, int device,
+                                         void* stream) {
+  return pointwise_entry(x, w, bias, out, B, Ci, Co, P, relu, streaming, vec,
+                         device, stream);
+}
+
+// The NHWC form: x [B, H, W, *] with its pixels xs elements apart (its Ci
+// channels contiguous), out [B, OH, OW, Co] contiguous. vec_in: Ci % 4 ==
+// 0, xs % 4 == 0 and x aligned to 4 elements (four-value reads); out is
+// aligned to 4 elements.
+extern "C" int dnnca_stencil_conv_nhwc(const float* x, const float* w,
+                                       const float* bias, float* out, int B,
+                                       int Ci, int Co, int H, int W, int xs,
+                                       int KH, int KW, int pt, int pl, int OH,
+                                       int OW, int relu, int vec_in,
+                                       int device, void* stream) {
+  return nhwc_entry(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH,
+                    OW, relu, vec_in, device, stream);
+}
+
+// The bf16 form of the NHWC entry (x, w, bias and out bf16).
+extern "C" int dnnca_stencil_conv_nhwc_bf16(
+    const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int Ci,
+    int Co, int H, int W, int xs, int KH, int KW, int pt, int pl, int OH,
+    int OW, int relu, int vec_in, int device, void* stream) {
+  return nhwc_entry(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH,
+                    OW, relu, vec_in, device, stream);
 }

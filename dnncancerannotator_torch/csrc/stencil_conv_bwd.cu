@@ -32,6 +32,13 @@
 //   shared memory as [Co][KH][KW][CI] float4 broadcasts; the output window
 //   is a bounds test on the index of g, never a padded copy. dw and db go
 //   through the shared wgrad kernel and its fixed-order partial sum.
+//
+// bf16 forms (entries dnnca_stencil_conv_bwd_bf16,
+// dnnca_pointwise_conv_bwd_bf16): x, g and w in bf16, converted to f32 as
+// they are read or staged, the sums the f32 form's in its order, and dx,
+// dw and db rounded to bf16 (nearest-even) from the f32 form's f32
+// results, as fastconv.py:213 casts stencil_conv2d_bwd_pallas's: equal to
+// the f32 form's on the upcast inputs, rounded.
 #include "conv_tile.cuh"
 #include "wgrad.cuh"
 
@@ -41,17 +48,20 @@ using dnnca::tile::tap;
 
 constexpr int kThreads = 256;
 
-template <int CI>
+using dnnca::put;
+using dnnca::to_f32;
+
+template <int CI, typename T>
 __global__ void __launch_bounds__(kThreads)
-stencil_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ w,
-                     float* __restrict__ dx, int B, int Ci, int Co, int H,
+stencil_dgrad_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                     T* __restrict__ dx, int B, int Ci, int Co, int H,
                      int W, int KH, int KW, int pt, int pl, int OH, int OW) {
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [Co][KH][KW][CI]
   const int taps = KH * KW;
   for (int i = threadIdx.x; i < Co * taps * CI; i += kThreads) {
     const int c = i % CI, t = (i / CI) % taps, o = i / (CI * taps);
-    ws[i] = c < Ci ? w[(o * Ci + c) * taps + t] : 0.f;
+    ws[i] = c < Ci ? to_f32(w[(o * Ci + c) * taps + t]) : 0.f;
   }
   __syncthreads();
 
@@ -66,7 +76,7 @@ stencil_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ w,
 #pragma unroll
   for (int c = 0; c < CI; ++c) acc[c] = 0.f;
   const size_t oplane = static_cast<size_t>(OH) * OW;
-  const float* gb = g + static_cast<size_t>(b) * Co * oplane;
+  const T* gb = g + static_cast<size_t>(b) * Co * oplane;
   const float4* ws4 = reinterpret_cast<const float4*>(ws);
   for (int o = 0; o < Co; ++o) {
     for (int ky = 0; ky < KH; ++ky) {
@@ -75,27 +85,29 @@ stencil_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ w,
       for (int kx = 0; kx < KW; ++kx) {
         const int ox = ix + pl - kx;
         if (ox < 0 || ox >= OW) continue;
-        tap<CI>(acc, gb[o * oplane + static_cast<size_t>(oy) * OW + ox],
+        tap<CI>(acc,
+                to_f32(gb[o * oplane + static_cast<size_t>(oy) * OW + ox]),
                 ws4 + ((o * KH + ky) * KW + kx) * (CI / 4));
       }
     }
   }
-  float* dxb = dx + static_cast<size_t>(b) * Ci * plane + pix;
+  T* dxb = dx + static_cast<size_t>(b) * Ci * plane + pix;
 #pragma unroll
   for (int c = 0; c < CI; ++c)
-    if (c < Ci) dxb[c * plane] = acc[c];
+    if (c < Ci) put(dxb + c * plane, acc[c]);
 }
 
-template <int CI>
-cudaError_t launch_dgrad(const float* g, const float* w, float* dx, int B,
-                         int Ci, int Co, int H, int W, int KH, int KW, int pt,
-                         int pl, int OH, int OW, cudaStream_t stream) {
+template <int CI, typename T>
+cudaError_t launch_dgrad(const T* g, const T* w, T* dx, int B, int Ci, int Co,
+                         int H, int W, int KH, int KW, int pt, int pl, int OH,
+                         int OW, cudaStream_t stream) {
   const size_t smem_bytes = static_cast<size_t>(Co) * KH * KW * CI * 4;
-  cudaError_t err = dnnca::allow_smem(stencil_dgrad_kernel<CI>, smem_bytes);
+  cudaError_t err =
+      dnnca::allow_smem(stencil_dgrad_kernel<CI, T>, smem_bytes);
   if (err != cudaSuccess) return err;
   const size_t n = static_cast<size_t>(B) * H * W;
   const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  stencil_dgrad_kernel<CI><<<grid, kThreads, smem_bytes, stream>>>(
+  stencil_dgrad_kernel<CI, T><<<grid, kThreads, smem_bytes, stream>>>(
       g, w, dx, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW);
   return dnnca::launched(cudaGetLastError());
 }
@@ -110,13 +122,14 @@ constexpr int kPwThreads = 256;  // ops/kernels/stencil_conv_bwd.py: THREADS
 constexpr int kRun = 4;          // float4 groups an f32 run (16 pixels): RUN
 constexpr int kChunk = 16;       // block partials a finish unit adds: CHUNK
 
+template <typename T>
 struct PwArgs {
-  const float* x;     // [B][Ci][P]
-  const float* g;     // [B][Co][P]
-  const float* w;     // [Co][Ci]
-  float* dx;          // [B][Ci][P] or null
-  float* dw;          // [Co][Ci]
-  float* db;          // [Co]
+  const T* x;         // [B][Ci][P]
+  const T* g;         // [B][Co][P]
+  const T* w;         // [Co][Ci]
+  T* dx;              // [B][Ci][P] or null
+  T* dw;              // [Co][Ci]
+  T* db;              // [Co]
   double* partial;    // [blocks][Co * Ci + Co]: dw, then db
   unsigned* ticket;   // 0 between calls
   int Ci, Co, P;
@@ -136,8 +149,9 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
 // Shared memory: xs [Ci][tile], gs [Co][tile], ws [Co][Ci] (to a whole
 // float4), red [warps] and part [items] doubles; the finish reuses it from
 // the start as [items a batch][K] doubles.
+template <typename T>
 __global__ void __launch_bounds__(kPwThreads)
-pointwise_bwd_kernel(const PwArgs a) {
+pointwise_bwd_kernel(const PwArgs<T> a) {
   extern __shared__ float4 smem4[];
   const int Ci = a.Ci, Co = a.Co, P = a.P, TP = a.tile, TQ = TP / 4;
   const int n_w = Co * Ci, n = n_w + Co, S = a.slices, tid = threadIdx.x;
@@ -149,26 +163,37 @@ pointwise_bwd_kernel(const PwArgs a) {
   const float4* xs4 = reinterpret_cast<const float4*>(xs);
   const float4* gs4 = reinterpret_cast<const float4*>(gs);
 
-  for (int i = tid; i < n_w; i += kPwThreads) ws[i] = a.w[i];
+  for (int i = tid; i < n_w; i += kPwThreads) ws[i] = to_f32(a.w[i]);
   for (int i = tid; i < n; i += kPwThreads) part[i] = 0.0;
   const int t0 = blockIdx.x * a.per_block;
   const int t1 = min(a.tiles, t0 + a.per_block);
   for (int t = t0; t < t1; ++t) {
     const int b = t / a.chunks, p0 = (t - b * a.chunks) * TP;
     const int valid = min(TP, P - p0);   // pixels of the tile in the plane
-    const float* xb = a.x + static_cast<size_t>(b) * Ci * P + p0;
-    const float* gb = a.g + static_cast<size_t>(b) * Co * P + p0;
-    // stage every x and g plane of the tile, zero past the plane
+    const T* xb = a.x + static_cast<size_t>(b) * Ci * P + p0;
+    const T* gb = a.g + static_cast<size_t>(b) * Co * P + p0;
+    // stage every x and g plane of the tile, zero past the plane (the bf16
+    // form converts as it stores: four values from 8 bytes where vec)
     for (int ch = 0; ch < Ci + Co; ++ch) {
-      const float* src = ch < Ci ? xb + ch * P : gb + (ch - Ci) * P;
+      const T* src = ch < Ci ? xb + ch * P : gb + (ch - Ci) * P;
       float* dst = xs + ch * TP;   // gs follows xs
       if (a.vec) {
-        for (int q = tid; q < TQ; q += kPwThreads)
-          cp_async16(dst + 4 * q, 4 * q < valid ? src + 4 * q : src,
-                     4 * q < valid);
+        for (int q = tid; q < TQ; q += kPwThreads) {
+          if constexpr (std::is_same_v<T, float>)
+            cp_async16(dst + 4 * q, 4 * q < valid ? src + 4 * q : src,
+                       4 * q < valid);
+          else
+            reinterpret_cast<float4*>(dst)[q] =
+                4 * q < valid ? dnnca::load4(src + 4 * q)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       } else {
-        for (int j = tid; j < TP; j += kPwThreads)
-          cp_async4(dst + j, j < valid ? src + j : src, j < valid);
+        for (int j = tid; j < TP; j += kPwThreads) {
+          if constexpr (std::is_same_v<T, float>)
+            cp_async4(dst + j, j < valid ? src + j : src, j < valid);
+          else
+            dst[j] = j < valid ? to_f32(src[j]) : 0.f;
+        }
       }
     }
     cp_async_wait_all();
@@ -176,7 +201,7 @@ pointwise_bwd_kernel(const PwArgs a) {
 
     // dx = sum_o g_o w[o, c]
     if (a.dx != nullptr) {
-      float* dxb = a.dx + static_cast<size_t>(b) * Ci * P + p0;
+      T* dxb = a.dx + static_cast<size_t>(b) * Ci * P + p0;
       for (int q = tid; q < TQ && 4 * q < valid; q += kPwThreads) {
         for (int c = 0; c < Ci; ++c) {
           float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -188,14 +213,14 @@ pointwise_bwd_kernel(const PwArgs a) {
             acc.z = fmaf(wv, gv.z, acc.z);
             acc.w = fmaf(wv, gv.w, acc.w);
           }
-          float* dst = dxb + c * P + 4 * q;
+          T* dst = dxb + c * P + 4 * q;
           if (a.vec) {
-            *reinterpret_cast<float4*>(dst) = acc;
+            dnnca::store4(dst, acc);
           } else {
             const float v[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (4 * q + e < valid) dst[e] = v[e];
+              if (4 * q + e < valid) put(dst + e, v[e]);
           }
         }
       }
@@ -299,22 +324,19 @@ pointwise_bwd_kernel(const PwArgs a) {
       double sum = 0.0;
       for (int k = 0; k < K; ++k) sum += fin[il * K + k];
       const int i = i0 + il;
-      (i < n_w ? a.dw[i] : a.db[i - n_w]) = static_cast<float>(sum);
+      put(i < n_w ? a.dw + i : a.db + (i - n_w), static_cast<float>(sum));
     }
     __syncthreads();   // fin is reused by the next batch
   }
   if (tid == 0) *a.ticket = 0u;
 }
 
-}  // namespace
-
-// dx may be null (no data gradient). dwb is [Co*Ci*KH*KW + Co] (dw then
-// db); partial is [size of dwb * wgrad_blocks] scratch.
-extern "C" int dnnca_stencil_conv_bwd(
-    const float* x, const float* g, const float* w, float* dx, float* dwb,
-    float* partial, int B, int Ci, int Co, int H, int W, int KH, int KW,
-    int pt, int pl, int OH, int OW, int wgrad_blocks, int device,
-    void* stream) {
+template <typename T>
+int stencil_bwd(const T* x, const T* g, const T* w, T* dx, T* dwb,
+                float* partial, int B, int Ci, int Co, int H, int W, int KH,
+                int KW, int pt, int pl, int OH, int OW, int wgrad_blocks,
+                int device, void* stream) {
+  constexpr bool kBf16 = !std::is_same_v<T, float>;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -328,9 +350,53 @@ extern "C" int dnnca_stencil_conv_bwd(
 #undef DNNCA_DGRAD
     if (err != cudaSuccess) return err;
   }
-  const dnnca::WgradArgs wg{g,  nullptr, x,  partial, dwb, B,  Co, Ci, OH,
-                            OW, H,       W,  KH,      KW,  pt, pl, wgrad_blocks};
+  const dnnca::WgradArgs wg{g,  nullptr, x,  partial, dwb, B,  Co,
+                            Ci, OH,      OW, H,       W,   KH, KW,
+                            pt, pl,      wgrad_blocks, kBf16, kBf16, kBf16};
   return dnnca::launch_wgrad(wg, s);
+}
+
+template <typename T>
+int pointwise_bwd(const T* x, const T* g, const T* w, T* dx, T* dw, T* db,
+                  double* partial, unsigned* ticket, int B, int Ci, int Co,
+                  int P, int tile, int per_block, int blocks, int slices,
+                  int vec, int smem, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = dnnca::allow_smem(pointwise_bwd_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (P + tile - 1) / tile;
+  const PwArgs<T> a{x,      g,      w,          dx,        dw,     db,
+                    partial, ticket, Ci,         Co,        P,      tile,
+                    chunks,  B * chunks, per_block, slices, vec,    smem};
+  pointwise_bwd_kernel<T><<<blocks, kPwThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return dnnca::launched(cudaGetLastError());
+}
+
+}  // namespace
+
+using dnnca::bf16;
+
+// dx may be null (no data gradient). dwb is [Co*Ci*KH*KW + Co] (dw then
+// db); partial is [size of dwb * wgrad_blocks] scratch.
+extern "C" int dnnca_stencil_conv_bwd(
+    const float* x, const float* g, const float* w, float* dx, float* dwb,
+    float* partial, int B, int Ci, int Co, int H, int W, int KH, int KW,
+    int pt, int pl, int OH, int OW, int wgrad_blocks, int device,
+    void* stream) {
+  return stencil_bwd(x, g, w, dx, dwb, partial, B, Ci, Co, H, W, KH, KW, pt,
+                     pl, OH, OW, wgrad_blocks, device, stream);
+}
+
+// The bf16 form: x, g, w, dx and dwb bf16; partial f32.
+extern "C" int dnnca_stencil_conv_bwd_bf16(
+    const bf16* x, const bf16* g, const bf16* w, bf16* dx, bf16* dwb,
+    float* partial, int B, int Ci, int Co, int H, int W, int KH, int KW,
+    int pt, int pl, int OH, int OW, int wgrad_blocks, int device,
+    void* stream) {
+  return stencil_bwd(x, g, w, dx, dwb, partial, B, Ci, Co, H, W, KH, KW, pt,
+                     pl, OH, OW, wgrad_blocks, device, stream);
 }
 
 // The pointwise route (1 x 1, zero pads) in one launch of ``blocks``
@@ -342,15 +408,19 @@ extern "C" int dnnca_pointwise_conv_bwd(
     float* db, double* partial, unsigned* ticket, int B, int Ci, int Co, int P,
     int tile, int per_block, int blocks, int slices, int vec, int smem,
     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = dnnca::allow_smem(pointwise_bwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int chunks = (P + tile - 1) / tile;
-  const PwArgs a{x,      g,      w,          dx,        dw,     db,
-                 partial, ticket, Ci,         Co,        P,      tile,
-                 chunks,  B * chunks, per_block, slices, vec,    smem};
-  pointwise_bwd_kernel<<<blocks, kPwThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return dnnca::launched(cudaGetLastError());
+  return pointwise_bwd(x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P,
+                       tile, per_block, blocks, slices, vec, smem, device,
+                       stream);
+}
+
+// The bf16 form of the pointwise route: x, g, w, dx, dw and db bf16 (vec:
+// P % 4 == 0 and x, g, dx aligned to 4 elements).
+extern "C" int dnnca_pointwise_conv_bwd_bf16(
+    const bf16* x, const bf16* g, const bf16* w, bf16* dx, bf16* dw,
+    bf16* db, double* partial, unsigned* ticket, int B, int Ci, int Co, int P,
+    int tile, int per_block, int blocks, int slices, int vec, int smem,
+    int device, void* stream) {
+  return pointwise_bwd(x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P,
+                       tile, per_block, blocks, slices, vec, smem, device,
+                       stream);
 }

@@ -22,6 +22,10 @@
 // slices so that every thread works; with more, the block makes one pass
 // over its tiles per group of pairs. The slices are summed in shared
 // memory, and the block writes one partial per output entry.
+//
+// bf16 forms (WgradArgs' flags): A and X values are converted to f32 as
+// they are staged, so the sums are the f32 form's, and the fixed-order
+// total is rounded to bf16 from its f32 value.
 #include "conv_tile.cuh"
 #include "wgrad.cuh"
 
@@ -34,9 +38,11 @@ constexpr int kTileH = 8;
 constexpr int kTileW = 32;
 constexpr int kPix = kTileH * kTileW;
 
-template <int C>
+template <int C, typename TA, typename TX>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(dnnca::WgradArgs a) {
+  const TA* A = static_cast<const TA*>(a.A);
+  const TX* X = static_cast<const TX*>(a.X);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int taps = a.KH * a.KW;
@@ -79,7 +85,7 @@ wgrad_kernel(dnnca::WgradArgs a) {
         if (o < a.O && oy < a.OH && ox < a.OW) {
           const size_t idx = (static_cast<size_t>(b) * a.O + o) * oplane +
                              static_cast<size_t>(oy) * a.OW + ox;
-          v = a.A[idx];
+          v = dnnca::to_f32(A[idx]);
           if (a.mask != nullptr && !(a.mask[idx] > 0.f)) v = 0.f;
         }
         as[pix * C + o] = v;
@@ -88,8 +94,9 @@ wgrad_kernel(dnnca::WgradArgs a) {
         const int c = i / xs_plane, r = i % xs_plane / xs_w, col = i % xs_w;
         const int iy = oy0 - a.pt + r, ix = ox0 - a.pl + col;
         xs[i] = (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
-                    ? a.X[(static_cast<size_t>(b) * a.Cin + c) * iplane +
-                          static_cast<size_t>(iy) * a.W + ix]
+                    ? dnnca::to_f32(
+                          X[(static_cast<size_t>(b) * a.Cin + c) * iplane +
+                            static_cast<size_t>(iy) * a.W + ix])
                     : 0.f;
       }
       __syncthreads();
@@ -128,8 +135,9 @@ wgrad_kernel(dnnca::WgradArgs a) {
   }
 }
 
+template <typename TO>
 __global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
+sum_partials_kernel(const float* __restrict__ partial, TO* __restrict__ out,
                     int blocks) {
   __shared__ float buf[kThreads];
   const float* row = partial + static_cast<size_t>(blockIdx.x) * blocks;
@@ -141,10 +149,10 @@ sum_partials_kernel(const float* __restrict__ partial, float* __restrict__ out,
     if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = buf[0];
+  if (threadIdx.x == 0) dnnca::put(out + blockIdx.x, buf[0]);
 }
 
-template <int C>
+template <int C, typename TA, typename TX>
 cudaError_t launch(const dnnca::WgradArgs& a, cudaStream_t stream) {
   const int n_pairs = a.Cin * a.KH * a.KW + 1;
   const int per_pass = n_pairs < kThreads ? n_pairs : kThreads;
@@ -154,14 +162,27 @@ cudaError_t launch(const dnnca::WgradArgs& a, cudaStream_t stream) {
            static_cast<size_t>(a.Cin) * (kTileH + a.KH - 1) *
                (kTileW + a.KW - 1) +
            static_cast<size_t>(slices) * per_pass * C);
-  cudaError_t err = dnnca::allow_smem(wgrad_kernel<C>, smem_bytes);
+  cudaError_t err = dnnca::allow_smem(wgrad_kernel<C, TA, TX>, smem_bytes);
   if (err != cudaSuccess) return err;
-  wgrad_kernel<C><<<a.blocks, kThreads, smem_bytes, stream>>>(a);
+  wgrad_kernel<C, TA, TX><<<a.blocks, kThreads, smem_bytes, stream>>>(a);
   err = dnnca::launched(cudaGetLastError());
   if (err != cudaSuccess) return err;
-  return dnnca::launch_sum_partials(a.partial, a.out,
-                                    a.O * a.Cin * a.KH * a.KW + a.O,
-                                    a.blocks, stream);
+  const int n = a.O * a.Cin * a.KH * a.KW + a.O;
+  return a.out_bf16
+             ? dnnca::launch_sum_partials(
+                   a.partial, static_cast<dnnca::bf16*>(a.out), n, a.blocks,
+                   stream)
+             : dnnca::launch_sum_partials(a.partial,
+                                          static_cast<float*>(a.out), n,
+                                          a.blocks, stream);
+}
+
+template <typename TA, typename TX>
+cudaError_t launch_o(const dnnca::WgradArgs& a, cudaStream_t stream) {
+  if (a.O <= 4) return launch<4, TA, TX>(a, stream);
+  if (a.O <= 8) return launch<8, TA, TX>(a, stream);
+  if (a.O <= 16) return launch<16, TA, TX>(a, stream);
+  return launch<32, TA, TX>(a, stream);
 }
 
 }  // namespace
@@ -170,15 +191,24 @@ namespace dnnca {
 
 cudaError_t launch_sum_partials(const float* partial, float* out, int n,
                                 int blocks, cudaStream_t stream) {
-  sum_partials_kernel<<<n, kThreads, 0, stream>>>(partial, out, blocks);
+  sum_partials_kernel<float><<<n, kThreads, 0, stream>>>(partial, out,
+                                                         blocks);
+  return dnnca::launched(cudaGetLastError());
+}
+
+cudaError_t launch_sum_partials(const float* partial, bf16* out, int n,
+                                int blocks, cudaStream_t stream) {
+  sum_partials_kernel<bf16><<<n, kThreads, 0, stream>>>(partial, out,
+                                                        blocks);
   return dnnca::launched(cudaGetLastError());
 }
 
 cudaError_t launch_wgrad(const WgradArgs& a, cudaStream_t stream) {
-  if (a.O <= 4) return launch<4>(a, stream);
-  if (a.O <= 8) return launch<8>(a, stream);
-  if (a.O <= 16) return launch<16>(a, stream);
-  return launch<32>(a, stream);
+  if (a.a_bf16)
+    return a.x_bf16 ? launch_o<bf16, bf16>(a, stream)
+                    : launch_o<bf16, float>(a, stream);
+  return a.x_bf16 ? launch_o<float, bf16>(a, stream)
+                  : launch_o<float, float>(a, stream);
 }
 
 }  // namespace dnnca

@@ -137,10 +137,10 @@ class Engine:
         self.model_config = copy.deepcopy(model_config)
         self.seed = seed
         deploy = self.model_config['deploy_options']
-        if deploy.get('precision') in ('bfloat16', 'bf16'):
-            raise NotImplementedError(
-                'precision bfloat16 is not ported yet; the port computes in '
-                'float32 (ROADMAP.md queue 1 item 3)')
+        # compute precision of the conv stack; parameters, optimizer state,
+        # BatchNorm statistics and checkpoints stay f32 (engine.py:151-154)
+        self.compute_dtype = (torch.bfloat16 if deploy.get('precision') in (
+            'bfloat16', 'bf16') else None)
         if deploy.get('debug_asserts'):
             raise NotImplementedError(
                 'debug_asserts (the weight, label and positive-rate checks) '
@@ -172,7 +172,8 @@ class Engine:
         generator = torch.Generator().manual_seed(self.seed)
         model, _ = models_lib.build_model(
             self.model_name, self.model_config['model_options'],
-            in_channels=input_shape[-1], generator=generator)
+            in_channels=input_shape[-1], generator=generator,
+            dtype=self.compute_dtype)
         self.model = model.to(self.device).eval()
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info('Initialized %s: %d params on %s', self.model_name,

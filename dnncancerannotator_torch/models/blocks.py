@@ -13,6 +13,12 @@ autograd.
 - ``Decoder``: Upsample blocks over the reversed skips, each with the skip's
   channel count as its filters.
 
+``dtype`` is the compute dtype of a block's convs and BatchNorms (None:
+the input's); ``level0_dtype`` overrides it for ``down_0`` and the last
+Upsample, the full-resolution level (the ``f32_level0`` policy,
+blocks.py:322-323, :361-362). A skip joins its Upsample in the Upsample's
+dtype.
+
 Submodules carry the flax names (``down_0``, ``convchain``, ``conv_0``,
 ``bn_0``, ``pool_bn``, ``tconv``, ``tconv_bn``, ...) so a state_dict key is
 the flax parameter path with dots. BatchNorm (models/fastbn.py) normalizes
@@ -79,45 +85,56 @@ def center_crop_to(x, target_h, target_w, data_format='NCHW'):
     return x[:, top:top + target_h, left:left + target_w]
 
 
-def _bn(bn, features):
+def _bn(bn, features, dtype):
     '''A block's BatchNorm over ``features`` channels, or None without BN.'''
-    return fastbn.BatchNormFast(features) if bn else None
+    return fastbn.BatchNormFast(features, dtype=dtype) if bn else None
 
 
 class ConvChain(nn.Module):
     '''``n_conv`` stacked convs, each followed by its BatchNorm ``bn_i``
     when ``bn``. A relu chain of two stride-1 SAME convs without BN in NCHW
-    runs whole as one conv_chain kernel; otherwise each conv runs on its
-    own. The parameters are the same either way.'''
+    runs whole as one conv_chain kernel where ``fastconv.chain_ok`` takes
+    it in the dtype it runs in; otherwise each conv runs on its own. The
+    parameters are the same either way.'''
 
     def __init__(self, in_channels, filters, kernel_size, conv_stride, bn,
                  n_conv=2, padding='VALID', activation='relu',
-                 data_format='NCHW', generator=None):
+                 data_format='NCHW', dtype=None, generator=None):
         super().__init__()
+        self.dtype = fastconv.resolve_dtype(dtype)
         self.fuse_relu = activation in ('relu', 'ReLU')
         self.act = None if self.fuse_relu else solve_activation(activation)
-        self.fused = (self.fuse_relu and not bn and n_conv == 2
-                      and conv_stride == 1 and data_format == 'NCHW'
-                      and fastconv.chain_ok(in_channels, filters,
-                                            kernel_size, padding))
+        cell = (self.fuse_relu and not bn and n_conv == 2
+                and conv_stride == 1 and data_format == 'NCHW')
+        # whether the chain runs whole, by its dtype at the call (the JAX
+        # chain gates read it then: ``self.dtype or x.dtype``); ``fused``
+        # is the answer for the module's own dtype (f32 without one)
+        self._fused = {dt: cell and fastconv.chain_ok(
+            in_channels, filters, kernel_size, padding, dt)
+            for dt in (torch.float32, torch.bfloat16)}
+        self.fused = self._fused[self.dtype or torch.float32]
         ci = in_channels
         for i in range(n_conv):
             self.add_module(f'conv_{i}', fastconv.Conv2DFast(
                 ci, filters, (kernel_size, kernel_size),
                 strides=(conv_stride, conv_stride), padding=padding,
                 activation='relu' if self.fuse_relu else None,
-                data_format=data_format, generator=generator))
+                data_format=data_format, dtype=self.dtype,
+                generator=generator))
             if bn:
-                self.add_module(f'bn_{i}', fastbn.BatchNormFast(filters))
+                self.add_module(f'bn_{i}', fastbn.BatchNormFast(
+                    filters, dtype=self.dtype))
             ci = filters
         self.n_conv = n_conv
         self.bn = bn
 
     def forward(self, x):
-        if self.fused:
+        dtype = self.dtype or (x[0] if isinstance(x, tuple) else x).dtype
+        if self._fused.get(dtype, self._fused[torch.float32]):
+            c0, c1 = self.conv_0, self.conv_1
             return functions.conv_chain(
-                x, self.conv_0.weight, self.conv_0.bias,
-                self.conv_1.weight, self.conv_1.bias)
+                x.to(dtype), c0.weight.to(dtype), c0.bias.to(dtype),
+                c1.weight.to(dtype), c1.bias.to(dtype))
         for i in range(self.n_conv):
             x = getattr(self, f'conv_{i}')(x)
             if self.act is not None:
@@ -132,15 +149,15 @@ class Downsample(nn.Module):
 
     def __init__(self, in_channels, filters, rate, kernel_size, conv_stride,
                  bn, n_conv=2, padding='VALID', activation='relu',
-                 data_format='NCHW', generator=None):
+                 data_format='NCHW', dtype=None, generator=None):
         super().__init__()
         self.rate = rate
         self.data_format = data_format
         self.convchain = ConvChain(
             in_channels, filters, kernel_size, conv_stride, bn,
             n_conv=n_conv, padding=padding, activation=activation,
-            data_format=data_format, generator=generator)
-        self.pool_bn = _bn(bn, filters)
+            data_format=data_format, dtype=dtype, generator=generator)
+        self.pool_bn = _bn(bn, filters, self.convchain.dtype)
 
     def forward(self, x):
         conv = self.convchain(x)
@@ -156,18 +173,18 @@ class Upsample(nn.Module):
 
     def __init__(self, in_channels, filters, rate, kernel_size, conv_stride,
                  bn, n_conv=2, padding='VALID', activation='relu',
-                 data_format='NCHW', generator=None):
+                 data_format='NCHW', dtype=None, generator=None):
         super().__init__()
         self.data_format = data_format
         self.tconv = fastconv.ConvTranspose2DFast(
             in_channels, filters, (rate, rate), (rate, rate),
-            data_format=data_format, generator=generator)
-        self.tconv_bn = _bn(bn, filters)
+            data_format=data_format, dtype=dtype, generator=generator)
+        self.tconv_bn = _bn(bn, filters, self.tconv.dtype)
         # the chain sees [up, skip]: the up channels come first
         self.convchain = ConvChain(
             2 * filters, filters, kernel_size, conv_stride, bn,
             n_conv=n_conv, padding=padding, activation=activation,
-            data_format=data_format, generator=generator)
+            data_format=data_format, dtype=dtype, generator=generator)
 
     def forward(self, x, reference):
         up = self.tconv(x)
@@ -175,17 +192,20 @@ class Upsample(nn.Module):
             up = self.tconv_bn(up)
         if self.data_format == 'NCHW':
             cropped = center_crop_to(reference, up.shape[2], up.shape[3])
-            return self.convchain(torch.cat([up, cropped], dim=1))
+            return self.convchain(
+                torch.cat([up, cropped.to(up.dtype)], dim=1))
         cropped = center_crop_to(reference, up.shape[1], up.shape[2], 'NHWC')
-        return self.convchain((up, cropped))
+        return self.convchain((up, cropped.to(up.dtype)))
 
 
 class Encoder(nn.Module):
-    '''Chain of Downsample blocks; filters scale by ``rate`` per level.'''
+    '''Chain of Downsample blocks; filters scale by ``rate`` per level;
+    ``level0_dtype`` (when given) is ``down_0``'s dtype.'''
 
     def __init__(self, in_channels, filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn, n_conv=2, padding='VALID',
-                 activation='relu', data_format='NCHW', generator=None):
+                 activation='relu', data_format='NCHW', dtype=None,
+                 level0_dtype=None, generator=None):
         super().__init__()
         self.n_downsample = n_downsample
         self.skip_channels = []
@@ -194,7 +214,9 @@ class Encoder(nn.Module):
             self.add_module(f'down_{i}', Downsample(
                 ci, filters, rate, kernel_size, conv_stride, bn,
                 n_conv=n_conv, padding=padding, activation=activation,
-                data_format=data_format, generator=generator))
+                data_format=data_format,
+                dtype=level0_dtype if i == 0 and level0_dtype else dtype,
+                generator=generator))
             self.skip_channels.append(filters)
             ci = filters
             filters = int(rate * filters)
@@ -208,19 +230,24 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    '''Chain of Upsample blocks driven by the reversed skip list.'''
+    '''Chain of Upsample blocks driven by the reversed skip list;
+    ``level0_dtype`` (when given) is the last Upsample's dtype.'''
 
     def __init__(self, in_channels, skip_channels, rate, kernel_size,
                  conv_stride, bn, n_conv=2, padding='VALID',
-                 activation='relu', data_format='NCHW', generator=None):
+                 activation='relu', data_format='NCHW', dtype=None,
+                 level0_dtype=None, generator=None):
         super().__init__()
         self.n_up = len(skip_channels)
         ci = in_channels
         for i, filters in enumerate(reversed(skip_channels)):
+            last = i == self.n_up - 1
             self.add_module(f'up_{i}', Upsample(
                 ci, filters, rate, kernel_size, conv_stride, bn,
                 n_conv=n_conv, padding=padding, activation=activation,
-                data_format=data_format, generator=generator))
+                data_format=data_format,
+                dtype=level0_dtype if last and level0_dtype else dtype,
+                generator=generator))
             ci = filters
 
     def forward(self, x, skips):

@@ -21,19 +21,30 @@
 - in training mode the closed-form BN backward of ``_bn_train_bwd``
   (fastbn.py:68-87) as a ``torch.autograd.Function``: the batch statistics'
   dependence on x is differentiated analytically, not by autograd through
-  the reductions; without a scale it has no dgamma output.
+  the reductions; without a scale it has no dgamma output;
+- with a ``dtype`` (bfloat16 compute) x is cast to it first; the
+  statistics, the apply and the backward run in f32 from the rounded
+  values, the output and dx are rounded back to x's dtype, and dscale and
+  dbias stay f32 (fastbn.py:40-48, :68-88). Under f32 the casts are
+  no-ops.
 '''
 
 import torch
 from torch import nn
 
 
+def wide(x):
+    '''x in f32, or as it is when it is wider (the f64 check runs).'''
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _apply(x, scale, bias, mean, var, eps):
+    '''The normalize in f32, rounded to x's dtype.'''
     mul = torch.rsqrt(var + eps)
     if scale is not None:
         mul = mul * scale
     shift = bias - mean * mul
-    return x * mul + shift
+    return (wide(x) * mul + shift).to(x.dtype)
 
 
 class _BNTrainFn(torch.autograd.Function):
@@ -52,22 +63,25 @@ class _BNTrainFn(torch.autograd.Function):
         red = tuple(range(x.dim() - 1))
         count = x.numel() // x.shape[-1]
         r = torch.rsqrt(var + ctx.eps)
-        xhat = (x - mean) * r
-        dbeta = g.sum(red)
-        dgamma = (g * xhat).sum(red)
+        gf = wide(g)
+        xhat = (wide(x) - mean) * r
+        dbeta = gf.sum(red)
+        dgamma = (gf * xhat).sum(red)
         gscale = r if scale is None else r * scale
-        dx = gscale * (g - dbeta / count - xhat * (dgamma / count))
-        return (dx, None if scale is None else dgamma, dbeta, None, None,
-                None)
+        dx = gscale * (gf - dbeta / count - xhat * (dgamma / count))
+        return (dx.to(x.dtype), None if scale is None else dgamma, dbeta,
+                None, None, None)
 
 
 class BatchNormFast(nn.Module):
-    '''BatchNorm of [..., C] f32 tensors; ``train()`` / ``eval()`` select
-    batch or running statistics.'''
+    '''BatchNorm of [..., C] tensors; ``train()`` / ``eval()`` select
+    batch or running statistics; ``dtype`` (None: x's own) the dtype x is
+    cast to and the output has.'''
 
     def __init__(self, features, momentum=0.99, epsilon=1e-3,
-                 use_scale=True):
+                 use_scale=True, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.momentum = momentum
         self.epsilon = epsilon
         self.scale = (nn.Parameter(torch.ones(features)) if use_scale
@@ -77,13 +91,16 @@ class BatchNormFast(nn.Module):
         self.register_buffer('var', torch.ones(features))
 
     def forward(self, x):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         if not self.training:
             return _apply(x, self.scale, self.bias, self.mean, self.var,
                           self.epsilon)
         red = tuple(range(x.dim() - 1))
         with torch.no_grad():
-            mean = x.mean(red)
-            var = (x * x).mean(red) - mean * mean
+            xf = wide(x)
+            mean = xf.mean(red)
+            var = (xf * xf).mean(red) - mean * mean
             self.mean.copy_(self.momentum * self.mean
                             + (1 - self.momentum) * mean)
             self.var.copy_(self.momentum * self.var

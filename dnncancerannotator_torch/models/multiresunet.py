@@ -24,6 +24,12 @@ NHWC input (``permute``, no copy), which cuDNN reads as channels_last, and
 returns the NHWC view of its channels_last output, so no layout copy is
 made around a conv; BatchNorm normalizes the last axis, and the skip joins
 are concatenations on the last axis (one copy each, as in the JAX model).
+
+``dtype`` (bfloat16) is every conv's and BatchNorm's compute dtype, as
+flax's ``dtype`` there: a conv casts its input and weight, a transposed
+conv its bias too, added in bf16 after the output's rounding; the
+parameters stay f32 and the logits come back in f32
+(multiresunet.py:189). It has no f32_head / f32_level0 policy.
 '''
 
 import torch
@@ -32,7 +38,8 @@ from torch import nn
 
 from ..ops import pooling
 from . import fastbn
-from .fastconv import _glorot_uniform_, _nchw, _nhwc
+from .fastconv import (_glorot_uniform_, _nchw, _nhwc, plain_tconv,
+                       resolve_dtype)
 
 
 def _glorot(shape, fan_in, fan_out, generator):
@@ -45,8 +52,10 @@ class Conv(nn.Module):
     '''flax ``nn.Conv`` without bias: a stride-1 SAME conv of NHWC tensors,
     ``weight`` [Co, Ci, k, k].'''
 
-    def __init__(self, in_channels, features, kernel, generator=None):
+    def __init__(self, in_channels, features, kernel, dtype=None,
+                 generator=None):
         super().__init__()
+        self.dtype = dtype
         if kernel % 2 != 1:
             raise NotImplementedError(f'kernel {kernel}: MultiResUnet uses '
                                       'odd kernels only')
@@ -56,19 +65,21 @@ class Conv(nn.Module):
 
     def forward(self, x):
         pad = self.weight.shape[-1] // 2
-        return _nhwc(F.conv2d(_nchw(x), self.weight, padding=pad))
+        dtype = self.dtype or x.dtype
+        return _nhwc(F.conv2d(_nchw(x.to(dtype)), self.weight.to(dtype),
+                              padding=pad))
 
 
 class ConvBN(nn.Module):
     '''Conv (no bias) -> BatchNorm (no scale) -> optional relu.'''
 
     def __init__(self, in_channels, filters, kernel, activation='relu',
-                 generator=None):
+                 dtype=None, generator=None):
         super().__init__()
         if activation not in (None, 'relu'):
             raise ValueError(f'ConvBN activation {activation!r}: relu or None')
-        self.conv = Conv(in_channels, filters, kernel, generator)
-        self.bn = fastbn.BatchNormFast(filters, use_scale=False)
+        self.conv = Conv(in_channels, filters, kernel, dtype, generator)
+        self.bn = fastbn.BatchNormFast(filters, use_scale=False, dtype=dtype)
         self.relu = activation == 'relu'
         self.out_channels = filters
 
@@ -82,16 +93,19 @@ class UpTconv(nn.Module):
     ``tconv.weight`` [Ci, Co, 2, 2] applied unflipped (convert.py flips the
     flax kernel once).'''
 
-    def __init__(self, in_channels, filters, generator=None):
+    def __init__(self, in_channels, filters, dtype=None, generator=None):
         super().__init__()
+        self.dtype = dtype
         self.tconv = nn.Module()
         self.tconv.weight = _glorot((in_channels, filters, 2, 2),
                                     4 * in_channels, 4 * filters, generator)
         self.tconv.bias = nn.Parameter(torch.zeros(filters))
 
     def forward(self, x):
-        return _nhwc(F.conv_transpose2d(_nchw(x), self.tconv.weight,
-                                        self.tconv.bias, stride=2))
+        dtype = self.dtype or x.dtype
+        return _nhwc(plain_tconv(_nchw(x.to(dtype)),
+                                 self.tconv.weight.to(dtype),
+                                 self.tconv.bias.to(dtype)))
 
 
 def multires_filters(u, alpha=1.67):
@@ -103,17 +117,20 @@ def multires_filters(u, alpha=1.67):
 
 class MultiResBlock(nn.Module):
 
-    def __init__(self, in_channels, u, alpha=1.67, generator=None):
+    def __init__(self, in_channels, u, alpha=1.67, dtype=None,
+                 generator=None):
         super().__init__()
         f3, f5, f7 = multires_filters(u, alpha)
         self.out_channels = f3 + f5 + f7
         self.shortcut = ConvBN(in_channels, self.out_channels, 1,
-                               activation=None, generator=generator)
-        self.conv3x3 = ConvBN(in_channels, f3, 3, generator=generator)
-        self.conv5x5 = ConvBN(f3, f5, 3, generator=generator)
-        self.conv7x7 = ConvBN(f5, f7, 3, generator=generator)
-        self.bn_cat = fastbn.BatchNormFast(self.out_channels)
-        self.bn_out = fastbn.BatchNormFast(self.out_channels)
+                               activation=None, dtype=dtype,
+                               generator=generator)
+        self.conv3x3 = ConvBN(in_channels, f3, 3, dtype=dtype,
+                              generator=generator)
+        self.conv5x5 = ConvBN(f3, f5, 3, dtype=dtype, generator=generator)
+        self.conv7x7 = ConvBN(f5, f7, 3, dtype=dtype, generator=generator)
+        self.bn_cat = fastbn.BatchNormFast(self.out_channels, dtype=dtype)
+        self.bn_out = fastbn.BatchNormFast(self.out_channels, dtype=dtype)
 
     def forward(self, x):
         shortcut = self.shortcut(x)
@@ -126,16 +143,19 @@ class MultiResBlock(nn.Module):
 
 class ResPath(nn.Module):
 
-    def __init__(self, in_channels, filters, length, generator=None):
+    def __init__(self, in_channels, filters, length, dtype=None,
+                 generator=None):
         super().__init__()
         self.length = length
         ci = in_channels
         for i in range(length):
             self.add_module(f'shortcut_{i}', ConvBN(
-                ci, filters, 1, activation=None, generator=generator))
-            self.add_module(f'conv_{i}', ConvBN(ci, filters, 3,
+                ci, filters, 1, activation=None, dtype=dtype,
+                generator=generator))
+            self.add_module(f'conv_{i}', ConvBN(ci, filters, 3, dtype=dtype,
                                                 generator=generator))
-            self.add_module(f'bn_{i}', fastbn.BatchNormFast(filters))
+            self.add_module(f'bn_{i}', fastbn.BatchNormFast(filters,
+                                                            dtype=dtype))
             ci = filters
 
     def forward(self, x):
@@ -150,38 +170,37 @@ class MultiResUnet(nn.Module):
     '''MultiResUNet: NHWC features [B, H, W, in_channels] -> [B, H, W, 1]
     probabilities (or f32 logits). ``height``, ``width`` and
     ``n_channels`` are accepted for config parity and not read, as in the
-    JAX model; the first conv's width comes from ``in_channels``. f32 only:
-    ``dtype`` bfloat16 is not ported yet.'''
+    JAX model; the first conv's width comes from ``in_channels``;
+    ``dtype`` as in the module docstring.'''
 
     def __init__(self, in_channels, height=None, width=None, n_channels=None,
                  base_filters=32, dtype=None, generator=None):
         super().__init__()
         del height, width, n_channels
-        if dtype not in (None, 'float32', torch.float32):
-            raise NotImplementedError(
-                f'dtype {dtype}: bf16 compute is not ported yet '
-                '(ROADMAP.md queue 1 item 3)')
+        dt = resolve_dtype(dtype)
         u = base_filters
         ci = in_channels
         skips = []
         for i, (scale, length) in enumerate(((1, 4), (2, 3), (4, 2),
                                              (8, 1)), start=1):
-            block = MultiResBlock(ci, u * scale, generator=generator)
-            self.add_module(f'mres{i}', block)
-            self.add_module(f'respath{i}', ResPath(
-                block.out_channels, u * scale, length, generator=generator))
-            skips.append(u * scale)
-            ci = block.out_channels
-        self.mres5 = MultiResBlock(ci, u * 16, generator=generator)
-        ci = self.mres5.out_channels
-        for i, scale in zip(range(6, 10), (8, 4, 2, 1)):
-            self.add_module(f'up{i}', UpTconv(ci, u * scale, generator))
-            block = MultiResBlock(u * scale + skips[9 - i], u * scale,
+            block = MultiResBlock(ci, u * scale, dtype=dt,
                                   generator=generator)
             self.add_module(f'mres{i}', block)
+            self.add_module(f'respath{i}', ResPath(
+                block.out_channels, u * scale, length, dtype=dt,
+                generator=generator))
+            skips.append(u * scale)
             ci = block.out_channels
-        self.head_conv = Conv(ci, 1, 1, generator)
-        self.head_bn = fastbn.BatchNormFast(1, use_scale=False)
+        self.mres5 = MultiResBlock(ci, u * 16, dtype=dt, generator=generator)
+        ci = self.mres5.out_channels
+        for i, scale in zip(range(6, 10), (8, 4, 2, 1)):
+            self.add_module(f'up{i}', UpTconv(ci, u * scale, dt, generator))
+            block = MultiResBlock(u * scale + skips[9 - i], u * scale,
+                                  dtype=dt, generator=generator)
+            self.add_module(f'mres{i}', block)
+            ci = block.out_channels
+        self.head_conv = Conv(ci, 1, 1, dt, generator)
+        self.head_bn = fastbn.BatchNormFast(1, use_scale=False, dtype=dt)
 
     def forward(self, x, return_logits=False):
         skips = []
@@ -193,7 +212,7 @@ class MultiResUnet(nn.Module):
         for i in range(6, 10):
             up = getattr(self, f'up{i}')(x)
             x = getattr(self, f'mres{i}')(torch.cat([up, skips[9 - i]], -1))
-        logits = self.head_bn(self.head_conv(x))
+        logits = fastbn.wide(self.head_bn(self.head_conv(x)))
         if return_logits:
             return logits
         return torch.sigmoid(logits)

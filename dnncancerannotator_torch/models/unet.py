@@ -8,6 +8,14 @@ JAX model's layout (unet.py:132-135): channel-major NCHW for the body and
 the 1x1 logits head when BatchNorm is off, NHWC with BatchNorm (which
 normalizes the last axis).
 
+``dtype`` (bfloat16, from ``deploy_options.precision``) is the compute
+dtype of the convs and BatchNorms; the parameters stay f32 and the logits
+come back in f32 (unet.py:165). Two policies of the JAX model keep parts in
+f32 under bf16 (no-ops under f32): ``f32_head`` casts the body's output to
+f32 and runs the 1x1 head in f32 (unet.py:154-161); ``f32_level0`` runs
+``down_0`` and the last Upsample in f32 (unet.py:48-61). MulmoUNet takes
+``f32_head`` and ignores ``f32_level0``, as the JAX model does.
+
 ``MulmoUNetAnnotator`` (unet.py:67-105, :171-185) runs NHWC whatever
 ``bn`` is: one Encoder per input channel (``encoder_{i}``, fed its channel
 ``x[..., i:i + 1]``, a view of the batch), the bottlenecks concatenated on
@@ -18,7 +26,15 @@ alone, and the 1x1 head.
 import torch
 from torch import nn
 
-from . import blocks, fastconv
+from . import blocks, fastbn, fastconv
+
+
+def _policy_dtypes(dtype, f32_head, f32_level0):
+    '''(dtype, head dtype, level-0 dtype) of an annotator: the policies
+    take f32 only where there is a compute dtype to depart from.'''
+    dtype = fastconv.resolve_dtype(dtype)
+    f32 = torch.float32 if dtype is not None else None
+    return (dtype, f32 if f32_head else dtype, f32 if f32_level0 else None)
 
 
 class UNet(nn.Module):
@@ -26,11 +42,13 @@ class UNet(nn.Module):
 
     def __init__(self, in_channels, filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn=False, padding='valid',
-                 activation='relu', data_format='NCHW', generator=None):
+                 activation='relu', data_format='NCHW', dtype=None,
+                 level0_dtype=None, generator=None):
         super().__init__()
         common = dict(rate=rate, kernel_size=kernel_size,
                       conv_stride=conv_stride, bn=bn, padding=padding,
                       activation=activation, data_format=data_format,
+                      dtype=dtype, level0_dtype=level0_dtype,
                       generator=generator)
         self.encoder = blocks.Encoder(in_channels, filters_first,
                                       n_downsample, **common)
@@ -46,10 +64,9 @@ class UNet(nn.Module):
 class UNetAnnotator(nn.Module):
     '''U-Net + 1x1 conv head -> [B, H, W, 1] probabilities (or logits).
 
-    Accepts the JAX model's options. f32 only: ``dtype`` bfloat16 is not
-    ported yet; ``f32_head``/``f32_level0`` are no-ops under f32, as they
-    are in the JAX model. ``train()`` / ``eval()`` select the BatchNorm
-    batch or running statistics (the JAX model's ``training``).
+    Accepts the JAX model's options, ``dtype`` and its two policies (module
+    docstring). ``train()`` / ``eval()`` select the BatchNorm batch or
+    running statistics (the JAX model's ``training``).
     '''
 
     def __init__(self, in_channels, n_filters_first, n_downsample, rate,
@@ -58,11 +75,9 @@ class UNetAnnotator(nn.Module):
                  data_format='auto', f32_head=False, f32_level0=False,
                  generator=None):
         super().__init__()
-        del kernel_regularizer, f32_head, f32_level0
-        if dtype not in (None, 'float32', torch.float32):
-            raise NotImplementedError(
-                f'dtype {dtype}: bf16 compute is not ported yet '
-                '(ROADMAP.md queue 1 item 3)')
+        del kernel_regularizer
+        dtype, head_dtype, level0_dtype = _policy_dtypes(dtype, f32_head,
+                                                         f32_level0)
         if data_format == 'auto':
             data_format = 'NHWC' if bn else 'NCHW'
         if data_format not in ('NCHW', 'NHWC'):
@@ -75,17 +90,22 @@ class UNetAnnotator(nn.Module):
         self.unet = UNet(in_channels, n_filters_first, n_downsample, rate,
                          kernel_size, conv_stride, bn=bn, padding=padding,
                          activation=activation, data_format=data_format,
+                         dtype=dtype, level0_dtype=level0_dtype,
                          generator=generator)
         self.last_conv = fastconv.Conv2DFast(
             self.unet.out_channels, 1, (1, 1), padding=padding,
-            data_format=data_format, generator=generator)
+            data_format=data_format, dtype=head_dtype, generator=generator)
 
     def forward(self, x, return_logits=False):
         if self.data_format == 'NHWC':
-            logits = self.last_conv(self.unet(x))
+            body = self.unet(x)
         else:
-            x = x.permute(0, 3, 1, 2).contiguous()
-            logits = self.last_conv(self.unet(x)).permute(0, 2, 3, 1)
+            body = self.unet(x.permute(0, 3, 1, 2).contiguous())
+        # under f32_head the head conv casts its input to f32
+        logits = self.last_conv(body)
+        if self.data_format == 'NCHW':
+            logits = logits.permute(0, 2, 3, 1)
+        logits = fastbn.wide(logits)
         if return_logits:
             return logits
         return torch.sigmoid(logits)
@@ -98,12 +118,13 @@ class MulmoUNet(nn.Module):
 
     def __init__(self, in_channels, filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn=False, padding='valid',
-                 activation='relu', reference_index=0, generator=None):
+                 activation='relu', reference_index=0, dtype=None,
+                 generator=None):
         super().__init__()
         common = dict(rate=rate, kernel_size=kernel_size,
                       conv_stride=conv_stride, bn=bn, padding=padding,
                       activation=activation, data_format='NHWC',
-                      generator=generator)
+                      dtype=dtype, generator=generator)
         self.n_channels = in_channels
         self.reference_index = reference_index
         for idx in range(in_channels):
@@ -128,8 +149,8 @@ class MulmoUNet(nn.Module):
 class MulmoUNetAnnotator(nn.Module):
     '''MulmoUNet + 1x1 conv head -> [B, H, W, 1] probabilities (or
     logits), NHWC whatever ``bn`` is (the per-channel encoders slice the
-    last axis). Accepts the JAX model's options; f32 only, as
-    UNetAnnotator.'''
+    last axis). Accepts the JAX model's options; ``dtype`` and
+    ``f32_head`` as UNetAnnotator, ``f32_level0`` ignored.'''
 
     def __init__(self, in_channels, n_filters_first, n_downsample, rate,
                  kernel_size, conv_stride, bn=False, padding='valid',
@@ -137,11 +158,8 @@ class MulmoUNetAnnotator(nn.Module):
                  reference_index=0, data_format='NHWC', f32_head=False,
                  f32_level0=False, generator=None):
         super().__init__()
-        del kernel_regularizer, f32_head, f32_level0
-        if dtype not in (None, 'float32', torch.float32):
-            raise NotImplementedError(
-                f'dtype {dtype}: bf16 compute is not ported yet '
-                '(ROADMAP.md queue 1 item 3)')
+        del kernel_regularizer, f32_level0
+        dtype, head_dtype, _ = _policy_dtypes(dtype, f32_head, False)
         if data_format not in ('NHWC', 'auto'):
             raise ValueError(f'MulmoUNetAnnotator runs NHWC, got '
                              f'data_format {data_format!r}')
@@ -149,13 +167,14 @@ class MulmoUNetAnnotator(nn.Module):
         self.mulmo_unet = MulmoUNet(
             in_channels, n_filters_first, n_downsample, rate, kernel_size,
             conv_stride, bn=bn, padding=padding, activation=activation,
-            reference_index=reference_index, generator=generator)
+            reference_index=reference_index, dtype=dtype,
+            generator=generator)
         self.last_conv = fastconv.Conv2DFast(
             self.mulmo_unet.out_channels, 1, (1, 1), padding=padding,
-            data_format='NHWC', generator=generator)
+            data_format='NHWC', dtype=head_dtype, generator=generator)
 
     def forward(self, x, return_logits=False):
-        logits = self.last_conv(self.mulmo_unet(x))
+        logits = fastbn.wide(self.last_conv(self.mulmo_unet(x)))
         if return_logits:
             return logits
         return torch.sigmoid(logits)

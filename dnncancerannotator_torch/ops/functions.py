@@ -8,6 +8,13 @@ otherwise. The backward asks for the data gradient only when autograd needs
 it (``ctx.needs_input_grad[0]``): the model's input batch never requires
 grad, so its first conv chain skips its dx, which is need_dx=False in the
 JAX package (fastconv.py:540-569, engine.py:512-520).
+
+Each Function returns its gradients in its inputs' dtypes: under bf16
+compute the chain and stencil kernels' bf16 forms return dx, dw and db in
+bf16 (the JAX wrappers cast them so, fastconv.py:213, :568-569), and
+autograd carries a weight's bf16 gradient back through its cast to the f32
+parameter. The chain keeps its f32 c1 and c2 for the relu masks, as the
+JAX chain's residuals are.
 '''
 
 import torch
@@ -35,8 +42,9 @@ class ConvChainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        c1, c2 = chain_mod.conv_chain(x, w1, b1, w2, b2, need_c1=True)
-        ctx.save_for_backward(x, c1, c2, w1, w2)
+        c1, c2, c2f = chain_mod.conv_chain(x, w1, b1, w2, b2, need_c1=True,
+                                           need_c2f=True)
+        ctx.save_for_backward(x, c1, c2f, w1, w2)
         return c2
 
     @staticmethod

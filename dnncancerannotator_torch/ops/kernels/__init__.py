@@ -1,7 +1,8 @@
 '''Hand-written CUDA kernels for Hopper (sm_90a), one module per kernel.
 
 Each module holds the wrapper (which launches the kernel for CUDA tensors
-and counts its launches in ``launches``), the plain PyTorch version of the
+and counts its launches in ``launches``, and those of its bf16 form, where
+it has one, in ``launches_bf16``), the plain PyTorch version of the
 same function (run for CPU tensors and used as the reference on the card),
 and the shape bounds the kernel takes.
 '''
@@ -17,10 +18,22 @@ KERNELS = (conv_chain, conv_chain_bwd, tconv2x2, tconv2x2_bwd, stencil_conv,
            stencil_conv_nhwc)
 
 
+# the kernels with a bf16 form (``launches_bf16``)
+BF16_KERNELS = (conv_chain, conv_chain_bwd, stencil_conv, stencil_conv_bwd,
+                stencil_conv_nhwc)
+
+
 def reset_launches():
     for mod in KERNELS:
         mod.launches = 0
+    for mod in BF16_KERNELS:
+        mod.launches_bf16 = 0
 
 
 def launch_counts():
-    return {mod.__name__.rsplit('.', 1)[-1]: mod.launches for mod in KERNELS}
+    '''{kernel: launches}, the bf16 forms as ``<kernel>_bf16``.'''
+    counts = {mod.__name__.rsplit('.', 1)[-1]: mod.launches
+              for mod in KERNELS}
+    counts.update({mod.__name__.rsplit('.', 1)[-1] + '_bf16':
+                   mod.launches_bf16 for mod in BF16_KERNELS})
+    return counts

@@ -87,7 +87,20 @@ _SIGNATURES = {
     # x, g, wpt, dx, dw, db, w_partial, db_partial, dx_partial, B, H, W, Ci,
     # Co, dgrad_splits, wgrad_chunk, wgrad_splits, device, stream
     'dnnca_tconv2x2_nhwc_bwd': [_P] * 9 + [_I] * 9 + [_P],
+    # the bf16 forms: as their f32 entries (the chain's adds c2f, the f32
+    # c2, after c2)
+    'dnnca_conv_chain_bf16': [_P] * 8 + [_I] * 16 + [_P],
+    'dnnca_conv_chain_bwd_bf16': [_P] * 9 + [_I] * 20 + [_P],
+    'dnnca_stencil_conv_bf16': [_P] * 4 + [_I] * 13 + [_P],
+    'dnnca_pointwise_conv_bf16': [_P] * 4 + [_I] * 8 + [_P],
+    'dnnca_stencil_conv_nhwc_bf16': [_P] * 4 + [_I] * 15 + [_P],
+    'dnnca_stencil_conv_bwd_bf16': [_P] * 6 + [_I] * 13 + [_P],
+    'dnnca_pointwise_conv_bwd_bf16': [_P] * 8 + [_I] * 11 + [_P],
 }
+# the entries with a bf16 form; any other takes f32 alone
+BF16_FORMS = ('dnnca_conv_chain', 'dnnca_conv_chain_bwd', 'dnnca_stencil_conv',
+              'dnnca_pointwise_conv', 'dnnca_stencil_conv_nhwc',
+              'dnnca_stencil_conv_bwd', 'dnnca_pointwise_conv_bwd')
 
 _lock = threading.Lock()
 _lib = None
@@ -189,19 +202,46 @@ def library_launches():
     return int(library().dnnca_launches())
 
 
-def check_cuda_f32(**tensors):
-    '''Raise unless every tensor is a contiguous float32 tensor on one
+def check_cuda(dtype, **tensors):
+    '''Raise unless every tensor is a contiguous ``dtype`` tensor on one
     CUDA device; returns that device.'''
     device = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if not t.is_cuda or t.device != device:
             raise ValueError(
                 f'{name} must be a CUDA tensor on {device}, got {t.device}')
-        if t.dtype != torch.float32:
-            raise TypeError(f'{name} must be float32, got {t.dtype}')
+        if t.dtype != dtype:
+            raise TypeError(f'{name} must be {dtype}, got {t.dtype}')
         if not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous')
     return device
+
+
+def check_cuda_f32(**tensors):
+    '''check_cuda for float32: the entries with no bf16 form.'''
+    return check_cuda(torch.float32, **tensors)
+
+
+def form(entry, dtype):
+    '''(entry point, element dtype) of a call whose inputs are ``dtype``:
+    the bf16 form of an entry that has one, the entry itself for float32;
+    raises for any other dtype (bf16 reaching an entry without a bf16 form
+    included: nothing falls back to an upcast copy).'''
+    if dtype == torch.float32:
+        return entry, dtype
+    if dtype == torch.bfloat16 and entry in BF16_FORMS:
+        return entry + '_bf16', dtype
+    raise TypeError(f'{entry} takes float32'
+                    + (' or bfloat16' if entry in BF16_FORMS else '')
+                    + f', got {dtype}')
+
+
+def upcast(*tensors):
+    '''The tensors in f32 where they are bf16 (exact): the plain versions
+    of the bf16 forms compute on these.'''
+    return tuple(None if t is None else
+                 t.float() if t.dtype == torch.bfloat16 else t
+                 for t in tensors)
 
 
 def stream_of(device):

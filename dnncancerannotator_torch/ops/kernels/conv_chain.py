@@ -8,6 +8,14 @@ weights in PyTorch OIHW layout ([Cm, Ci, K, K] and [Co, Cm, K, K]).
 ``conv_chain`` launches the kernel for CUDA tensors and runs ``plain`` (two
 ``F.conv2d`` + relu) for CPU tensors; it raises on any other input.
 
+bf16 form: x, the weights and the biases all bf16 (the JAX chain's inputs
+under bfloat16 compute) take the kernel's bf16 entry, which computes in f32
+from the exact upcast values in the f32 form's order: c1 comes back in
+f32, c2 rounded to bf16, and with ``need_c2f`` the f32 c2 too, the
+residual whose relu mask the backward reads (conv_chain_pallas returns f32
+c1 and c2; fastconv.py:548 rounds c2 alone). ``plain`` does the same on
+the CPU. Any other dtype raises.
+
 The launch geometry lives here, in pure Python, so that the CPU tests can
 check it: ``plan`` picks the channel group (CPT), the tile and the block
 size of a shape by one rule that the timed sweeps of every geometry at the
@@ -37,13 +45,16 @@ EXACT_CPT = (3, 6, 12)          # channel groups with no padding
 PADDED_CPT = (4, 8)             # any other width, the last group padded
 
 launches = 0  # kernel launches in this process
+launches_bf16 = 0  # those of the bf16 form
 
 Plan = collections.namedtuple(
     'Plan', 'cpt tile_h tile_w threads c1_w c1_s xs_w smem blocks')
 
 
 def plain(x, w1, b1, w2, b2):
-    '''Plain PyTorch version: returns (c1, c2), both post-relu.'''
+    '''Plain PyTorch version: returns (c1, c2), both post-relu, computed
+    in f32 from bf16 inputs (and returned in f32: the caller rounds c2).'''
+    x, w1, b1, w2, b2 = _build.upcast(x, w1, b1, w2, b2)
     pad = w1.shape[-1] // 2
     c1 = F.relu(F.conv2d(x, w1, b1, padding=pad))
     c2 = F.relu(F.conv2d(c1, w2, b2, padding=pad))
@@ -199,26 +210,38 @@ def _check(x, w1, b1, w2, b2):
             f'that fit shared memory; got Ci={ci} Cm={cm} Co={co} K={k}')
 
 
-def conv_chain(x, w1, b1, w2, b2, need_c1=False):
-    '''Returns (c1, c2); c1 is None unless ``need_c1``.'''
-    global launches
+def conv_chain(x, w1, b1, w2, b2, need_c1=False, need_c2f=False):
+    '''Returns (c1, c2), and with ``need_c2f`` (c1, c2, c2f): c1 (None
+    unless ``need_c1``) and c2f are f32, c2 is in x's dtype (c2f is c2
+    itself for f32 inputs).'''
+    global launches, launches_bf16
     _check(x, w1, b1, w2, b2)
     if x.device.type == 'cpu':
-        c1, c2 = plain(x, w1, b1, w2, b2)
-        return (c1 if need_c1 else None), c2
-    device = _build.check_cuda_f32(x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+        c1, c2f = plain(x, w1, b1, w2, b2)
+        out = ((c1 if need_c1 else None), c2f.to(x.dtype))
+        return out + (c2f,) if need_c2f else out
+    entry, dtype = _build.form('dnnca_conv_chain', x.dtype)
+    device = _build.check_cuda(dtype, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
     b, ci, h, w = x.shape
     cm, co, k = w1.shape[0], w2.shape[0], w1.shape[-1]
-    c2 = torch.empty((b, co, h, w), device=device, dtype=torch.float32)
-    c1 = (torch.empty((b, cm, h, w), device=device, dtype=torch.float32)
-          if need_c1 else None)
+    f32 = dict(device=device, dtype=torch.float32)
+    c2 = torch.empty((b, co, h, w), device=device, dtype=dtype)
+    c1 = torch.empty((b, cm, h, w), **f32) if need_c1 else None
+    bf16 = dtype == torch.bfloat16
+    c2f = torch.empty((b, co, h, w), **f32) if bf16 and need_c2f else None
     pl = plan(b, ci, cm, co, h, w, k)
     _build.launch(
-        'dnnca_conv_chain', x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        entry, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(),
         c1.data_ptr() if c1 is not None else None, c2.data_ptr(),
+        *((c2f.data_ptr() if c2f is not None else None,) if bf16 else ()),
         b, ci, cm, co, h, w, k, pl.cpt, pl.tile_h, pl.tile_w, pl.c1_w,
         pl.c1_s, pl.xs_w, pl.threads, pl.smem, device.index,
         _build.stream_of(device))
-    launches += 1
+    if dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
+    if need_c2f:
+        return c1, c2, (c2f if bf16 else c2)
     return c1, c2

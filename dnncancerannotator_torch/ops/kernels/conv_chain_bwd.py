@@ -12,6 +12,12 @@ input needs no gradient). The relu masks are c1 > 0 and c2 > 0.
 (the data and weight gradients of the two ``F.conv2d``, masked by the saved
 outputs) for CPU tensors; it raises on any other input.
 
+bf16 form: x, g and the weights bf16 with c1 and c2 f32 (the forward's
+residuals) take the kernel's bf16 entry, which computes from the exact
+upcast values in the f32 form's order and rounds dx, dw1, db1, dw2 and db2
+to bf16, as fastconv.py:568-569 casts conv_chain_bwd_pallas's; ``plain``
+does the same on the CPU.
+
 Two launches a chain (``plan(...).fused``): one persistent kernel computes
 dc1, dx and every block's partial weight gradients per tile, and one adds
 the partials. Where that does not fit (K != 3, or more weight-gradient
@@ -36,6 +42,7 @@ DGRAD_CPT = (3, 4, 6, 8)        # and its dgrad-only cases
 THREADS = 256                   # the fastest at every unet.yaml site
 
 launches = 0  # kernel launches in this process
+launches_bf16 = 0  # those of the bf16 form
 
 Plan = collections.namedtuple(
     'Plan', 'fused cpt tile_h tile_w threads c1_w c1_s gs_w slices smem '
@@ -43,7 +50,11 @@ Plan = collections.namedtuple(
 
 
 def plain(x, c1, c2, g, w1, w2, need_dx=True):
-    '''Plain PyTorch version: returns (dx or None, dw1, db1, dw2, db2).'''
+    '''Plain PyTorch version: returns (dx or None, dw1, db1, dw2, db2), in
+    x's dtype (computed in f32 from bf16 inputs, then rounded).'''
+    if x.dtype == torch.bfloat16:
+        return tuple(None if t is None else t.to(x.dtype) for t in plain(
+            *_build.upcast(x, c1, c2, g, w1, w2), need_dx=need_dx))
     pad = w1.shape[-1] // 2
     g2 = g * (c2 > 0)
     dw2 = nn_grad.conv2d_weight(c1, w2.shape, g2, padding=pad)
@@ -173,11 +184,14 @@ def _check(x, c1, c2, g, w1, w2):
 
 def conv_chain_bwd(x, c1, c2, g, w1, w2, need_dx=True):
     '''Returns (dx or None, dw1, db1, dw2, db2).'''
-    global launches
+    global launches, launches_bf16
     _check(x, c1, c2, g, w1, w2)
     if x.device.type == 'cpu':
         return plain(x, c1, c2, g, w1, w2, need_dx)
-    device = _build.check_cuda_f32(x=x, c1=c1, c2=c2, g=g, w1=w1, w2=w2)
+    entry, dtype = _build.form('dnnca_conv_chain_bwd', x.dtype)
+    device = _build.check_cuda(dtype, x=x, g=g, w1=w1, w2=w2)
+    if _build.check_cuda(torch.float32, c1=c1, c2=c2) != device:
+        raise ValueError(f'c1 and c2 must be on {device}')
     b, ci, h, w = x.shape
     cm, co, k = w1.shape[0], w2.shape[0], w1.shape[-1]
     n1, n2 = cm * ci * k * k, co * cm * k * k
@@ -185,19 +199,21 @@ def conv_chain_bwd(x, c1, c2, g, w1, w2, need_dx=True):
     dx = torch.empty_like(x) if need_dx else None
     # the result, [dw1 | db1 | dw2 | db2], apart from the scratch, so that
     # the gradients it returns (views) do not hold the partials or dc1
-    out = torch.empty(n_out(ci, cm, co, k), device=device,
-                      dtype=torch.float32)
+    out = torch.empty(n_out(ci, cm, co, k), device=device, dtype=dtype)
     scratch = torch.empty(pl.scratch_floats, device=device,
                           dtype=torch.float32)
     _build.launch(
-        'dnnca_conv_chain_bwd', x.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+        entry, x.data_ptr(), c1.data_ptr(), c2.data_ptr(),
         g.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         dx.data_ptr() if dx is not None else None, out.data_ptr(),
         scratch.data_ptr(), b, ci, cm, co, h, w, k, pl.cpt, pl.tile_h,
         pl.tile_w, pl.c1_w, pl.c1_s, pl.gs_w, pl.slices, pl.threads,
         pl.blocks, int(pl.fused), pl.smem, pl.wgrad_blocks, device.index,
         _build.stream_of(device))
-    launches += 1
+    if dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     o = n1 + cm
     return (dx, out[:n1].view(cm, ci, k, k), out[n1:o],
             out[o:o + n2].view(co, cm, k, k), out[o + n2:])

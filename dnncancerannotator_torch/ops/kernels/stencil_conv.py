@@ -12,6 +12,11 @@ other shape.
 ``stencil_conv`` launches the kernel for CUDA tensors and runs ``plain``
 (``F.conv2d`` on the padded input) for CPU tensors; it raises on any other
 input.
+
+bf16 form: x, w and b bf16 (the JAX stencil conv takes bf16, upcasts and
+computes in f32; its caller rounds, fastconv.py:182) take the kernels' bf16
+entries, which compute from the exact upcast values in the f32 form's
+order and round the output to bf16; ``plain`` does the same on the CPU.
 '''
 
 import functools
@@ -22,6 +27,8 @@ import torch.nn.functional as F
 from . import _build
 
 MAX_CHANNELS = 32
+# conv_kernel.supported: kh * kw * Ci * Co terms unrolled a program
+MAX_TERMS = 1024
 # the pointwise kernel's offsets inside one batch item are 32-bit
 MAX_PLANE_FLOATS = 2**31 - 1
 # past this many bytes a call (the H100's 50 MB of L2) the pointwise
@@ -29,13 +36,17 @@ MAX_PLANE_FLOATS = 2**31 - 1
 L2_BYTES = 50 * 2**20
 
 launches = 0  # kernel launches in this process
+launches_bf16 = 0  # those of the bf16 form
 
 
 def plain(x, w, b, pads, relu=False):
-    '''Plain PyTorch version.'''
+    '''Plain PyTorch version, in x's dtype (computed in f32 from bf16
+    inputs, then rounded).'''
+    dtype = x.dtype
+    x, w, b = _build.upcast(x, w, b)
     (pt, pb), (pl, pr) = pads
     out = F.conv2d(F.pad(x, (pl, pr, pt, pb)), w, b)
-    return F.relu(out) if relu else out
+    return (F.relu(out) if relu else out).to(dtype)
 
 
 def _smem_bytes(ci, co, kh, kw):
@@ -49,6 +60,17 @@ def _smem_bytes(ci, co, kh, kw):
 def supported(ci, co, kh, kw):
     return (max(ci, co) <= MAX_CHANNELS
             and _smem_bytes(ci, co, kh, kw) <= _build.MAX_SMEM_BYTES)
+
+
+def eligible(ci, co, kh, kw):
+    '''Whether a stride-1 NCHW conv of Ci -> Co channels with a kh x kw
+    kernel routes to this kernel: the JAX package's ``small`` conv that
+    reaches ``stencil_conv2d_pallas`` (conv_kernel.supported's unroll
+    bound, kh * kw * Ci * Co <= MAX_TERMS; its VMEM bound is a TPU limit
+    and is not kept), where the kernel and its backward take it.'''
+    from . import stencil_conv_bwd
+    return (kh * kw * ci * co <= MAX_TERMS
+            and stencil_conv_bwd.supported(ci, co, kh, kw))
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,27 +119,33 @@ def check(x, w, b, pads):
 
 
 def stencil_conv(x, w, b, pads, relu=False):
-    global launches
+    global launches, launches_bf16
     pads = _pads(pads)
     oh, ow = check(x, w, b, pads)
     if x.device.type == 'cpu':
         return plain(x, w, b, pads, relu)
-    device = _build.check_cuda_f32(x=x, w=w, b=b)
+    entry, dtype = _build.form('dnnca_stencil_conv', x.dtype)
+    device = _build.check_cuda(dtype, x=x, w=w, b=b)
     bsz, ci, h, wd = x.shape
     co, _, kh, kw = w.shape
-    out = torch.empty((bsz, co, oh, ow), device=device, dtype=torch.float32)
+    out = torch.empty((bsz, co, oh, ow), device=device, dtype=dtype)
     stream = _build.stream_of(device)
     if route(ci, co, kh, kw, pads, h, wd) == 'pointwise':
-        vec = (h * wd) % 4 == 0 and x.data_ptr() % 16 == 0
-        streaming = 4 * (x.numel() + out.numel()) > L2_BYTES
-        _build.launch('dnnca_pointwise_conv', x.data_ptr(), w.data_ptr(),
+        size = x.element_size()
+        vec = (h * wd) % 4 == 0 and x.data_ptr() % (4 * size) == 0
+        streaming = size * (x.numel() + out.numel()) > L2_BYTES
+        _build.launch(_build.form('dnnca_pointwise_conv', dtype)[0],
+                      x.data_ptr(), w.data_ptr(),
                       b.data_ptr(), out.data_ptr(), bsz, ci, co, h * wd,
                       int(bool(relu)), int(streaming), int(vec),
                       device.index, stream)
     else:
-        _build.launch('dnnca_stencil_conv', x.data_ptr(), w.data_ptr(),
+        _build.launch(entry, x.data_ptr(), w.data_ptr(),
                       b.data_ptr(), out.data_ptr(), bsz, ci, co, h, wd, kh,
                       kw, pads[0][0], pads[1][0], oh, ow, int(bool(relu)),
                       device.index, stream)
-    launches += 1
+    if dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out

@@ -21,6 +21,11 @@ fastconv.py:200-201 does. The forward's ``route`` picks the kernels:
 ``stencil_conv_bwd`` launches the kernels for CUDA tensors and runs
 ``plain`` (the data and weight gradients of ``F.conv2d`` on the padded
 input) for CPU tensors; it raises on any other input.
+
+bf16 form: x, g and w bf16 take the kernels' bf16 entries, which compute
+from the exact upcast values in the f32 form's order and round dx, dw and
+db to bf16, as fastconv.py:213 casts the Pallas backward's; ``plain`` does
+the same on the CPU.
 '''
 
 import collections
@@ -35,6 +40,7 @@ from . import stencil_conv as fwd
 from .tconv2x2_bwd import cdiv, pad4, ticket
 
 launches = 0  # kernel launches in this process
+launches_bf16 = 0  # those of the bf16 form
 
 # the pointwise kernel (csrc/stencil_conv_bwd.cu: pointwise_bwd_kernel)
 THREADS = 256          # kPwThreads
@@ -53,7 +59,11 @@ Plan = collections.namedtuple('Plan', 'tile chunks tiles per_block blocks '
 
 
 def plain(x, g, w, pads, need_dx=True):
-    '''Plain PyTorch version: returns (dx or None, dw, db).'''
+    '''Plain PyTorch version: returns (dx or None, dw, db), in x's dtype
+    (computed in f32 from bf16 inputs, then rounded).'''
+    if x.dtype == torch.bfloat16:
+        return tuple(None if t is None else t.to(x.dtype) for t in plain(
+            *_build.upcast(x, g, w), pads, need_dx))
     (pt, pb), (pl, pr) = pads
     xp = F.pad(x, (pl, pr, pt, pb))
     dw = nn_grad.conv2d_weight(xp, w.shape, g)
@@ -119,7 +129,7 @@ def scratch(device, doubles):
 
 def stencil_conv_bwd(x, g, w, pads, need_dx=True):
     '''Returns (dx or None, dw, db).'''
-    global launches
+    global launches, launches_bf16
     pads = fwd._pads(pads)
     co, ci, kh, kw = w.shape
     oh, ow = fwd.out_hw(tuple(x.shape), tuple(w.shape), (co,), pads)
@@ -132,33 +142,43 @@ def stencil_conv_bwd(x, g, w, pads, need_dx=True):
                          f'memory; got Ci={ci} Co={co} kernel {kh}x{kw}')
     if x.device.type == 'cpu':
         return plain(x, g, w, pads, need_dx)
-    device = _build.check_cuda_f32(x=x, g=g, w=w)
+    entry, dtype = _build.form('dnnca_stencil_conv_bwd', x.dtype)
+    device = _build.check_cuda(dtype, x=x, g=g, w=w)
     b, _, h, wd = x.shape
     f32 = dict(device=device, dtype=torch.float32)
+    out = dict(device=device, dtype=dtype)
     dx = torch.empty_like(x) if need_dx else None
     dx_ptr = dx.data_ptr() if dx is not None else None
     stream = _build.stream_of(device)
     if fwd.route(ci, co, kh, kw, pads, h, wd) == 'pointwise':
         pl = plan(b, ci, co, h, wd)
-        vec = ((h * wd) % 4 == 0 and x.data_ptr() % 16 == 0
-               and g.data_ptr() % 16 == 0)
-        dw, db = torch.empty(w.shape, **f32), torch.empty(co, **f32)
-        _build.launch('dnnca_pointwise_conv_bwd', x.data_ptr(),
+        align = 4 * x.element_size()  # four values a load
+        vec = ((h * wd) % 4 == 0 and x.data_ptr() % align == 0
+               and g.data_ptr() % align == 0)
+        dw, db = torch.empty(w.shape, **out), torch.empty(co, **out)
+        _build.launch(_build.form('dnnca_pointwise_conv_bwd', dtype)[0],
+                      x.data_ptr(),
                       g.data_ptr(), w.data_ptr(), dx_ptr, dw.data_ptr(),
                       db.data_ptr(),
                       scratch(device, pl.blocks * (ci * co + co)).data_ptr(),
                       ticket(device).data_ptr(), b, ci, co, h * wd, pl.tile,
                       pl.per_block, pl.blocks, pl.slices, int(vec), pl.smem,
                       device.index, stream)
-        launches += 1
+        if dtype == torch.bfloat16:
+            launches_bf16 += 1
+        else:
+            launches += 1
         return dx, dw, db
     n_w = co * ci * kh * kw
-    dwb = torch.empty(n_w + co, **f32)
+    dwb = torch.empty(n_w + co, **out)
     blocks = _wgrad.blocks(b, oh, ow)
     partial = torch.empty((n_w + co) * blocks, **f32)
-    _build.launch('dnnca_stencil_conv_bwd', x.data_ptr(), g.data_ptr(),
+    _build.launch(entry, x.data_ptr(), g.data_ptr(),
                   w.data_ptr(), dx_ptr, dwb.data_ptr(), partial.data_ptr(),
                   b, ci, co, h, wd, kh, kw, pads[0][0], pads[1][0], oh, ow,
                   blocks, device.index, stream)
-    launches += 1
+    if dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return dx, dwb[:n_w].view(co, ci, kh, kw), dwb[n_w:]

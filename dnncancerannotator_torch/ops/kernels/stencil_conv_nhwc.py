@@ -23,6 +23,12 @@ on any other input. Its backward is the plain version's gradient, the
 library's conv backward (ops/functions.py): at these shapes the JAX package
 computes that backward in XLA too (the Pallas backward's per-program bound
 is over its VMEM limit there).
+
+bf16 form: x, w and b bf16 take the kernel's bf16 entry (computed in f32
+from the exact upcast values in the f32 form's order, the output rounded to
+bf16), and ``plain`` does the same on the CPU; ``grads`` then runs the
+library's conv backward in bf16, as XLA's in the JAX package (f32
+accumulation, bf16 results).
 '''
 
 import torch
@@ -32,10 +38,10 @@ from . import _build
 from . import stencil_conv as nchw
 
 MAX_CHANNELS = nchw.MAX_CHANNELS
-# conv_kernel.supported: kh * kw * Ci * Co terms unrolled a program
-MAX_TERMS = 1024
+MAX_TERMS = nchw.MAX_TERMS
 
 launches = 0  # kernel launches in this process
+launches_bf16 = 0  # those of the bf16 form
 
 
 def plain(x, w, b, pads, relu=False):
@@ -79,24 +85,29 @@ def check(x, w, b, pads):
 
 
 def stencil_conv_nhwc(x, w, b, pads, relu=False):
-    global launches
+    global launches, launches_bf16
     pads = nchw._pads(pads)
     oh, ow, xs = check(x, w, b, pads)
     if x.device.type == 'cpu':
         return plain(x, w, b, pads, relu)
-    device = _build.check_cuda_f32(w=w, b=b)
-    if not x.is_cuda or x.device != device or x.dtype != torch.float32:
-        raise ValueError(f'x must be a float32 CUDA tensor on {device}, got '
+    entry, dtype = _build.form('dnnca_stencil_conv_nhwc', x.dtype)
+    device = _build.check_cuda(dtype, w=w, b=b)
+    if not x.is_cuda or x.device != device:
+        raise ValueError(f'x must be a CUDA tensor on {device}, got '
                          f'{x.dtype} on {x.device}')
     bsz, h, wd, ci = x.shape
     co, _, kh, kw = w.shape
-    out = torch.empty((bsz, oh, ow, co), device=device, dtype=torch.float32)
-    vec_in = ci % 4 == 0 and xs % 4 == 0 and x.data_ptr() % 16 == 0
-    _build.launch('dnnca_stencil_conv_nhwc', x.data_ptr(), w.data_ptr(),
+    out = torch.empty((bsz, oh, ow, co), device=device, dtype=dtype)
+    vec_in = (ci % 4 == 0 and xs % 4 == 0
+              and x.data_ptr() % (4 * x.element_size()) == 0)
+    _build.launch(entry, x.data_ptr(), w.data_ptr(),
                   b.data_ptr(), out.data_ptr(), bsz, ci, co, h, wd, xs, kh,
                   kw, pads[0][0], pads[1][0], oh, ow, int(bool(relu)),
                   int(vec_in), device.index, _build.stream_of(device))
-    launches += 1
+    if dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 

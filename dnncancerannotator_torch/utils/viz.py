@@ -38,7 +38,10 @@ EXPORT_PATH_DEPTH = 3   # trailing parts of an exam's path kept in exports
 
 def input_sensitivity(model, x):
     '''Probabilities [B, H, W, 1] of ``model`` at NHWC features x, and the
-    per-slice normalized sum over pixels of |d(sum of probs)/dx| [B, C].'''
+    per-slice normalized sum over pixels of |d(sum of probs)/dx| [B, C].
+    Through a bf16 model the gradient comes back in x's f32 through the
+    first conv's cast, as jax.grad gives it (utils/viz.py:118), and the
+    sums are f32.'''
     x = x.detach().requires_grad_()
     with torch.enable_grad():
         probs = model(x)

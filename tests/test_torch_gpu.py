@@ -684,3 +684,153 @@ def test_stencil_conv_nhwc_rejects_bad_inputs(cuda):
                              ((1, 1), (1, 1)))
     with pytest.raises((TypeError, ValueError)):
         SN.stencil_conv_nhwc(x[..., :1].double(), wk, bias, ((1, 1), (1, 1)))
+
+
+# -- the bf16 forms ---------------------------------------------------------------
+# Each bf16 form computes in f32 from the exact upcast values in its f32
+# form's order and rounds what it returns to bf16 (the chain's c1 and c2f
+# stay f32), so it is bit-equal to the f32 form on the upcast inputs,
+# rounded; one wrapper launch a call, with the f32 form's kernel count.
+BF16 = torch.bfloat16
+
+
+def _rand16(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).to(BF16).cuda()
+
+
+def _bits(got, want):
+    '''got and want hold the same bits (and dtype).'''
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    view = torch.int16 if got.dtype == BF16 else torch.int32
+    assert torch.equal(got.contiguous().view(view),
+                       want.contiguous().view(view))
+
+
+def _one_call(mod, call, count='launches'):
+    '''call() through the library, its kernel count, after one wrapper
+    launch (of the form whose ``count`` it is).'''
+    from chip_smoke import library_launches
+    before = getattr(mod, count)
+    kernels = library_launches(call, calls=1)
+    assert getattr(mod, count) == before + 1
+    return kernels
+
+
+def _f32(*tensors):
+    return tuple(None if t is None else t.float() for t in tensors)
+
+
+# unet.yaml's bf16 chains (down_0, down_1, up_1, up_2) at B=2, then K = 5,
+# ragged and odd widths, and 32 channels (wgrad.cu's five-launch backward)
+_BF16_CHAINS = [(5, 3, 3, 256, 256, 3), (3, 6, 6, 128, 128, 3),
+                (12, 6, 6, 128, 128, 3), (6, 3, 3, 256, 256, 3),
+                (5, 3, 3, 37, 71, 3), (4, 5, 6, 20, 20, 5),
+                (32, 32, 32, 9, 33, 3)]
+
+
+@pytest.mark.parametrize('ci,cm,co,h,w,k', _BF16_CHAINS)
+def test_conv_chain_bf16_form(cuda, ci, cm, co, h, w, k):
+    gen = torch.Generator().manual_seed(20)
+    x = _rand16(gen, 2, ci, h, w)
+    w1, b1 = _rand16(gen, cm, ci, k, k, scale=0.3), _rand16(gen, cm)
+    w2, b2 = _rand16(gen, co, cm, k, k, scale=0.3), _rand16(gen, co)
+    args = (x, w1, b1, w2, b2)
+    got = CC.conv_chain(*args, need_c1=True, need_c2f=True)
+    c1, c2 = CC.conv_chain(*_f32(*args), need_c1=True)
+    _bits(got[0], c1)
+    _bits(got[1], c2.to(BF16))
+    _bits(got[2], c2)
+    _bits(CC.conv_chain(*args)[1], c2.to(BF16))
+    assert _one_call(CC, lambda: CC.conv_chain(*args),
+                     'launches_bf16') == _one_call(
+        CC, lambda: CC.conv_chain(*_f32(*args)))
+
+
+@pytest.mark.parametrize('ci,cm,co,h,w,k', _BF16_CHAINS)
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_conv_chain_bwd_bf16_form(cuda, ci, cm, co, h, w, k, need_dx):
+    gen = torch.Generator().manual_seed(21)
+    x = _rand16(gen, 2, ci, h, w)
+    w1, b1 = _rand16(gen, cm, ci, k, k, scale=0.3), _rand16(gen, cm)
+    w2, b2 = _rand16(gen, co, cm, k, k, scale=0.3), _rand16(gen, co)
+    c1, _, c2 = CC.conv_chain(x, w1, b1, w2, b2, need_c1=True,
+                              need_c2f=True)
+    g = _rand16(gen, 2, co, h, w)
+    args = (x, c1, c2, g, w1, w2)
+    got = CCB.conv_chain_bwd(*args, need_dx=need_dx)
+    want = CCB.conv_chain_bwd(*_f32(*args), need_dx=need_dx)
+    assert (got[0] is None) == (not need_dx)
+    for a, b in zip(got, want):
+        if b is not None:
+            _bits(a, b.to(BF16))
+    assert _one_call(CCB, lambda: CCB.conv_chain_bwd(
+        *args, need_dx=need_dx), 'launches_bf16') == _one_call(
+            CCB, lambda: CCB.conv_chain_bwd(*_f32(*args), need_dx=need_dx))
+
+
+# unet.yaml's bf16 stencil sites (down_2.conv_0 6 -> 12 at 64 x 64, the
+# head 3 -> 1), then the scalar pointwise route and odd pads
+_BF16_STENCILS = [(8, 6, 12, 64, 64, 3, ((1, 1), (1, 1)), True),
+                  (8, 3, 1, 256, 256, 1, ((0, 0), (0, 0)), False),
+                  (2, 3, 1, 19, 23, 1, ((0, 0), (0, 0)), True),
+                  (2, 4, 6, 19, 23, 3, ((0, 2), (1, 0)), False)]
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,k,pads,relu', _BF16_STENCILS)
+def test_stencil_conv_bf16_form(cuda, b, ci, co, h, w, k, pads, relu):
+    gen = torch.Generator().manual_seed(22)
+    x, wk = _rand16(gen, b, ci, h, w), _rand16(gen, co, ci, k, k)
+    bias = _rand16(gen, co)
+    got = SC.stencil_conv(x, wk, bias, pads, relu)
+    _bits(got, SC.stencil_conv(*_f32(x, wk, bias), pads, relu).to(BF16))
+    assert _one_call(SC, lambda: SC.stencil_conv(x, wk, bias, pads, relu),
+                     'launches_bf16') == 1
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,k,pads,relu', _BF16_STENCILS)
+@pytest.mark.parametrize('need_dx', [False, True])
+def test_stencil_conv_bwd_bf16_form(cuda, b, ci, co, h, w, k, pads, relu,
+                                    need_dx):
+    gen = torch.Generator().manual_seed(23)
+    x, wk = _rand16(gen, b, ci, h, w), _rand16(gen, co, ci, k, k)
+    oh, ow = h + sum(pads[0]) - k + 1, w + sum(pads[1]) - k + 1
+    g = _rand16(gen, b, co, oh, ow)
+    got = SCB.stencil_conv_bwd(x, g, wk, pads, need_dx)
+    want = SCB.stencil_conv_bwd(*_f32(x, g, wk), pads, need_dx)
+    assert (got[0] is None) == (not need_dx)
+    for a, c in zip(got, want):
+        if c is not None:
+            _bits(a, c.to(BF16))
+    assert _one_call(SCB, lambda: SCB.stencil_conv_bwd(
+        x, g, wk, pads, need_dx), 'launches_bf16') == _one_call(
+            SCB, lambda: SCB.stencil_conv_bwd(*_f32(x, g, wk), pads, need_dx))
+
+
+@pytest.mark.parametrize('b,h,w,ci,co,k,pads,relu,stride', [
+    (8, 256, 256, 1, 16, 3, ((1, 1), (1, 1)), True, 5),   # an encoder's conv_0
+    (8, 256, 256, 16, 1, 1, ((0, 0), (0, 0)), False, 16),  # the head
+    (2, 33, 20, 4, 8, 3, ((0, 0), (0, 0)), False, 4),     # four-value reads
+    (2, 17, 19, 3, 5, 2, ((0, 1), (0, 1)), True, 3),      # odd pads
+])
+def test_stencil_conv_nhwc_bf16_form(cuda, b, h, w, ci, co, k, pads, relu,
+                                     stride):
+    gen = torch.Generator().manual_seed(24)
+    x = _rand16(gen, b, h, w, stride)[..., stride - ci:]
+    wk, bias = _rand16(gen, co, ci, k, k), _rand16(gen, co)
+    got = SN.stencil_conv_nhwc(x, wk, bias, pads, relu)
+    want = SN.stencil_conv_nhwc(x.float(), *_f32(wk, bias), pads, relu)
+    _bits(got, want.to(BF16))
+    assert _one_call(SN, lambda: SN.stencil_conv_nhwc(
+        x, wk, bias, pads, relu), 'launches_bf16') == 1
+
+
+def test_bf16_reaching_an_f32_only_kernel_raises(cuda):
+    '''A kernel with no bf16 form refuses bf16 rather than upcasting.'''
+    gen = torch.Generator().manual_seed(25)
+    x = _rand16(gen, 2, 8, 8, 128)
+    with pytest.raises(TypeError, match='float32'):
+        PN.pool2x2_nhwc(x)
+    with pytest.raises(TypeError, match='float32'):
+        TC.tconv2x2(_rand16(gen, 2, 6, 4, 4), _rand16(gen, 6, 3, 2, 2),
+                    _rand16(gen, 3))

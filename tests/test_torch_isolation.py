@@ -16,13 +16,14 @@ from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import metrics
 from dnncancerannotator_torch.data import augment, pipeline
 from dnncancerannotator_torch.metrics import pixel, region
-from dnncancerannotator_torch.models import fastbn, multiresunet, unet
+from dnncancerannotator_torch.models import (blocks, fastbn, fastconv,
+                                             multiresunet, unet)
 from dnncancerannotator_torch.ops import (cca, functions, gates, image,
                                           morphology, pooling, warp)
 from dnncancerannotator_torch.ops.kernels import (
-    conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd, stencil_conv_bwd,
-    stencil_conv_nhwc, tconv2x2_bwd, tconv2x2_nhwc, tconv2x2_nhwc_bwd,
-    warp_twopass)
+    _build, conv_chain, conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd,
+    stencil_conv, stencil_conv_bwd, stencil_conv_nhwc, tconv2x2_bwd,
+    tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_twopass)
 from dnncancerannotator_torch.runs import evaluate, predict, train
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
@@ -35,6 +36,17 @@ for command in ('predict', 'train', 'evaluate'):
         except SystemExit as exc:
             assert exc.code == 0, exc.code
     assert '--device' in out.getvalue(), out.getvalue()
+import torch
+from dnncancerannotator_torch import models
+for name, opts in (('UNetAnnotator', {'f32_head': True}),
+                   ('MulmoUNetAnnotator', {'bn': True}),
+                   ('MultiResUnet', {'base_filters': 4})):
+    if name != 'MultiResUnet':   # the bf16 paths, end to end on the CPU
+        opts = dict(opts, n_filters_first=4, n_downsample=2, rate=2,
+                    kernel_size=3, conv_stride=1, padding='same')
+    model, _ = models.build_model(name, opts, in_channels=2,
+                                  dtype='bfloat16')
+    model(torch.rand(1, 16, 16, 2), return_logits=True).sum().backward()
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                        'orbax', 'dnncancerannotator_tpu'))
@@ -65,12 +77,25 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
 
 
 def test_bf16_precision_raises():
+    '''precision bfloat16 is no longer refused: the Engine computes in
+    bf16. What raises under it is bf16 reaching a kernel entry that has no
+    bf16 form: nothing falls back to an upcast copy.'''
+    import torch
     from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ops.kernels import _build
 
-    with pytest.raises(NotImplementedError, match='bfloat16'):
-        engine.Engine({'model': 'UNetAnnotator', 'model_options': {},
-                       'deploy_options': {'precision': 'bfloat16'}},
-                      device='cpu')
+    eng = engine.Engine({'model': 'UNetAnnotator', 'model_options': {},
+                         'deploy_options': {'precision': 'bfloat16'}},
+                        device='cpu')
+    assert eng.compute_dtype == torch.bfloat16
+    for entry in ('dnnca_tconv2x2', 'dnnca_pool2x2_nhwc',
+                  'dnnca_tconv2x2_nhwc', 'dnnca_warp_twopass'):
+        with pytest.raises(TypeError, match='float32, got torch.bfloat16'):
+            _build.form(entry, torch.bfloat16)
+    for entry in _build.BF16_FORMS:
+        assert _build.form(entry, torch.bfloat16) == (entry + '_bf16',
+                                                      torch.bfloat16)
+        assert entry + '_bf16' in _build._SIGNATURES
 
 
 @pytest.mark.parametrize('option,value,item', [

@@ -299,12 +299,11 @@ REPLACES.update({name + '_bf16': REPLACES[name] for name in (
     'conv_chain', 'conv_chain_bwd', 'stencil_conv', 'stencil_conv_bwd',
     'stencil_conv_nhwc')})
 # a kernel's source where it is not csrc/<name>.cu
-SOURCE = {'stencil_conv_nhwc': 'stencil_conv',
-          'conv_chain_bf16': 'conv_chain',
+SOURCE = {'conv_chain_bf16': 'conv_chain',
           'conv_chain_bwd_bf16': 'conv_chain_bwd',
           'stencil_conv_bf16': 'stencil_conv',
           'stencil_conv_bwd_bf16': 'stencil_conv_bwd',
-          'stencil_conv_nhwc_bf16': 'stencil_conv'}
+          'stencil_conv_nhwc_bf16': 'stencil_conv_nhwc'}
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
 # unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
@@ -343,7 +342,11 @@ MULMO_STENCIL_SITES = tuple(f'mulmo_unet.encoder_{i}.down_0.convchain.conv_0'
 MULMO_POOL_SITES = tuple(f'mulmo_unet.encoder_{i}.down_3' for i in range(5))
 MULMO_TCONV_SITE = 'mulmo_unet.decoder.up_0'
 # the NHWC stencil kernel's launches a call, counted by the kernel library
+# (either route: ops/kernels/stencil_conv_nhwc.py: route)
 STENCIL_NHWC_LAUNCHES = 1
+# the kept direct route's site: one output row (8192 x 32 values) past a
+# block's shared memory, so the tile does not fit
+NHWC_DIRECT_SITE = dict(shape=(1, 4, 8192, 1), co=32, k=3)
 # MultiResUnet runs no kernel but the warp, which is bit-equal to its plain
 # version, so its kernel step is the plain step; the step is held to the
 # f64 step instead (f64_step_shares): each gradient within MRU_F64_TOL of
@@ -1822,15 +1825,48 @@ def big_kernel_sites(device, results):
 
 
 # -- phase 3g ----------------------------------------------------------------
+def nhwc_direct_site(device, gen, dtype):
+    '''The NHWC stencil conv's kept direct route at NHWC_DIRECT_SITE (3x3
+    SAME 1 -> 32 with relu): against its plain version (f32: KERNEL_TOL;
+    bf16: bit-equal to the f32 form on the upcast inputs), one launch a
+    call, its times logged.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+    site = NHWC_DIRECT_SITE
+    bsz, h, wd, ci = site['shape']
+    co, k, pads = site['co'], site['k'], ((1, 1), (1, 1))
+    x = torch.rand(site['shape'], generator=gen, device=device).to(dtype)
+    w = torch.randn((co, ci, k, k), generator=gen, device=device).to(dtype)
+    b = torch.randn((co,), generator=gen, device=device).to(dtype)
+    route = SN.route(bsz, h, wd, ci, co, k, k, pads, x.element_size())
+    name = (f'stencil_conv_nhwc{"_bf16" if dtype != torch.float32 else ""} '
+            f'{list(x.shape)} {k}x{k} {ci}->{co} relu ({route})')
+    if route != 'direct':
+        raise AssertionError(f'{name}: the kept site takes the {route} route')
+    got = SN.stencil_conv_nhwc(x, w, b, pads, True)
+    if dtype == torch.float32:
+        _check_close(name, got, SN.plain(x, w, b, pads, True))
+    else:
+        _bits_equal(name, got, SN.stencil_conv_nhwc(
+            *_upcast(x, w, b), pads, True).to(dtype))
+        _bf16_err(name, got, SN.plain(x, w, b, pads, True))
+    _check_launches(name, lambda: SN.stencil_conv_nhwc(x, w, b, pads, True),
+                    STENCIL_NHWC_LAUNCHES)
+    times = _time_site(lambda: SN.stencil_conv_nhwc(x, w, b, pads, True),
+                       lambda: SN.plain(x, w, b, pads, True))
+    times['label'] = name
+
+
 @torch.no_grad()
 def mulmo_kernel_sites(device, results, site_results):
     '''The NHWC stencil conv at MulmoUNet's six sites, and the NHWC pool
     and tconv kernels at its five down_3 sites and at up_0 (Ci 640), on the
     activations of a seeded MulmoUNet forward (B=8, train mode): each
     against its plain version as phase 3e holds them, the stencil conv to
-    KERNEL_TOL at STENCIL_NHWC_LAUNCHES a call (the library's count); the
-    stencil conv also at B=64, as evaluate and predict call it. The stencil
-    conv's sites go into ``results``, the pool's and tconv's into
+    KERNEL_TOL at STENCIL_NHWC_LAUNCHES a call (the library's count), each
+    site's route printed (every site takes the tile); the stencil conv also
+    at B=64 at the first encoder and the head, as evaluate and predict call
+    it, and its kept direct route at NHWC_DIRECT_SITE. The stencil conv's
+    B=8 sites go into ``results``, the pool's and tconv's into
     ``site_results`` (their kernels line entries stay unet_big's).'''
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
@@ -1872,8 +1908,10 @@ def mulmo_kernel_sites(device, results, site_results):
                 torch.rand((BATCH,) + tuple(seen[path].shape[1:]),
                            generator=gen, device=device)
         for bsz, x in inputs.items():
+            route = SN.route(bsz, *x.shape[1:3], ci, co, kh, kw, pads,
+                             x.element_size())
             name = (f'stencil_conv_nhwc B={bsz} {path} {kh}x{kw} {ci}->{co}'
-                    f'{" relu" if relu else ""} @{x.shape[1]}')
+                    f'{" relu" if relu else ""} @{x.shape[1]} ({route})')
             got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
             err = _check_close(name, got, SN.plain(x, w, b, pads, relu))
             log(f'    x strides {tuple(x.stride())}')
@@ -1898,6 +1936,7 @@ def mulmo_kernel_sites(device, results, site_results):
                 site_bound = bound(*work)
                 log(f'  {name:44s} bound {site_bound[0]:.4f} ms '
                     f'({site_bound[1]})')
+    nhwc_direct_site(device, gen, torch.float32)
 
     for path in MULMO_POOL_SITES:
         x = seen[path].contiguous()
@@ -1968,9 +2007,14 @@ BF16_POLICIES = ('configs/additionals/bf16_f32head.yaml',
 BF16_CHAIN_SITES = ('unet.encoder.down_0', 'unet.encoder.down_1',
                     'unet.decoder.up_1', 'unet.decoder.up_2')
 BF16_STENCIL_SITES = ('unet.encoder.down_2.convchain.conv_0', 'last_conv')
-# the stencil backward's launches a call by route: the pointwise kernel, or
-# dgrad, wgrad and its fixed-order sum
-STENCIL_BWD_ROUTE_LAUNCHES = {'pointwise': 1, 'stencil': 3}
+# the stencil backward's launches a call by the forward's route: the
+# pointwise kernel, or the stencil route's one-launch tile; 'split' is the
+# stencil route's kept form (ops/kernels/stencil_conv_bwd.py: route), dgrad,
+# wgrad and its fixed-order sum, for shapes whose tile does not fit
+STENCIL_BWD_ROUTE_LAUNCHES = {'pointwise': 1, 'stencil': 1, 'split': 3}
+# the split form's site: 7 x 7, 32 -> 32, whose f64 partial (50208 items)
+# passes a block's shared memory
+STENCIL_SPLIT_SITE = dict(shape=(2, 32, 20, 24), co=32, k=7)
 
 
 def _bits_equal(name, got, want):
@@ -2018,6 +2062,40 @@ def _site_inputs(configs, paths, batch, device):
     return modules, seen
 
 
+def stencil_split_site(device, gen, dtype):
+    '''The stencil backward's kept split form at STENCIL_SPLIT_SITE (7 x 7
+    SAME, 32 -> 32): f32 against its plain version (DX_TOL, DW_TOL), bf16
+    bit-equal to the f32 form on the upcast inputs; three launches a call;
+    its times logged.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    site = STENCIL_SPLIT_SITE
+    bsz, ci, h, wd = site['shape']
+    co, k = site['co'], site['k']
+    pads = ((k // 2, k // 2), (k // 2, k // 2))
+    x = torch.rand(site['shape'], generator=gen, device=device).to(dtype)
+    w = (torch.randn((co, ci, k, k), generator=gen, device=device)
+         * 0.05).to(dtype)
+    g = torch.randn((bsz, co, h, wd), generator=gen, device=device).to(dtype)
+    route = SCB.route(bsz, ci, co, h, wd, k, k, pads)
+    name = (f'stencil_conv_bwd{"_bf16" if dtype != torch.float32 else ""} '
+            f'{list(x.shape)} {k}x{k} {ci}->{co} ({route})')
+    if route != 'split':
+        raise AssertionError(f'{name}: the kept site takes the {route} form')
+    got = SCB.stencil_conv_bwd(x, g, w, pads)
+    if dtype == torch.float32:
+        _check_grads(name, got, SCB.plain(x, g, w, pads),
+                     SCB.plain(*_f64(x, g, w), pads))
+    else:
+        for label, a, f in zip(('dx', 'dw', 'db'), got,
+                               SCB.stencil_conv_bwd(*_upcast(x, g, w), pads)):
+            _bits_equal(f'{name} {label}', a, f.to(dtype))
+    _check_launches(name, lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                    STENCIL_BWD_ROUTE_LAUNCHES['split'])
+    times = _time_site(lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                       lambda: SCB.plain(x, g, w, pads))
+    times['label'] = name
+
+
 def _check_launches(name, call, want):
     per_call = library_launches(call)
     if per_call != want:
@@ -2031,12 +2109,16 @@ def bf16_kernel_sites(device, results):
     seeded bf16 forward: unet.yaml + bf16.yaml's four chains and two stencil
     convs at B=8 as training calls them (the chain with c1 and the f32 c2,
     each backward with the relu-masked cotangent) and at B=64 as predict
-    and evaluate call the forwards, and MulmoUNet's six NHWC stencil sites
-    at B=8. Each bit-equal to its f32 form on the upcast inputs, rounded;
-    its launches a call by the library's count; its max|diff| from its
-    plain version; timings as in 3 (the library call: F.conv2d or the conv
-    backward in bf16). The B=8 sites go into ``results`` as the
-    ``<kernel>_bf16`` entries, with their bounds in bf16 bytes.'''
+    and evaluate call the forwards (the stencil backwards at B=64 too), and
+    MulmoUNet's six NHWC stencil sites at B=8 (the first encoder and the
+    head also at B=64). Each bit-equal to its f32 form on the upcast inputs,
+    rounded; its launches a call by the library's count (the stencil
+    backward's by its route, STENCIL_BWD_ROUTE_LAUNCHES; its dw and db the
+    same bits on two calls); its max|diff| from its plain version; timings
+    as in 3 (the library call: F.conv2d or the conv backward in bf16). The
+    B=8 sites go into ``results`` as the ``<kernel>_bf16`` entries, with
+    their bounds in bf16 bytes. Then the kept forms: the NHWC conv's direct
+    route in bf16 and the stencil backward's split form in f32 and bf16.'''
     from dnncancerannotator_torch.ops.kernels import conv_chain as CC
     from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
     from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
@@ -2122,11 +2204,11 @@ def bf16_kernel_sites(device, results):
         x_all = seen[path].to(bf16)
         route = SC.route(ci, co, kh, kw, pads, *x_all.shape[2:])
         desc = (f'{path} {kh}x{kw} {ci}->{co}{" relu" if relu else ""} '
-                f'@{x_all.shape[-1]} ({route})')
+                f'@{x_all.shape[-1]}')
         for bsz in (BATCH, TRAIN_BATCH):
             train = bsz == TRAIN_BATCH
             x = x_all[:bsz].contiguous()
-            name = f'stencil_conv_bf16 B={bsz} {desc}'
+            name = f'stencil_conv_bf16 B={bsz} {desc} ({route})'
             got = SC.stencil_conv(x, w, b, pads, relu)
             _bits_equal(name, got, SC.stencil_conv(
                 *_upcast(x, w, b), pads, relu).to(bf16))
@@ -2139,15 +2221,16 @@ def bf16_kernel_sites(device, results):
                 lambda: SC.plain(x, w, b, pads, relu),
                 lambda: F.conv2d(x, w, b, padding=(kh // 2, kw // 2)))
             site = bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw)
-            if not train:
+            if train:
+                record(results, 'stencil_conv_bf16', err, times, site)
+            else:
                 times['label'] = name
                 log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
-                continue
-            record(results, 'stencil_conv_bf16', err, times, site)
             g = torch.randn(got.shape, generator=gen, device=device).to(bf16)
             if relu:
                 g = g * (got > 0)
-            name = f'stencil_conv_bwd_bf16 B={bsz} {desc}'
+            bwd_route = SCB.route(bsz, ci, co, *x.shape[2:], kh, kw, pads)
+            name = f'stencil_conv_bwd_bf16 B={bsz} {desc} ({bwd_route})'
             bgot = SCB.stencil_conv_bwd(x, g, w, pads)
             want = SCB.stencil_conv_bwd(*_upcast(x, g, w), pads)
             plain = SCB.plain(x, g, w, pads)
@@ -2155,43 +2238,75 @@ def bf16_kernel_sites(device, results):
             for label, a, f, p in zip(('dx', 'dw', 'db'), bgot, want, plain):
                 _bits_equal(f'{name} {label}', a, f.to(bf16))
                 errs.append(_bf16_err(f'{name} {label}', a, p))
+            if bwd_route != 'split':
+                again = SCB.stencil_conv_bwd(x, g, w, pads)
+                if not all(torch.equal(p, q)
+                           for p, q in zip(bgot[1:], again[1:])):
+                    raise AssertionError(f'{name}: dw, db differ on two '
+                                         'calls')
             _check_launches(name, lambda: SCB.stencil_conv_bwd(x, g, w, pads),
-                            STENCIL_BWD_ROUTE_LAUNCHES[route])
+                            STENCIL_BWD_ROUTE_LAUNCHES[
+                                'split' if bwd_route == 'split' else route])
             times = _time_site(
                 lambda: SCB.stencil_conv_bwd(x, g, w, pads),
                 lambda: SCB.plain(x, g, w, pads),
                 lambda: conv_bwd(g, x, w, [co], [1, 1], [kh // 2, kw // 2],
                                  [1, 1], False, [0, 0], 1, [True] * 3))
-            record(results, 'stencil_conv_bwd_bf16', max(errs), times,
-                   bound(nbytes(x, g, w, *bgot),
-                         4 * g.numel() * ci * kh * kw))
+            site = bound(nbytes(x, g, w, *bgot), 4 * g.numel() * ci * kh * kw)
+            if train:
+                record(results, 'stencil_conv_bwd_bf16', max(errs), times,
+                       site)
+            else:
+                times['label'] = name
+                log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
 
     modules, seen = _site_inputs(MULMO_CONFIGS + (BF16,), MULMO_STENCIL_SITES,
                                  batch[:TRAIN_BATCH], device)
-    log(f'bf16 forms at MulmoUNet + bf16.yaml\'s sites (B={TRAIN_BATCH}):')
+    log(f'bf16 forms at MulmoUNet + bf16.yaml\'s sites (B={TRAIN_BATCH}; '
+        f'the first encoder and the head also at B={BATCH}):')
     for path in MULMO_STENCIL_SITES:
         conv = modules[path]
         w, b = _bf16(conv.weight, conv.bias)
         relu = conv.relu
         co, ci, kh, kw = w.shape
         pads = ((kh // 2, kh // 2), (kw // 2, kw // 2))
-        x = seen[path].to(bf16)   # an encoder casts its channel of the batch
-        name = (f'stencil_conv_nhwc_bf16 {path} {kh}x{kw} {ci}->{co}'
-                f'{" relu" if relu else ""} @{x.shape[1]}')
-        got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
-        _bits_equal(name, got, SN.stencil_conv_nhwc(
-            *_upcast(x, w, b), pads, relu).to(bf16))
-        err = _bf16_err(name, got, SN.plain(x, w, b, pads, relu))
-        _check_launches(name, lambda: SN.stencil_conv_nhwc(x, w, b, pads,
-                                                           relu),
-                        STENCIL_NHWC_LAUNCHES)
-        times = _time_site(
-            lambda: SN.stencil_conv_nhwc(x, w, b, pads, relu),
-            lambda: SN.plain(x, w, b, pads, relu),
-            lambda: F.conv2d(x.permute(0, 3, 1, 2), w, b,
-                             padding=(kh // 2, kw // 2)))
-        record(results, 'stencil_conv_nhwc_bf16', err, times,
-               bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw))
+        # an encoder casts its channel of the batch
+        inputs = {TRAIN_BATCH: seen[path].to(bf16)}
+        if path in (MULMO_STENCIL_SITES[0], 'last_conv'):
+            inputs[BATCH] = (batch[..., :1].to(bf16) if path != 'last_conv'
+                             else torch.rand(
+                                 (BATCH,) + tuple(seen[path].shape[1:]),
+                                 generator=gen, device=device).to(bf16))
+        for bsz, x in inputs.items():
+            route = SN.route(bsz, *x.shape[1:3], ci, co, kh, kw, pads,
+                             x.element_size())
+            name = (f'stencil_conv_nhwc_bf16 B={bsz} {path} {kh}x{kw} '
+                    f'{ci}->{co}{" relu" if relu else ""} @{x.shape[1]} '
+                    f'({route})')
+            got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
+            _bits_equal(name, got, SN.stencil_conv_nhwc(
+                *_upcast(x, w, b), pads, relu).to(bf16))
+            err = _bf16_err(name, got, SN.plain(x, w, b, pads, relu))
+            _check_launches(name, lambda: SN.stencil_conv_nhwc(x, w, b, pads,
+                                                               relu),
+                            STENCIL_NHWC_LAUNCHES)
+            times = _time_site(
+                lambda: SN.stencil_conv_nhwc(x, w, b, pads, relu),
+                lambda: SN.plain(x, w, b, pads, relu),
+                lambda: F.conv2d(x.permute(0, 3, 1, 2), w, b,
+                                 padding=(kh // 2, kw // 2)))
+            site = bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw)
+            if bsz == TRAIN_BATCH:
+                record(results, 'stencil_conv_nhwc_bf16', err, times, site)
+            else:
+                times['label'] = name
+                log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
+
+    # the kept forms: the NHWC conv's direct route, the stencil backward's
+    # split form
+    nhwc_direct_site(device, gen, bf16)
+    for dtype in (torch.float32, bf16):
+        stencil_split_site(device, gen, dtype)
 
 # -- phase 7 -----------------------------------------------------------------
 def _busy_us(prof):

@@ -5,53 +5,42 @@
 //
 // Replaces conv_kernel.stencil_conv2d_pallas
 // (dnncancerannotator_tpu/ops/pallas/conv_kernel.py:84), which keeps a
-// whole padded image in VMEM and reads the weights as SMEM scalars, in
-// both of its layouts. w [Co, Ci, KH, KW] (PyTorch OIHW), Ci, Co <= 32, f32.
+// whole padded image in VMEM and reads the weights as SMEM scalars, with
+// ``nchw=True``; its NHWC form is stencil_conv_nhwc.cu. w [Co, Ci, KH, KW]
+// (PyTorch OIHW), Ci, Co <= 32, f32. Two routes
+// (ops/kernels/stencil_conv.py: route):
 //
-// NCHW (``nchw=True``): on the unet.yaml path it runs the 1 x 1, 3 -> 1
-// logits head. Two routes (ops/kernels/stencil_conv.py: route):
+// - pointwise (1 x 1, zero pads): unet.yaml's 1 x 1, 3 -> 1 logits head.
+//   A pure stream of Ci reads and Co writes a pixel, 16 bytes a pixel at
+//   the head against 3 FMAs, so device-memory bytes bound it, and the rate
+//   of HBM needs many bytes in flight on every SM. The grid is (pixel
+//   chunk, batch) with 32-bit offsets inside a batch item and no division
+//   per pixel; each thread takes V groups of 4 consecutive pixels as
+//   float4 and issues all Ci x V loads before its first FMA (Ci a
+//   compile-time constant: exact up to 4, buckets above). The weights and
+//   bias are read with uniform read-only loads (one transaction a warp),
+//   with no shared memory and no barrier: they live on the device and
+//   change every step, so passing them by value would cost a copy to the
+//   host and a sync a call. Streaming loads where the call exceeds L2; a
+//   scalar form where H*W % 4 != 0 or a plane is not 16-byte aligned.
+// - stencil (any other KH x KW or pads): under bf16 compute (bf16.yaml)
+//   unet.yaml's down_2 chain is split, and its first conv, 3 x 3 6 -> 12
+//   with relu at 64 x 64, runs here in its bf16 form. One thread per
+//   output pixel, all Co accumulators in registers (a template bucket of
+//   Co), weights and bias in shared memory (broadcast reads). Neighbouring
+//   threads take neighbouring x, so every input and output access is
+//   coalesced; the padding is a bounds test on the input index, never a
+//   padded copy. Its time at that site sits far above its bound (PERF.md
+//   §6, rows 4 bf16, on an H100 80GB HBM3 at 700 W); its redesign is the
+//   next one queued (ROADMAP.md, queue 2).
 //
-// - pointwise (1 x 1, zero pads: the head): a pure stream of Ci reads and
-//   Co writes a pixel, 16 bytes a pixel at the head against 3 FMAs, so
-//   device-memory bytes bound it, and the rate of HBM needs many bytes in
-//   flight on every SM. The grid is (pixel chunk, batch) with 32-bit
-//   offsets inside a batch item and no division per pixel; each thread
-//   takes V groups of 4 consecutive pixels as float4 and issues all Ci x V
-//   loads before its first FMA (Ci a compile-time constant: exact up to 4,
-//   buckets above). The weights and bias are read with uniform read-only
-//   loads (one transaction a warp), with no shared memory and no barrier:
-//   they live on the device and change every step, so passing them by
-//   value would cost a copy to the host and a sync a call. Streaming loads
-//   where the call exceeds L2; a scalar form where H*W % 4 != 0 or a plane
-//   is not 16-byte aligned.
-// - stencil (any other KH x KW or pads; no configuration of the repo runs
-//   it): one thread per output pixel, all Co accumulators in registers (a
-//   template bucket of Co), weights and bias in shared memory (broadcast
-//   reads). Neighbouring threads take neighbouring x, so every input and
-//   output access is coalesced; the padding is a bounds test on the input
-//   index, never a padded copy. Wider stencils at these widths do at most a
-//   few hundred FMAs per pixel and stay near the bytes bound.
-//
-// NHWC (``nchw=False``, entry dnnca_stencil_conv_nhwc): MulmoUNet's first
-// conv of each per-channel encoder (3 x 3 SAME, 1 -> 16, fused relu) and its
-// 1 x 1, 16 -> 1 head. Both move 68 bytes a pixel for at most 144 FMAs, so
-// bytes bound them. One thread an output pixel, all Co accumulators in
-// registers, weights and bias in shared memory as [KH][KW][Ci][CO]
-// (broadcast reads). A pixel's Ci inputs are read as float4 where Ci % 4 ==
-// 0 and every pixel's channels are 16-byte aligned (the head's 16 inputs as
-// 4 float4s), its Co outputs written as float4 where Co fills its bucket
-// (the encoder conv's 16 as 4 float4s), so a warp reads and writes
-// contiguous runs of 32 pixels. The input's pixels may lie ``xs`` floats
-// apart (xs >= Ci): an encoder reads its channel of the [B, H, W, 5] batch
-// in place, with no copy.
-//
-// bf16 forms (entries dnnca_stencil_conv_bf16, dnnca_pointwise_conv_bf16,
-// dnnca_stencil_conv_nhwc_bf16): x, w and the bias in bf16, each value
-// converted to f32 as it is loaded (four at a time as 8 bytes where the
-// f32 form reads a float4), the sums the f32 form's in its order, and the
-// output rounded to bf16 (nearest-even) on its store: equal to the f32
-// form's on the upcast inputs, rounded. stencil_conv2d_pallas takes bf16
-// the same way: it upcasts, computes in f32, and its caller rounds.
+// bf16 forms (entries dnnca_stencil_conv_bf16, dnnca_pointwise_conv_bf16):
+// x, w and the bias in bf16, each value converted to f32 as it is loaded
+// (four at a time as 8 bytes where the f32 form reads a float4), the sums
+// the f32 form's in its order, and the output rounded to bf16
+// (nearest-even) on its store: equal to the f32 form's on the upcast
+// inputs, rounded. stencil_conv2d_pallas takes bf16 the same way: it
+// upcasts, computes in f32, and its caller rounds.
 #include "conv_tile.cuh"
 
 namespace {
@@ -258,114 +247,6 @@ cudaError_t pointwise(const T* x, const T* w, const T* bias, T* out, int B,
 }
 
 
-// -- NHWC ----------------------------------------------------------------------
-// CO: the output-channel bucket (1, 4, 8, 16 or 32); VI: 4 to read a pixel's
-// Ci inputs as float4 (Ci % 4 == 0, xs % 4 == 0, x 16-byte aligned), else 1;
-// VO: 4 to write its Co outputs as float4 (Co == CO, CO % 4 == 0), else 1.
-// T: the element type of x, w, bias and out (VI = 4 reads four bf16 as 8
-// bytes, VO = 4 writes four as 8 bytes).
-template <int CO, int VI, int VO, typename T>
-__global__ void __launch_bounds__(kThreads)
-stencil_nhwc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const T* __restrict__ bias, T* __restrict__ out,
-                    int B, int Ci, int Co, int H, int W, int xs, int KH,
-                    int KW, int pt, int pl, int OH, int OW, int relu) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int taps = KH * KW;
-  const int n_w = taps * Ci * CO;
-  float* ws = smem;         // [KH][KW][Ci][CO]
-  float* bs = smem + n_w;   // [CO]
-  for (int i = threadIdx.x; i < n_w; i += kThreads) {
-    const int o = i % CO, c = (i / CO) % Ci, t = i / (CO * Ci);
-    ws[i] = o < Co ? to_f32(w[(o * Ci + c) * taps + t]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < CO; i += kThreads)
-    bs[i] = i < Co ? to_f32(bias[i]) : 0.f;
-  __syncthreads();
-
-  const size_t oplane = static_cast<size_t>(OH) * OW;
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= static_cast<size_t>(B) * oplane) return;
-  const int b = static_cast<int>(idx / oplane);
-  const size_t pix = idx % oplane;
-  const int oy = static_cast<int>(pix / OW), ox = static_cast<int>(pix % OW);
-
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = bs[o];
-  const T* xb = x + static_cast<size_t>(b) * H * W * xs;
-  for (int ky = 0; ky < KH; ++ky) {
-    const int iy = oy - pt + ky;
-    if (iy < 0 || iy >= H) continue;
-    for (int kx = 0; kx < KW; ++kx) {
-      const int ix = ox - pl + kx;
-      if (ix < 0 || ix >= W) continue;
-      const T* px = xb + (static_cast<size_t>(iy) * W + ix) * xs;
-      const float* wt = ws + (ky * KW + kx) * Ci * CO;
-      for (int c = 0; c < Ci; c += VI) {
-        float v[VI];
-        if constexpr (VI == 4) {
-          const float4 q = load_(px + c, false, float4());
-          v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-        } else {
-          v[0] = load_(px + c, false, float());
-        }
-#pragma unroll
-        for (int j = 0; j < VI; ++j) {
-          const float* wc = wt + (c + j) * CO;
-#pragma unroll
-          for (int o = 0; o < CO; ++o) acc[o] = fmaf(v[j], wc[o], acc[o]);
-        }
-      }
-    }
-  }
-  if (relu) {
-#pragma unroll
-    for (int o = 0; o < CO; ++o) acc[o] = fmaxf(acc[o], 0.f);
-  }
-  T* ob = out + idx * Co;
-  if constexpr (VO == 4) {
-#pragma unroll
-    for (int o = 0; o < CO; o += 4)
-      store4(ob + o, make_float4(acc[o], acc[o + 1], acc[o + 2], acc[o + 3]));
-  } else {
-#pragma unroll
-    for (int o = 0; o < CO; ++o)
-      if (o < Co) put(ob + o, acc[o]);
-  }
-}
-
-template <int CO, int VI, int VO, typename T>
-cudaError_t launch_nhwc(const T* x, const T* w, const T* bias, T* out, int B,
-                        int Ci, int Co, int H, int W, int xs, int KH, int KW,
-                        int pt, int pl, int OH, int OW, int relu,
-                        cudaStream_t stream) {
-  const size_t smem_bytes = (static_cast<size_t>(KH) * KW * Ci + 1) * CO * 4;
-  cudaError_t err =
-      dnnca::allow_smem(stencil_nhwc_kernel<CO, VI, VO, T>, smem_bytes);
-  if (err != cudaSuccess) return err;
-  const size_t n = static_cast<size_t>(B) * OH * OW;
-  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  stencil_nhwc_kernel<CO, VI, VO, T><<<grid, kThreads, smem_bytes, stream>>>(
-      x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, relu);
-  return dnnca::launched(cudaGetLastError());
-}
-
-template <int CO, typename T>
-cudaError_t nhwc_co(const T* x, const T* w, const T* bias, T* out, int B,
-                    int Ci, int Co, int H, int W, int xs, int KH, int KW,
-                    int pt, int pl, int OH, int OW, int relu, int vec_in,
-                    cudaStream_t s) {
-#define DNNCA_NHWC(VI, VO)                                                  \
-  launch_nhwc<CO, VI, VO>(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, \
-                          pl, OH, OW, relu, s)
-  constexpr int kVo = CO % 4 == 0 ? 4 : 1;
-  if (Co == CO) return vec_in ? DNNCA_NHWC(4, kVo) : DNNCA_NHWC(1, kVo);
-  return vec_in ? DNNCA_NHWC(4, 1) : DNNCA_NHWC(1, 1);
-#undef DNNCA_NHWC
-}
-
 template <typename T>
 int stencil_entry(const T* x, const T* w, const T* bias, T* out, int B,
                   int Ci, int Co, int H, int W, int KH, int KW, int pt,
@@ -396,25 +277,6 @@ int pointwise_entry(const T* x, const T* w, const T* bias, T* out, int B,
                                  streaming, s)
              : pointwise<float>(x, w, bias, out, B, Ci, Co, P, relu,
                                 streaming, s);
-}
-
-template <typename T>
-int nhwc_entry(const T* x, const T* w, const T* bias, T* out, int B, int Ci,
-               int Co, int H, int W, int xs, int KH, int KW, int pt, int pl,
-               int OH, int OW, int relu, int vec_in, int device,
-               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DNNCA_NHWC_CO(CO)                                                   \
-  nhwc_co<CO>(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, \
-              relu, vec_in, s)
-  if (Co <= 1) return DNNCA_NHWC_CO(1);
-  if (Co <= 4) return DNNCA_NHWC_CO(4);
-  if (Co <= 8) return DNNCA_NHWC_CO(8);
-  if (Co <= 16) return DNNCA_NHWC_CO(16);
-  return DNNCA_NHWC_CO(32);
-#undef DNNCA_NHWC_CO
 }
 
 }  // namespace
@@ -460,27 +322,4 @@ extern "C" int dnnca_pointwise_conv_bf16(const bf16* x, const bf16* w,
                                          void* stream) {
   return pointwise_entry(x, w, bias, out, B, Ci, Co, P, relu, streaming, vec,
                          device, stream);
-}
-
-// The NHWC form: x [B, H, W, *] with its pixels xs elements apart (its Ci
-// channels contiguous), out [B, OH, OW, Co] contiguous. vec_in: Ci % 4 ==
-// 0, xs % 4 == 0 and x aligned to 4 elements (four-value reads); out is
-// aligned to 4 elements.
-extern "C" int dnnca_stencil_conv_nhwc(const float* x, const float* w,
-                                       const float* bias, float* out, int B,
-                                       int Ci, int Co, int H, int W, int xs,
-                                       int KH, int KW, int pt, int pl, int OH,
-                                       int OW, int relu, int vec_in,
-                                       int device, void* stream) {
-  return nhwc_entry(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH,
-                    OW, relu, vec_in, device, stream);
-}
-
-// The bf16 form of the NHWC entry (x, w, bias and out bf16).
-extern "C" int dnnca_stencil_conv_nhwc_bf16(
-    const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int Ci,
-    int Co, int H, int W, int xs, int KH, int KW, int pt, int pl, int OH,
-    int OW, int relu, int vec_in, int device, void* stream) {
-  return nhwc_entry(x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH,
-                    OW, relu, vec_in, device, stream);
 }

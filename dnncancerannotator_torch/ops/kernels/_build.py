@@ -64,11 +64,14 @@ _SIGNATURES = {
     # x, w, bias, out, B, Ci, Co, P, relu, streaming, vec, device, stream
     'dnnca_pointwise_conv': [_P] * 4 + [_I] * 8 + [_P],
     # x, w, bias, out, B, Ci, Co, H, W, xs, KH, KW, pt, pl, OH, OW, relu,
-    # vec_in, device, stream
-    'dnnca_stencil_conv_nhwc': [_P] * 4 + [_I] * 15 + [_P],
+    # vec_in, tile, rows, vec_out, device, stream
+    'dnnca_stencil_conv_nhwc': [_P] * 4 + [_I] * 18 + [_P],
     # x, g, w, dx, dw, db, partial, ticket, B, Ci, Co, P, tile, per_block,
     # blocks, slices, vec, smem, device, stream
     'dnnca_pointwise_conv_bwd': [_P] * 8 + [_I] * 11 + [_P],
+    # x, g, w, dx, dwb, partial, ticket, B, Ci, Co, H, W, KH, KW, pt, pl,
+    # OH, OW, rows, per_block, blocks, cluster, vec, smem, device, stream
+    'dnnca_stencil_conv_bwd_tile': [_P] * 7 + [_I] * 18 + [_P],
     # img, flow, out, B, H, W, C, max_displacement, tile, tw, seg, th, rb,
     # rs, fs, os, smem, device, stream
     'dnnca_warp_twopass': [_P] * 3 + [_I] * 15 + [_P],
@@ -93,14 +96,16 @@ _SIGNATURES = {
     'dnnca_conv_chain_bwd_bf16': [_P] * 9 + [_I] * 20 + [_P],
     'dnnca_stencil_conv_bf16': [_P] * 4 + [_I] * 13 + [_P],
     'dnnca_pointwise_conv_bf16': [_P] * 4 + [_I] * 8 + [_P],
-    'dnnca_stencil_conv_nhwc_bf16': [_P] * 4 + [_I] * 15 + [_P],
+    'dnnca_stencil_conv_nhwc_bf16': [_P] * 4 + [_I] * 18 + [_P],
     'dnnca_stencil_conv_bwd_bf16': [_P] * 6 + [_I] * 13 + [_P],
     'dnnca_pointwise_conv_bwd_bf16': [_P] * 8 + [_I] * 11 + [_P],
+    'dnnca_stencil_conv_bwd_tile_bf16': [_P] * 7 + [_I] * 18 + [_P],
 }
 # the entries with a bf16 form; any other takes f32 alone
 BF16_FORMS = ('dnnca_conv_chain', 'dnnca_conv_chain_bwd', 'dnnca_stencil_conv',
               'dnnca_pointwise_conv', 'dnnca_stencil_conv_nhwc',
-              'dnnca_stencil_conv_bwd', 'dnnca_pointwise_conv_bwd')
+              'dnnca_stencil_conv_bwd', 'dnnca_pointwise_conv_bwd',
+              'dnnca_stencil_conv_bwd_tile')
 
 _lock = threading.Lock()
 _lib = None

@@ -1,12 +1,12 @@
 '''Backward of the stride-1 stencil conv (ops/kernels/stencil_conv.py),
-NCHW f32.
+NCHW, in f32 or bf16.
 
 The CUDA kernels (csrc/stencil_conv_bwd.cu) replace
 conv_kernel.stencil_conv2d_bwd_pallas of the JAX package: from the
 forward's input x, the cotangent g of its output and the weight they
 return (dx or None, dw, db). When the forward fused a relu, the caller
 masks g by the forward's output first (ops/functions.py), as
-fastconv.py:200-201 does. The forward's ``route`` picks the kernels:
+fastconv.py:200-201 does. ``route`` picks the kernels from the shape:
 
 - ``pointwise`` (1 x 1, zero pads: the logits head): one launch a call.
   Blocks stage tiles of x and g, compute dx and per-block f64 partial sums
@@ -15,8 +15,16 @@ fastconv.py:200-201 does. The forward's ``route`` picks the kernels:
   alone (tile, tiles a block, blocks, slices, shared memory), so dw and db
   are the same bits on every card and call; the partials' scratch is kept
   per device and size, not allocated a call.
-- ``stencil`` (any other shape): the dgrad kernel, then the shared wgrad
-  kernel (csrc/wgrad.cu) and its fixed-order partial sum.
+- ``stencil`` (any other shape), in one of two forms (``route``, a
+  function of the shape): ``tile``, one launch a call on the pointwise
+  route's pattern (blocks walk tiles of whole rows of one image, stage g
+  with dx's halo and x with dw's, compute dx and per-block f64 partials of
+  dw and db, a cluster of blocks adds its blocks' partials in shared
+  memory, and the last cluster adds the clusters' partials in order;
+  ``tile_plan`` sizes it from the shape alone, its scratch kept per device
+  and size), wherever the tile and the partial fit a block's shared
+  memory; else ``split``, the dgrad kernel, then the shared wgrad kernel
+  (csrc/wgrad.cu) and its fixed-order partial sum: three launches.
 
 ``stencil_conv_bwd`` launches the kernels for CUDA tensors and runs
 ``plain`` (the data and weight gradients of ``F.conv2d`` on the padded
@@ -56,6 +64,27 @@ MAX_BLOCKS = 1024
 
 Plan = collections.namedtuple('Plan', 'tile chunks tiles per_block blocks '
                                       'slices smem')
+
+# the stencil route's tile kernel (csrc/stencil_conv_bwd.cu:
+# stencil_tile_bwd_kernel)
+TILE_THREADS = 512     # kTileThreads
+DX_THREADS = 128       # kDxThreads: dx, two pixels each; the rest, dw
+KX = 3                 # taps of a kernel row a dw work unit sums (kKx)
+# rows a tile: enough for two dx pixels a dx thread, fewer where the tile
+# would pass this many bytes of shared memory
+TILE_BYTES = 160 * 1024
+# at most this many blocks; past it a block takes several tiles
+MAX_TILE_BLOCKS = 128
+# blocks a thread-block cluster: a cluster adds its blocks' partials in
+# shared memory, so the last one adds one a cluster. At down_2's first
+# conv (128 blocks of ~92 KB) clusters of 4 or 8 did not all fit the card
+# at once and ran ~40% slower than clusters of 2 (tools/
+# profile_torch_sites.py --sweep-stencil on an H100 80GB HBM3 at 700 W)
+CLUSTER = 2
+
+TilePlan = collections.namedtuple(
+    'TilePlan', 'rows tiles_y tiles per_block blocks cluster units per_pass '
+                'slices n2 smem')
 
 
 def plain(x, g, w, pads, need_dx=True):
@@ -113,13 +142,91 @@ def plan(b, ci, co, h, w):
     return Plan(tile, chunks, tiles, per_block, blocks, slices, smem)
 
 
+def units(ci, kh, kw):
+    '''dw's work units: (input channel, kernel row, chunk of KX taps), then
+    the bias.'''
+    return ci * kh * cdiv(kw, KX) + 1
+
+
+def _tile_layout(ci, co, h, w, kh, kw, pads, rows):
+    '''(bytes of the tile's shared-memory layout, items n): the kernel's
+    TileLayout. Weights [KH][KW][CO][CI], g with dx's halo
+    as [pixel][CO], x with dw's halo as [Ci][rows][columns], the work
+    units' f32 sums [KX][CO][slices][per_pass] (f32, to a whole 16 bytes),
+    then the block's f64 partial of the n items.'''
+    (pt, pb), (pl, pr) = pads
+    oh, ow = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    cib, cob = _wgrad.bucket(ci), _wgrad.bucket(co)
+    n = co * ci * kh * kw + co
+    per_pass = min(units(ci, kh, kw), TILE_THREADS - DX_THREADS)
+    slices = (TILE_THREADS - DX_THREADS) // per_pass
+    g_lo, gc_lo = min(0, pt - kh + 1), min(0, pl - kw + 1)
+    gr = rows + pt - g_lo
+    gw = max(ow - 1, w - 1 + pl) - gc_lo + 1
+    floats = (kh * kw * cob * cib + gr * gw * cob
+              + ci * (rows + kh - 1) * (ow + kw - 1)
+              + slices * per_pass * KX * cob)
+    return 4 * pad4(floats) + 8 * n, n
+
+
+@functools.lru_cache(maxsize=None)
+def tile_plan(b, ci, co, h, w, kh, kw, pads, rows=None):
+    '''The stencil route's one-launch kernel over B images, from the shape
+    alone: tiles of ``rows`` whole rows of one image (input rows for dx,
+    output rows for dw; as many as give each dx thread two pixels, fewer
+    where the tile passes TILE_BYTES; or ``rows`` where given:
+    tools/profile_torch_sites.py --sweep-stencil), the tiles in order over
+    the batch, consecutive runs of them a block so that at most
+    MAX_TILE_BLOCKS blocks remain, the blocks in clusters of at most
+    CLUSTER (the grid padded to whole clusters with blocks of no tile), the
+    work units of dw and db (``units``, ``per_pass`` of them a pass in
+    ``slices`` slices of the tile's pixels),
+    each cluster's partial of n2 doubles (the n items to a whole pair), and
+    the shared memory: the tile's layout, and at least one item pair's
+    chunk sums in the last cluster's finish.'''
+    (pt, pb), (pl, pr) = pads
+    oh = h + pt + pb - kh + 1
+    span = max(h, oh)
+    if rows is None:
+        rows = min(span, cdiv(2 * DX_THREADS, w))
+        while rows > 1 and _tile_layout(ci, co, h, w, kh, kw, pads,
+                                        rows)[0] > TILE_BYTES:
+            rows -= 1
+    smem, n = _tile_layout(ci, co, h, w, kh, kw, pads, rows)
+    tiles_y = cdiv(span, rows)
+    tiles = b * tiles_y
+    per_block = cdiv(tiles, MAX_TILE_BLOCKS)
+    blocks = cdiv(tiles, per_block)
+    cluster = min(CLUSTER, blocks)
+    blocks = cdiv(blocks, cluster) * cluster
+    n_units = units(ci, kh, kw)
+    per_pass = min(n_units, TILE_THREADS - DX_THREADS)
+    smem = max(smem, 16 * cdiv(blocks // cluster, CHUNK))
+    return TilePlan(rows, tiles_y, tiles, per_block, blocks, cluster,
+                    n_units, per_pass, (TILE_THREADS - DX_THREADS) // per_pass,
+                    n + n % 2, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def route(b, ci, co, h, w, kh, kw, pads):
+    '''The backward's kernels for a shape: ``pointwise`` where the
+    forward's route is (one launch), else ``tile`` where the tile plan's
+    shared memory fits a block (one launch), else ``split`` (three).'''
+    if fwd.route(ci, co, kh, kw, pads, h, w) == 'pointwise':
+        return 'pointwise'
+    if tile_plan(b, ci, co, h, w, kh, kw, pads).smem <= _build.MAX_SMEM_BYTES:
+        return 'tile'
+    return 'split'
+
+
 _scratch = {}  # (device index, doubles) -> the partials' scratch
 
 
 def scratch(device, doubles):
-    '''The pointwise kernel's [blocks][Ci Co + Co] f64 partials: one
-    buffer a device and size, kept across calls (calls on one device run in
-    stream order, so they never hold it at once).'''
+    '''The one-launch kernels' f64 partials (the pointwise route's
+    [blocks][Ci Co + Co], the tile form's [clusters][n2]): one buffer a
+    device and size, kept across calls (calls on one device run in stream
+    order, so they never hold it at once).'''
     key = (device.index, doubles)
     if key not in _scratch:
         _scratch[key] = torch.empty(doubles, dtype=torch.float64,
@@ -150,7 +257,8 @@ def stencil_conv_bwd(x, g, w, pads, need_dx=True):
     dx = torch.empty_like(x) if need_dx else None
     dx_ptr = dx.data_ptr() if dx is not None else None
     stream = _build.stream_of(device)
-    if fwd.route(ci, co, kh, kw, pads, h, wd) == 'pointwise':
+    kind = route(b, ci, co, h, wd, kh, kw, pads)
+    if kind == 'pointwise':
         pl = plan(b, ci, co, h, wd)
         align = 4 * x.element_size()  # four values a load
         vec = ((h * wd) % 4 == 0 and x.data_ptr() % align == 0
@@ -171,12 +279,28 @@ def stencil_conv_bwd(x, g, w, pads, need_dx=True):
         return dx, dw, db
     n_w = co * ci * kh * kw
     dwb = torch.empty(n_w + co, **out)
-    blocks = _wgrad.blocks(b, oh, ow)
-    partial = torch.empty((n_w + co) * blocks, **f32)
-    _build.launch(entry, x.data_ptr(), g.data_ptr(),
-                  w.data_ptr(), dx_ptr, dwb.data_ptr(), partial.data_ptr(),
-                  b, ci, co, h, wd, kh, kw, pads[0][0], pads[1][0], oh, ow,
-                  blocks, device.index, stream)
+    if kind == 'tile':
+        pl = tile_plan(b, ci, co, h, wd, kh, kw, pads)
+        align = 4 * x.element_size()  # four values a load
+        vec = (ow % 4 == 0 and wd % 4 == 0 and x.data_ptr() % align == 0
+               and g.data_ptr() % align == 0)
+        _build.launch(_build.form('dnnca_stencil_conv_bwd_tile', dtype)[0],
+                      x.data_ptr(), g.data_ptr(), w.data_ptr(), dx_ptr,
+                      dwb.data_ptr(),
+                      scratch(device,
+                              pl.blocks // pl.cluster * pl.n2).data_ptr(),
+                      ticket(device).data_ptr(), b, ci, co, h, wd, kh, kw,
+                      pads[0][0], pads[1][0], oh, ow, pl.rows, pl.per_block,
+                      pl.blocks, pl.cluster, int(vec), pl.smem, device.index,
+                      stream)
+    else:
+        blocks = _wgrad.blocks(b, oh, ow)
+        partial = torch.empty((n_w + co) * blocks, **f32)
+        _build.launch(entry, x.data_ptr(), g.data_ptr(),
+                      w.data_ptr(), dx_ptr, dwb.data_ptr(),
+                      partial.data_ptr(), b, ci, co, h, wd, kh, kw,
+                      pads[0][0], pads[1][0], oh, ow, blocks, device.index,
+                      stream)
     if dtype == torch.bfloat16:
         launches_bf16 += 1
     else:

@@ -1,21 +1,28 @@
-'''Stride-1 conv with explicit pads, bias and an optional fused relu, NHWC
-f32, small channels: the NHWC form of stencil_conv (ops/kernels/
-stencil_conv.py).
+'''Stride-1 conv with explicit pads, bias and an optional fused relu, NHWC,
+small channels, in f32 or bf16: the NHWC form of stencil_conv
+(ops/kernels/stencil_conv.py).
 
-The CUDA kernel (csrc/stencil_conv.cu, entry ``dnnca_stencil_conv_nhwc``)
-replaces conv_kernel.stencil_conv2d_pallas of the JAX package with
-``nchw=False``. x is [B, H, W, Ci]; its channels must be contiguous, but
-its pixels may lie further apart than Ci floats: a channel slice
-``x[..., i:i + 1]`` of a batch (MulmoUNet's per-channel encoders) is read
-in place. The weight is PyTorch OIHW [Co, Ci, KH, KW]; ``pads`` is ((top,
-bottom), (left, right)) as in the JAX package. The output is a contiguous
-[B, OH, OW, Co].
+The CUDA kernels (csrc/stencil_conv_nhwc.cu, entry
+``dnnca_stencil_conv_nhwc``) replace conv_kernel.stencil_conv2d_pallas of
+the JAX package with ``nchw=False``. x is [B, H, W, Ci]; its channels must
+be contiguous, but its pixels may lie further apart than Ci values: a
+channel slice ``x[..., i:i + 1]`` of a batch (MulmoUNet's per-channel
+encoders) is read in place. The weight is PyTorch OIHW [Co, Ci, KH, KW];
+``pads`` is ((top, bottom), (left, right)) as in the JAX package. The
+output is a contiguous [B, OH, OW, Co].
 
 ``eligible`` is the routing: the JAX package's ``small`` conv
 (fastconv.py:365-372) and the unroll bound of ``conv_kernel.supported``
 (kh * kw * Ci * Co <= 1024). ``supported``'s per-program VMEM bound is not
-kept: it is the TPU kernel's whole padded image a program in VMEM, and
-this kernel keeps no image resident (one thread an output pixel).
+kept: it is the TPU kernel's whole padded image a program in VMEM.
+
+``route`` picks one of two kernels from the shape alone: ``tile`` (a block
+owns whole output rows of one image, stages their input rows in shared
+memory and writes its output as one contiguous run), wherever ``plan``'s
+tile fits a block's shared memory; else ``direct`` (one thread an output
+pixel, read from device memory), for shapes whose one output row does not
+fit. ``plan`` sizes the tile in pure Python: rows a tile, pixels a thread,
+the shared-memory layout.
 
 ``stencil_conv_nhwc`` launches the kernel for CUDA tensors and runs
 ``plain`` (``F.conv2d`` on the padded NCHW view) for CPU tensors; it raises
@@ -31,17 +38,122 @@ library's conv backward in bf16, as XLA's in the JAX package (f32
 accumulation, bf16 results).
 '''
 
+import collections
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from . import stencil_conv as nchw
+from .tconv2x2_bwd import cdiv, pad4
 
 MAX_CHANNELS = nchw.MAX_CHANNELS
 MAX_TERMS = nchw.MAX_TERMS
 
 launches = 0  # kernel launches in this process
 launches_bf16 = 0  # those of the bf16 form
+
+# the tile kernel (csrc/stencil_conv_nhwc.cu: stencil_nhwc_tile_kernel)
+THREADS = 256   # kThreads
+# a tile's rows hold this many output pixels (four a thread at the head, two
+# groups of two at an encoder), fewer where the tile would pass TILE_BYTES
+# of shared memory: with them MulmoUNet's sites ran fastest of 1-8 rows
+# (tools/profile_torch_sites.py --sweep-stencil on an H100 80GB HBM3 at
+# 700 W; four blocks of 64 registers a thread fit an SM)
+TILE_PX = 1024
+TILE_BYTES = 48 * 1024
+
+Plan = collections.namedtuple('Plan', 'rows px gpr sw in_row vec_out tiles '
+                                      'smem')
+
+
+def bucket(co):
+    '''The kernels' register width for Co output channels.'''
+    return next(b for b in (1, 4, 8, 16, 32) if co <= b)
+
+
+def form(ci, kh, kw, pads):
+    '''The tile kernel's form (its KX): 3 for a one-channel 3-wide stencil
+    (a window of staged values reused across the taps), 1 for a 1 x 1 conv
+    with zero pads (no halo: a thread reads its pixel's channels straight
+    into registers and nothing is staged), 0 for any other shape.'''
+    if ci == 1 and kw == 3:
+        return 3
+    if (kh, kw) == (1, 1) and pads == ((0, 0), (0, 0)):
+        return 1
+    return 0
+
+
+def pixels(ci, co, kh, kw, pads):
+    '''Pixels a thread computes along a row (the kernel's tile_px): the
+    3-wide form keeps a window of P + 2 values and P * CO <= 32 sums, at
+    most 4 pixels; any other shape one pixel.'''
+    if form(ci, kh, kw, pads) == 3:
+        width = bucket(co)
+        return 1 if width >= 32 else 2 if width >= 16 else 4
+    return 1
+
+
+def _smem(rows, ci, co, kh, kw, ow, px, gpr, in_row, vec_out, esize,
+          staged=True):
+    '''The tile's shared memory (the kernel's TileLayout): weights and bias
+    (f32, to a whole 16 bytes), the staged input rows (f32; none for the
+    1 x 1 form), and the output staging (in x's dtype): 16-byte chunks of
+    each thread's P * Co outputs with a chunk of padding after an even
+    count, or the run value by value with up to one chunk of slack before
+    it.'''
+    width = bucket(co)
+    floats = pad4(kh * kw * ci * width + width) + (
+        (rows + kh - 1) * in_row if staged else 0)
+    if vec_out:
+        gc = px * width * esize // 16
+        out = 16 * rows * gpr * (gc + (1 if gc % 2 == 0 else 0))
+    else:
+        out = cdiv((rows * ow * co + 16 // esize) * esize, 16) * 16
+    return 4 * floats + out
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b, h, w, ci, co, kh, kw, pads, esize, rows=None):
+    '''The tile kernel's launch for x [B, H, W, Ci] of ``esize``-byte values
+    and a kh x kw kernel, from the shape alone: its ``form``, P pixels a
+    thread
+    (``pixels``), ceil(OW / P) groups a row, the staged rows' width (the
+    groups' pixels and the kernel's halo), the output as 16-byte chunks
+    where Co fills its bucket, P * Co values are whole chunks and P divides
+    OW; rows a tile for TILE_PX pixels, fewer where the tile passes
+    TILE_BYTES (or ``rows`` where given: tools/profile_torch_sites.py
+    --sweep-stencil); one block a tile.'''
+    (pt, pb), (pl, pr) = pads
+    oh, ow = h + pt + pb - kh + 1, w + pl + pr - kw + 1
+    px = pixels(ci, co, kh, kw, pads)
+    staged = form(ci, kh, kw, pads) != 1
+    gpr = cdiv(ow, px)
+    sw = gpr * px + kw - 1
+    in_row = pad4(sw * ci)
+    vec_out = (co == bucket(co) and (px * co * esize) % 16 == 0
+               and ow % px == 0)
+
+    def smem(r):
+        return _smem(r, ci, co, kh, kw, ow, px, gpr, in_row, vec_out, esize,
+                     staged)
+    if rows is None:
+        rows = min(oh, cdiv(TILE_PX, ow))
+        while rows > 1 and smem(rows) > TILE_BYTES:
+            rows -= 1
+    return Plan(rows, px, gpr, sw, in_row, vec_out, b * cdiv(oh, rows),
+                smem(rows))
+
+
+@functools.lru_cache(maxsize=None)
+def route(b, h, w, ci, co, kh, kw, pads, esize):
+    '''``tile`` where the plan's tile fits a block's shared memory and its
+    grid the launch, else ``direct``.'''
+    pl = plan(b, h, w, ci, co, kh, kw, pads, esize)
+    if pl.smem <= _build.MAX_SMEM_BYTES and pl.tiles < 2**31:
+        return 'tile'
+    return 'direct'
 
 
 def plain(x, w, b, pads, relu=False):
@@ -97,13 +209,19 @@ def stencil_conv_nhwc(x, w, b, pads, relu=False):
                          f'{x.dtype} on {x.device}')
     bsz, h, wd, ci = x.shape
     co, _, kh, kw = w.shape
+    esize = x.element_size()
     out = torch.empty((bsz, oh, ow, co), device=device, dtype=dtype)
+    if out.data_ptr() % 16:
+        raise ValueError('stencil_conv_nhwc needs a 16-byte aligned output')
     vec_in = (ci % 4 == 0 and xs % 4 == 0
-              and x.data_ptr() % (4 * x.element_size()) == 0)
+              and x.data_ptr() % (4 * esize) == 0)
+    tile = route(bsz, h, wd, ci, co, kh, kw, pads, esize) == 'tile'
+    pl = plan(bsz, h, wd, ci, co, kh, kw, pads, esize)
     _build.launch(entry, x.data_ptr(), w.data_ptr(),
                   b.data_ptr(), out.data_ptr(), bsz, ci, co, h, wd, xs, kh,
                   kw, pads[0][0], pads[1][0], oh, ow, int(bool(relu)),
-                  int(vec_in), device.index, _build.stream_of(device))
+                  int(vec_in), int(tile), pl.rows, int(pl.vec_out),
+                  device.index, _build.stream_of(device))
     if dtype == torch.bfloat16:
         launches_bf16 += 1
     else:

@@ -834,3 +834,156 @@ def test_bf16_reaching_an_f32_only_kernel_raises(cuda):
     with pytest.raises(TypeError, match='float32'):
         TC.tconv2x2(_rand16(gen, 2, 6, 4, 4), _rand16(gen, 6, 3, 2, 2),
                     _rand16(gen, 3))
+
+
+# -- the stencil tiles: the NHWC forward's tile route, the NCHW backward's
+# one-launch tile form ----------------------------------------------------------
+_SAME3 = ((1, 1), (1, 1))
+_ZERO = ((0, 0), (0, 0))
+# b, h, w, ci, co, k, pads, relu, stride: H and W not multiples of the
+# tile's rows or of P, pixel strides 5 and Ci, Ci % 4 == 0 and not, Co 1, 3,
+# 16 and 32, VALID, B=1
+_NHWC_TILES = [
+    (1, 37, 70, 1, 16, 3, _SAME3, True, 5),     # an encoder's conv, ragged
+    (2, 19, 33, 1, 16, 3, _SAME3, True, 1),     # xs = Ci, OW % P != 0
+    (2, 21, 22, 4, 3, 3, _SAME3, False, 4),     # Ci % 4 == 0, Co 3
+    (2, 21, 22, 3, 32, 3, _SAME3, True, 3),     # Ci % 4 != 0, Co 32
+    (2, 17, 24, 1, 1, 3, _ZERO, False, 5),      # VALID, Co 1
+    (2, 16, 18, 8, 16, 3, _ZERO, True, 8),      # VALID, eight channels
+    (2, 20, 20, 32, 1, 1, _ZERO, False, 32),    # the 1 x 1 form, Ci 32
+    (3, 13, 250, 16, 1, 1, _ZERO, False, 20),   # a head, strided pixels
+    (2, 15, 15, 16, 1, 1, _ZERO, False, 18),    # the 1 x 1 form, scalar reads
+    (2, 9, 9, 2, 3, 5, ((2, 2), (2, 2)), False, 2),
+    (2, 11, 13, 1, 8, 3, ((0, 2), (2, 0)), True, 1),   # odd pads, P = 4
+]
+
+
+def _nhwc_inputs(gen, b, h, w, ci, co, k, stride, rand=_rand):
+    x = rand(gen, b, h, w, stride)[..., stride - ci:]
+    return x, rand(gen, co, ci, k, k), rand(gen, co)
+
+
+@pytest.mark.parametrize('b,h,w,ci,co,k,pads,relu,stride', _NHWC_TILES)
+def test_stencil_conv_nhwc_tile(cuda, b, h, w, ci, co, k, pads, relu,
+                                stride):
+    '''The tile route against the plain version, one launch a call by the
+    library's count.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(ci * 37 + co + k)
+    x, wk, bias = _nhwc_inputs(gen, b, h, w, ci, co, k, stride)
+    assert SN.route(b, h, w, ci, co, k, k, pads, 4) == 'tile'
+    got = SN.stencil_conv_nhwc(x, wk, bias, pads, relu)
+    assert got.is_contiguous()
+    _assert_close(got, SN.plain(x, wk, bias, pads, relu))
+    assert library_launches(
+        lambda: SN.stencil_conv_nhwc(x, wk, bias, pads, relu)) == 1
+
+
+@pytest.mark.parametrize('b,h,w,ci,co,k,pads,relu,stride', _NHWC_TILES)
+def test_stencil_conv_nhwc_tile_bf16_form(cuda, b, h, w, ci, co, k, pads,
+                                          relu, stride):
+    gen = torch.Generator().manual_seed(ci * 41 + co + k)
+    x, wk, bias = _nhwc_inputs(gen, b, h, w, ci, co, k, stride, _rand16)
+    assert SN.route(b, h, w, ci, co, k, k, pads, 2) == 'tile'
+    got = SN.stencil_conv_nhwc(x, wk, bias, pads, relu)
+    want = SN.stencil_conv_nhwc(x.float(), *_f32(wk, bias), pads, relu)
+    _bits(got, want.to(BF16))
+    assert _one_call(SN, lambda: SN.stencil_conv_nhwc(
+        x, wk, bias, pads, relu), 'launches_bf16') == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_stencil_conv_nhwc_direct_route(cuda, dtype):
+    '''A shape whose one output row does not fit a block's shared memory
+    keeps the direct kernel: against the plain version, one launch.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(26)
+    rand = _rand if dtype == torch.float32 else _rand16
+    x, wk, bias = _nhwc_inputs(gen, 1, 4, 8192, 1, 32, 3, 1, rand)
+    esize = x.element_size()
+    assert SN.route(1, 4, 8192, 1, 32, 3, 3, _SAME3, esize) == 'direct'
+    got = SN.stencil_conv_nhwc(x, wk, bias, _SAME3, True)
+    _assert_close(got.float(), SN.plain(x, wk, bias, _SAME3, True).float(),
+                  _TOL if dtype == torch.float32 else 1e-2)
+    assert library_launches(
+        lambda: SN.stencil_conv_nhwc(x, wk, bias, _SAME3, True)) == 1
+
+
+# b, ci, co, h, w, kh, kw, pads: down_2's first conv under bf16.yaml, then
+# asymmetric pads, 1 x 3, 5 x 5, Ci = Co = 32, B=1, a padded 1 x 1 (more
+# output rows than input rows), VALID (fewer)
+_STENCIL_BWD_TILES = [
+    (8, 6, 12, 64, 64, 3, 3, _SAME3),
+    (2, 4, 6, 19, 23, 3, 3, ((0, 2), (1, 0))),
+    (2, 3, 5, 17, 21, 1, 3, ((0, 0), (1, 1))),
+    (2, 5, 7, 19, 23, 5, 5, ((2, 2), (2, 2))),
+    (2, 32, 32, 8, 8, 3, 3, _SAME3),
+    (1, 6, 12, 64, 64, 3, 3, _SAME3),
+    (2, 3, 4, 10, 10, 1, 1, ((2, 2), (1, 1))),
+    (2, 3, 4, 12, 13, 3, 3, _ZERO),
+    (3, 2, 3, 10, 12, 2, 2, ((1, 0), (0, 1))),
+]
+
+
+def _bwd_inputs(gen, b, ci, co, h, w, kh, kw, pads, rand=_rand):
+    x, wk = rand(gen, b, ci, h, w), rand(gen, co, ci, kh, kw)
+    oh, ow = h + sum(pads[0]) - kh + 1, w + sum(pads[1]) - kw + 1
+    return x, rand(gen, b, co, oh, ow), wk
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,kh,kw,pads', _STENCIL_BWD_TILES)
+@pytest.mark.parametrize('need_dx', [True, False])
+def test_stencil_conv_bwd_tile(cuda, b, ci, co, h, w, kh, kw, pads, need_dx):
+    '''The stencil route's one-launch form against the f64 plain version
+    (its dw and db sum in f64), one launch a call by the library's count,
+    dw and db the same bits on two calls and with or without dx, and the
+    ticket back at 0.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(ci * 13 + co + kh)
+    x, g, wk = _bwd_inputs(gen, b, ci, co, h, w, kh, kw, pads)
+    assert SCB.route(b, ci, co, h, w, kh, kw, pads) == 'tile'
+    got = SCB.stencil_conv_bwd(x, g, wk, pads, need_dx)
+    assert (got[0] is None) == (not need_dx)
+    want = SCB.plain(x.double(), g.double(), wk.double(), pads, need_dx)
+    _assert_grads(got, tuple(None if t is None else t.float() for t in want))
+    again = SCB.stencil_conv_bwd(x, g, wk, pads, not need_dx)
+    for a, c in zip(got[1:], again[1:]):
+        assert torch.equal(a, c)
+    assert library_launches(
+        lambda: SCB.stencil_conv_bwd(x, g, wk, pads, need_dx)) == 1
+    assert int(TCB.ticket(cuda)) == 0
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,kh,kw,pads', _STENCIL_BWD_TILES)
+@pytest.mark.parametrize('need_dx', [True, False])
+def test_stencil_conv_bwd_tile_bf16_form(cuda, b, ci, co, h, w, kh, kw, pads,
+                                         need_dx):
+    gen = torch.Generator().manual_seed(ci * 17 + co + kh)
+    x, g, wk = _bwd_inputs(gen, b, ci, co, h, w, kh, kw, pads, _rand16)
+    got = SCB.stencil_conv_bwd(x, g, wk, pads, need_dx)
+    want = SCB.stencil_conv_bwd(*_f32(x, g, wk), pads, need_dx)
+    for a, c in zip(got, want):
+        if c is not None:
+            _bits(a, c.to(BF16))
+    assert _one_call(SCB, lambda: SCB.stencil_conv_bwd(
+        x, g, wk, pads, need_dx), 'launches_bf16') == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_stencil_conv_bwd_split_route(cuda, dtype):
+    '''A shape whose f64 partial does not fit a block's shared memory (7 x
+    7, 32 -> 32) keeps the three-launch split form.'''
+    from chip_smoke import library_launches
+    pads = ((3, 3), (3, 3))
+    gen = torch.Generator().manual_seed(27)
+    rand = _rand if dtype == torch.float32 else _rand16
+    x, g, wk = _bwd_inputs(gen, 2, 32, 32, 20, 24, 7, 7, pads, rand)
+    assert SCB.route(2, 32, 32, 20, 24, 7, 7, pads) == 'split'
+    got = SCB.stencil_conv_bwd(x, g, wk, pads)
+    if dtype == torch.float32:
+        _assert_grads(got, SCB.plain(x, g, wk, pads))
+    else:
+        for a, c in zip(got, SCB.stencil_conv_bwd(*_f32(x, g, wk), pads)):
+            _bits(a, c.to(BF16))
+    assert library_launches(
+        lambda: SCB.stencil_conv_bwd(x, g, wk, pads)) == 3

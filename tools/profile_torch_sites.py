@@ -3,7 +3,8 @@ backward) and warp resample kernels at the shapes their paths call them
 with:
 
     python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--warp]
-        [--sweep | --sweep-head | --sweep-warp]
+        [--stencil] [--sweep | --sweep-head | --sweep-warp |
+        --sweep-stencil]
 
 On one GPU, with seeded inputs, it times:
 
@@ -45,7 +46,12 @@ routes (ops/kernels/cca.py: route), for the rules' choices;
 ``--sweep-warp`` times both warp kernels at their main-path shapes, at a
 smooth and a random flow, at every strip width and segment height whose
 tile fits (ops/kernels/warp_twopass.py: TUNED) and on the direct route,
-beside the plan's choice.
+beside the plan's choice. ``--stencil`` times instead the NHWC stencil
+conv at MulmoUNet's encoder conv_0 and head (f32 and bf16, B=8 and 64)
+and the NCHW stencil backward at unet.yaml + bf16.yaml's down_2.conv_0
+(bf16 and f32, B=8), each labelled with its route; ``--sweep-stencil``
+times both stencil tiles at every tile height that fits (and the
+backward's at several block caps), beside the plans' choices.
 It imports nothing of JAX and builds the kernels with nvcc.
 '''
 
@@ -331,6 +337,170 @@ def sweep_warp(device):
         WT.plan.cache_clear()
 
 
+def stencil_jobs(device):
+    '''(label, call, bound ms) of the stencil kernels at their main-path
+    shapes on seeded inputs: the NHWC stencil conv at
+    MulmoUNet's encoder conv_0 (3x3 SAME 1 -> 16 with relu, channel 2 of a
+    [B, 256, 256, 5] batch read in place in f32; the cast channel,
+    contiguous, in bf16) and at its head (1x1 16 -> 1), at B=8 and 64; the
+    NCHW stencil conv and its backward at unet.yaml + bf16.yaml's
+    down_2.conv_0 (3x3 6 -> 12 with relu at 64 x 64, B=8, the cotangent
+    masked by the forward's relu) and at its head (1x1 3 -> 1 at 256 x 256,
+    the pointwise route), in bf16 and f32; and beside each NCHW site its
+    library call (``F.conv2d``, ``convolution_backward``). Each checked
+    against its plain version; each label names its route (a parent without
+    one has the direct kernels).'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+    F = torch.nn.functional
+
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED + 13)
+    size, same, zero = chip_smoke.SIZE, ((1, 1), (1, 1)), ((0, 0), (0, 0))
+    jobs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = 'f32' if dtype == torch.float32 else 'bf16'
+        for nb in (TRAIN_BATCH, PREDICT_BATCH):
+            batch = torch.rand((nb, size, size, 5), generator=gen,
+                               device=device)
+            feats = torch.rand((nb, size, size, 16), generator=gen,
+                               device=device).to(dtype)
+            sites = (('encoder conv_0 3x3 1->16 relu',
+                      batch[..., 2:3] if dtype == torch.float32
+                      else batch[..., 2:3].to(dtype), 16, 3, same, True),
+                     ('head 1x1 16->1', feats, 1, 1, zero, False))
+            for label, x, co, k, pads, relu in sites:
+                ci = x.shape[3]
+                w = (torch.randn((co, ci, k, k), generator=gen,
+                                 device=device) * 0.3).to(dtype)
+                b = torch.randn((co,), generator=gen, device=device).to(dtype)
+                got = SN.stencil_conv_nhwc(x, w, b, pads, relu)
+                want = SN.plain(x, w, b, pads, relu)
+                err = float((got.float() - want.float()).abs().max())
+                # bf16: an ulp where the plain version's sum order rounds
+                # the other way
+                tol = 1e-5 if dtype == torch.float32 else 1e-2
+                if err > tol * float(want.float().abs().max()):
+                    raise AssertionError(f'stencil_conv_nhwc {label} differs '
+                                         f'by {err}')
+                route = (SN.route(nb, size, size, ci, co, k, k, pads,
+                                  x.element_size())
+                         if hasattr(SN, 'route') else 'direct')
+                work = (x.element_size() * x[..., :ci].numel()
+                        + chip_smoke.nbytes(w, b, got),
+                        2 * got.numel() * ci * k * k)
+                jobs.append((f'stencil_conv_nhwc {tag} B={nb} {label} '
+                             f'({route})',
+                             functools.partial(SN.stencil_conv_nhwc, x, w, b,
+                                               pads, relu),
+                             chip_smoke.bound(*work)[0]))
+        conv_bwd = torch.ops.aten.convolution_backward
+        for label, ci, co, hw, k, pads, relu in (
+                ('down_2.conv_0 3x3 6->12 relu', 6, 12, 64, 3, same, True),
+                ('head 1x1 3->1', 3, 1, size, 1, zero, False)):
+            x = torch.rand((TRAIN_BATCH, ci, hw, hw), generator=gen,
+                           device=device).to(dtype)
+            w = (torch.randn((co, ci, k, k), generator=gen, device=device)
+                 * 0.3).to(dtype)
+            b = torch.randn((co,), generator=gen, device=device).to(dtype)
+            out = SC.stencil_conv(x, w, b, pads, relu)
+            err = float((out.float() - SC.plain(x, w, b, pads, relu)
+                         .float()).abs().max())
+            if err > 1e-2 * float(out.float().abs().max()):
+                raise AssertionError(f'stencil_conv {tag} {label} differs by '
+                                     f'{err}')
+            fwd_route = SC.route(ci, co, k, k, pads, hw, hw)
+            name = f'{tag} B={TRAIN_BATCH} {label} @{hw}'
+            jobs.append((f'stencil_conv {name} ({fwd_route})',
+                         functools.partial(SC.stencil_conv, x, w, b, pads,
+                                           relu),
+                         chip_smoke.bound(chip_smoke.nbytes(x, w, b, out),
+                                          2 * out.numel() * ci * k * k)[0]))
+            jobs.append((f'library F.conv2d {name}',
+                         functools.partial(F.conv2d, x, w, b,
+                                           padding=k // 2), None))
+            g = torch.randn(out.shape, generator=gen, device=device).to(dtype)
+            if relu:
+                g = g * (out > 0)
+            got = SCB.stencil_conv_bwd(x, g, w, pads)
+            want = SCB.plain(x, g, w, pads)
+            for a, c in zip(got, want):
+                err = float((a.float() - c.float()).abs().max())
+                scale = float(c.float().abs().max())
+                if err > (1e-4 if dtype == torch.float32 else 2e-2) * scale:
+                    raise AssertionError(f'stencil_conv_bwd {tag} {label} '
+                                         f'differs by {err} of {scale}')
+            route = (SCB.route(TRAIN_BATCH, ci, co, hw, hw, k, k, pads)
+                     if hasattr(SCB, 'route') else
+                     'split' if fwd_route == 'stencil' else fwd_route)
+            jobs.append((f'stencil_conv_bwd {name} ({route})',
+                         functools.partial(SCB.stencil_conv_bwd, x, g, w,
+                                           pads),
+                         chip_smoke.bound(chip_smoke.nbytes(x, g, w, *got),
+                                          4 * g.numel() * ci * k * k)[0]))
+            jobs.append((f'library convolution_backward {name}',
+                         functools.partial(conv_bwd, g, x, w, [co], [1, 1],
+                                           [k // 2, k // 2], [1, 1], False,
+                                           [0, 0], 1, [True] * 3), None))
+    return jobs
+
+
+def sweep_stencil(device):
+    '''Device ms of the two stencil tiles at their main-path shapes (as
+    ``stencil_jobs``) at every tile height that fits: the NHWC tile route
+    at 1-8 rows, and the backward's tile form at 1-8 rows, a cap of 64-256
+    blocks and clusters of 2-8 blocks, beside the plans' own choices.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
+
+    def device_ms(call):
+        split = chip_smoke._fullest_split(call)
+        return sum(ms for ms, _ in split.values())
+
+    jobs = stencil_jobs(device)
+    plan, route = SN.plan, SN.route
+    for label, call, _ in jobs:
+        if not label.startswith('stencil_conv_nhwc') or 'B=64' in label:
+            continue
+        print(f'{label}: plan device {device_ms(call):.4f} ms', flush=True)
+        for rows in (1, 2, 3, 4, 6, 8):
+            SN.plan = functools.partial(plan, rows=rows)
+            SN.route.cache_clear()
+            x = call.args[0]
+            shape = (*x.shape[:3], x.shape[3], call.args[1].shape[0],
+                     *call.args[1].shape[2:], call.args[3], x.element_size())
+            if SN.route(*shape) != 'tile':
+                continue
+            print(f'  rows {rows}: smem {SN.plan(*shape).smem:6d} device '
+                  f'{device_ms(call):.4f} ms', flush=True)
+        SN.plan, SN.route = plan, route
+        SN.route.cache_clear()
+
+    tile_plan, cap, cluster = SCB.tile_plan, SCB.MAX_TILE_BLOCKS, SCB.CLUSTER
+    for label, call, _ in jobs:
+        if not label.startswith('stencil_conv_bwd') or 'down_2' not in label:
+            continue
+        shape = (TRAIN_BATCH, 6, 12, 64, 64, 3, 3, ((1, 1), (1, 1)))
+        print(f'{label}: plan {SCB.tile_plan(*shape)} device '
+              f'{device_ms(call):.4f} ms', flush=True)
+        for rows, blocks, size in itertools.product((1, 2, 4, 8),
+                                                    (64, 128, 256), (2, 4, 8)):
+            SCB.MAX_TILE_BLOCKS, SCB.CLUSTER = blocks, size
+            tile_plan.cache_clear()
+            SCB.tile_plan = functools.partial(tile_plan, rows=rows)
+            SCB.route.cache_clear()
+            if SCB.route(*shape) != 'tile':
+                continue
+            pl = SCB.tile_plan(*shape)
+            print(f'  rows {rows:2d} cap {blocks:3d} cluster {size}: blocks '
+                  f'{pl.blocks:3d} smem {pl.smem:6d} device '
+                  f'{device_ms(call):.4f} ms', flush=True)
+        SCB.tile_plan, SCB.MAX_TILE_BLOCKS = tile_plan, cap
+        SCB.CLUSTER = cluster
+        tile_plan.cache_clear()
+        SCB.route.cache_clear()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--repo', default=HERE)
@@ -342,6 +512,11 @@ def main():
                         help='time the warp kernels at every tile shape')
     parser.add_argument('--warp', action='store_true',
                         help='time the warp kernels\' sites alone')
+    parser.add_argument('--stencil', action='store_true',
+                        help='time the NHWC stencil conv and the stencil '
+                             'backward\'s sites alone')
+    parser.add_argument('--sweep-stencil', action='store_true',
+                        help='time the stencil tiles at every tile height')
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     from dnncancerannotator_torch import engine
@@ -362,9 +537,13 @@ def main():
         return sweep_head(device)
     if args.sweep_warp:
         return sweep_warp(device)
+    if args.sweep_stencil:
+        return sweep_stencil(device)
     jobs = []   # (label, call, bound ms)
     if args.warp:
         return report(warp_jobs(device), args, card)
+    if args.stencil:
+        return report(stencil_jobs(device), args, card)
     for label, masks in cca_sets(device).items():
         got = K.cca_raw_labels(masks)
         if not torch.equal(got, K.plain(masks)):
@@ -419,9 +598,11 @@ def report(jobs, args, card):
         row['device_ms'] = sum(ms for ms, _ in split.values())
         row['launches'] = sum(n for _, n in split.values())
         row['split'] = {_short(k): v for k, v in split.items()}
+        bd = row['bound_ms']
         print(f'{row["call"]:58s} device {row["device_ms"]:.4f} ms  event '
-              f'{row["event_ms"]:.4f} ms  bound {row["bound_ms"]:.4f} ms  '
-              f'launches {row["launches"]:.1f}', flush=True)
+              f'{row["event_ms"]:.4f} ms  bound '
+              f'{"-" if bd is None else f"{bd:.4f}"} ms  launches '
+              f'{row["launches"]:.1f}', flush=True)
         for name, (ms, n) in sorted(row['split'].items(),
                                     key=lambda kv: -kv[1][0]):
             print(f'         {ms:.4f} ms {n:4.1f}x  {name}', flush=True)

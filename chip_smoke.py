@@ -189,17 +189,38 @@ Phases (each raises on failure, so the process exits non-zero):
    against the plain bf16 step, by tests/test_torch_bf16.py's rule (each
    value within BF16_STEP_TOL of its scale, else no further from the f64
    step than F64_RATIO times the plain step).
+3i. leaky stencil sites: a seeded forward of unet.yaml + leakyReLU.yaml
+   (every conv alone: a chain fuses relu only) gives the inputs of the
+   NCHW stencil conv's nine sites (LEAKY_STENCIL_SITES, 3x3 SAME at 3-12
+   channels, no relu), in f32 and bf16 at B=8 and B=64: each on the tile
+   route (printed; a failure otherwise), the f32 form to KERNEL_TOL *
+   max|ref| of its plain version, the bf16 form bit-equal to its f32 form
+   on the upcast inputs, rounded, one launch a call by the library's
+   count, its times as in 3 (the library call ``F.conv2d`` with the bias)
+   and its bound; at B=8 also the stencil backward on the leaky-masked
+   cotangent, held as in 3b, with its route and time beside
+   ``convolution_backward``; the B=8 sites make the kernels line's
+   ``stencil_conv_tile`` entries; then the direct route kept at
+   STENCIL_DIRECT_SITE (32 -> 32 at 8 x 8192), as 3g holds the NHWC one;
+13. unet.yaml + leakyReLU.yaml training: the ``train`` CLI (B=8 256 x 256
+   crops, banked warp) for LEAKY_STEPS steps in one chunk: every loss
+   finite, the tile route and the stencil backward launched at least 9 x
+   steps times, no chain kernel; ``predict`` from the checkpoint against a
+   plain forward of its weights (MAP_TOL); one step on a seeded state
+   through the kernels against a plain step (STEP_TOL, else F64_RATIO of
+   the plain step's distance from the f64 step, as 5).
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
-   so the device times of phases 3-3h and the train-step profiles of
+   so the device times of phases 3-3i and the train-step profiles of
    phases 5, 7, 8, 10, 11 and 12 are taken last, after every host-clock and
    CUDA-event measurement; then a line of the B=8 chain forward's times
    summed over the six sites, and one of the NHWC pool and tconv kernels'
    times summed over MulmoUNet's sites.
 
 Each phase's wall time is printed when it ends. The last three lines of
-stdout are a JSON object of per-kernel results for all fourteen kernels
-and the five bf16 forms (with each kernel's bound:
+stdout are a JSON object of per-kernel results for all fourteen kernels,
+the NCHW stencil conv's tile route (``stencil_conv_tile``) and the six
+bf16 forms (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
 f32 outside the tensor cores, from the inputs of this run, for the 3xTF32
 tconv GEMM also 3 x its FLOPs over the 495 TFLOP/s of TF32, the device
@@ -293,17 +314,20 @@ REPLACES = {
     'warp_crop': ('warp_kernel.py:194 dense_image_warp_crop_pallas',),
     'stencil_conv_nhwc': ('conv_kernel.py:84 stencil_conv2d_pallas '
                           '(nchw=False)',),
+    'stencil_conv_tile': ('conv_kernel.py:84 stencil_conv2d_pallas',),
 }
 # the bf16 forms (their entries ``<entry>_bf16``) replace the same kernels
 REPLACES.update({name + '_bf16': REPLACES[name] for name in (
     'conv_chain', 'conv_chain_bwd', 'stencil_conv', 'stencil_conv_bwd',
-    'stencil_conv_nhwc')})
+    'stencil_conv_nhwc', 'stencil_conv_tile')})
 # a kernel's source where it is not csrc/<name>.cu
 SOURCE = {'conv_chain_bf16': 'conv_chain',
           'conv_chain_bwd_bf16': 'conv_chain_bwd',
           'stencil_conv_bf16': 'stencil_conv',
           'stencil_conv_bwd_bf16': 'stencil_conv_bwd',
-          'stencil_conv_nhwc_bf16': 'stencil_conv_nhwc'}
+          'stencil_conv_nhwc_bf16': 'stencil_conv_nhwc',
+          'stencil_conv_tile': 'stencil_conv',
+          'stencil_conv_tile_bf16': 'stencil_conv'}
 METRICS_CONFIG = 'configs/additionals/metrics.yaml'
 EVAL_TAG = 'smoke'
 # unet_big in f32 with the NHWC pool and tconv gates on; the overlays come
@@ -2011,7 +2035,25 @@ BF16_STENCIL_SITES = ('unet.encoder.down_2.convchain.conv_0', 'last_conv')
 # pointwise kernel, or the stencil route's one-launch tile; 'split' is the
 # stencil route's kept form (ops/kernels/stencil_conv_bwd.py: route), dgrad,
 # wgrad and its fixed-order sum, for shapes whose tile does not fit
-STENCIL_BWD_ROUTE_LAUNCHES = {'pointwise': 1, 'stencil': 1, 'split': 3}
+STENCIL_BWD_ROUTE_LAUNCHES = {'pointwise': 1, 'tile': 1, 'stencil': 1,
+                              'split': 3}
+# unet.yaml + leakyReLU.yaml: no chain fuses (a chain fuses relu only), so
+# every conv runs alone; these nine (kh * kw * Ci * Co <= 1024) take the
+# NCHW stencil conv's tile route, 3x3 SAME with no relu (the leaky relu is
+# a separate op), the three others the library's conv and the head the
+# pointwise route
+LEAKY = 'configs/additionals/leakyReLU.yaml'
+LEAKY_CONFIGS = CONFIGS + (LEAKY,)
+LEAKY_STENCIL_SITES = tuple(f'unet.{part}.convchain.conv_{i}' for part in (
+    'encoder.down_0', 'encoder.down_1', 'encoder.down_2') for i in (0, 1)
+    if part != 'encoder.down_2' or i == 0) + tuple(
+    f'unet.decoder.{up}.convchain.conv_{i}' for up in ('up_1', 'up_2')
+    for i in (0, 1))
+# the kept direct route's site: 32 channels of 8192-wide rows, whose one
+# staged row passes a block's shared memory
+STENCIL_DIRECT_SITE = dict(shape=(1, 32, 8, 8192), co=32, k=3)
+# phase 13: the leaky stack's train CLI, in one chunk
+LEAKY_STEPS = 10
 # the split form's site: 7 x 7, 32 -> 32, whose f64 partial (50208 items)
 # passes a block's shared memory
 STENCIL_SPLIT_SITE = dict(shape=(2, 32, 20, 24), co=32, k=7)
@@ -2307,6 +2349,231 @@ def bf16_kernel_sites(device, results):
     nhwc_direct_site(device, gen, bf16)
     for dtype in (torch.float32, bf16):
         stencil_split_site(device, gen, dtype)
+
+
+# -- phase 3i ----------------------------------------------------------------
+def stencil_direct_site(device, gen, dtype):
+    """The NCHW stencil conv's kept direct route at STENCIL_DIRECT_SITE (3x3
+    SAME 32 -> 32 with relu at 8 x 8192): against its plain version (f32:
+    KERNEL_TOL; bf16: bit-equal to the f32 form on the upcast inputs), one
+    launch a call, its times logged."""
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    site = STENCIL_DIRECT_SITE
+    bsz, ci, h, wd = site['shape']
+    co, k, pads = site['co'], site['k'], ((1, 1), (1, 1))
+    x = torch.rand(site['shape'], generator=gen, device=device).to(dtype)
+    w = (torch.randn((co, ci, k, k), generator=gen, device=device)
+         * 0.1).to(dtype)
+    b = torch.randn((co,), generator=gen, device=device).to(dtype)
+    route = SC.route(ci, co, k, k, pads, h, wd)
+    name = (f'stencil_conv{"_bf16" if dtype != torch.float32 else ""} '
+            f'{list(x.shape)} {k}x{k} {ci}->{co} relu ({route})')
+    if route != 'stencil':
+        raise AssertionError(f'{name}: the kept site takes the {route} route')
+    got = SC.stencil_conv(x, w, b, pads, True)
+    if dtype == torch.float32:
+        _check_close(name, got, SC.plain(x, w, b, pads, True))
+    else:
+        _bits_equal(name, got, SC.stencil_conv(
+            *_upcast(x, w, b), pads, True).to(dtype))
+        _bf16_err(name, got, SC.plain(x, w, b, pads, True))
+    _check_launches(name, lambda: SC.stencil_conv(x, w, b, pads, True), 1)
+    times = _time_site(lambda: SC.stencil_conv(x, w, b, pads, True),
+                       lambda: SC.plain(x, w, b, pads, True))
+    times['label'] = name
+
+
+@torch.no_grad()
+def leaky_kernel_sites(device, results):
+    """Phase 3i: the NCHW stencil conv's tile route at unet.yaml +
+    leakyReLU.yaml's nine sites (LEAKY_STENCIL_SITES), on the activations
+    of a seeded forward of that stack, in f32 and bf16 at B=8 (training)
+    and B=64 (predict, evaluate). At each: the route (a failure unless the
+    tile), the f32 form against its plain version to KERNEL_TOL, the bf16
+    form bit-equal to the f32 form on the upcast inputs, rounded, one
+    launch a call by the library's count, and its times (``_time_site``;
+    the library call ``F.conv2d`` with the bias) and bound. The B=8 sites
+    go into ``results`` as ``stencil_conv_tile`` and
+    ``stencil_conv_tile_bf16``. At B=8 also the stencil backward on the
+    leaky-masked cotangent, as phase 3b holds the backward (f32: DX_TOL,
+    DW_TOL and F64_RATIO of the plain version's error against f64; bf16 bit-
+    equal to its f32 form; dw and db the same bits on two calls), with its
+    route and time beside ``convolution_backward``. Then the direct route
+    kept at STENCIL_DIRECT_SITE."""
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+    alpha = 0.3   # leakyReLU.yaml
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    batch = torch.rand((BATCH, SIZE, SIZE, 5), generator=gen, device=device)
+    modules, seen = _site_inputs(LEAKY_CONFIGS, LEAKY_STENCIL_SITES, batch,
+                                 device)
+    log(f'the NCHW stencil conv at unet.yaml + leakyReLU.yaml\'s '
+        f'{len(LEAKY_STENCIL_SITES)} sites ({SIZE}x{SIZE}; the activations '
+        'of a seeded forward):')
+    for path in LEAKY_STENCIL_SITES:
+        conv = modules[path]
+        co, ci, kh, kw = conv.weight.shape
+        pads = ((kh // 2, kh // 2), (kw // 2, kw // 2))
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tag = '_bf16' if bf16 else ''
+            w, b = conv.weight.to(dtype), conv.bias.to(dtype)
+            for bsz in (BATCH, TRAIN_BATCH):
+                x = seen[path][:bsz].contiguous().to(dtype)
+                route = SC.route(ci, co, kh, kw, pads, *x.shape[2:])
+                desc = (f'B={bsz} {path} {kh}x{kw} {ci}->{co} '
+                        f'@{x.shape[-1]}')
+                name = f'stencil_conv{tag} {desc} ({route})'
+                if route != 'tile':
+                    raise AssertionError(f'{name}: not the tile route')
+                got = SC.stencil_conv(x, w, b, pads)
+                if bf16:
+                    _bits_equal(name, got, SC.stencil_conv(
+                        *_upcast(x, w, b), pads).to(dtype))
+                    err = _bf16_err(name, got, SC.plain(x, w, b, pads))
+                else:
+                    err = _check_close(name, got, SC.plain(x, w, b, pads))
+                _check_launches(name, lambda: SC.stencil_conv(x, w, b, pads),
+                                1)
+                times = _time_site(
+                    lambda: SC.stencil_conv(x, w, b, pads),
+                    lambda: SC.plain(x, w, b, pads),
+                    lambda: F.conv2d(x, w, b, padding=(kh // 2, kw // 2)))
+                site = bound(nbytes(x, w, b, got),
+                             2 * got.numel() * ci * kh * kw)
+                if bsz == BATCH:
+                    times['label'] = name
+                    log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
+                    continue
+                record(results, f'stencil_conv_tile{tag}', err, times, site)
+                # the backward on the leaky-masked cotangent, as training
+                # calls it
+                g = torch.randn(got.shape, generator=gen,
+                                device=device).to(dtype)
+                g = torch.where(got > 0, g, g * alpha)
+                bwd_route = SCB.route(bsz, ci, co, *x.shape[2:], kh, kw, pads)
+                name = f'stencil_conv_bwd{tag} {desc} ({bwd_route})'
+                bgot = SCB.stencil_conv_bwd(x, g, w, pads)
+                if bf16:
+                    want = SCB.stencil_conv_bwd(*_upcast(x, g, w), pads)
+                    for label, a, f in zip(('dx', 'dw', 'db'), bgot, want):
+                        _bits_equal(f'{name} {label}', a, f.to(dtype))
+                else:
+                    _check_grads(name, bgot, SCB.plain(x, g, w, pads),
+                                 SCB.plain(*_f64(x, g, w), pads))
+                if bwd_route != 'split':
+                    again = SCB.stencil_conv_bwd(x, g, w, pads)
+                    if not all(torch.equal(p, q)
+                               for p, q in zip(bgot[1:], again[1:])):
+                        raise AssertionError(f'{name}: dw, db differ on two '
+                                             'calls')
+                _check_launches(
+                    name, lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                    STENCIL_BWD_ROUTE_LAUNCHES[bwd_route])
+                times = _time_site(
+                    lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                    lambda: SCB.plain(x, g, w, pads),
+                    lambda: conv_bwd(g, x, w, [co], [1, 1],
+                                     [kh // 2, kw // 2], [1, 1], False,
+                                     [0, 0], 1, [True] * 3))
+                times['label'] = name
+                site = bound(nbytes(x, g, w, *bgot),
+                             4 * g.numel() * ci * kh * kw)
+                log(f'  {name:60s} bound {site[0]:.4f} ms ({site[1]})')
+    for dtype in (torch.float32, torch.bfloat16):
+        stencil_direct_site(device, gen, dtype)
+
+
+# -- phase 13 ----------------------------------------------------------------
+def _plain_model_forward(model, x):
+    """Probabilities of ``model`` on NHWC features x with every unet.yaml
+    kernel swapped for its plain version."""
+    with _plain_versions(*_unet_modules()):
+        return torch.sigmoid(model(x, return_logits=True))
+
+
+def leaky_train_slice(device, data_paths):
+    """Phase 13: the ``train`` CLI with unet.yaml + leakyReLU.yaml at the
+    unet.yaml operating point (B=8 256 x 256 crops, banked warp) for
+    LEAKY_STEPS steps in one chunk: every loss finite, the stencil conv's
+    tile route launched at least 9 x steps times (its nine sites), its
+    backward as often, no chain kernel; ``predict`` from the checkpoint
+    equals a plain forward of its weights (MAP_TOL); one step on a seeded
+    state (SEED's initial weights, a seeded batch and draws) through the
+    kernels against a plain step (``_compare_step``: STEP_TOL, else
+    F64_RATIO of the plain step's distance from the f64 step). Returns the
+    launch counts of the train call and of the predict call."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    overlay = os.path.join(WORK, 'leaky_steps_per_call.json')
+    with open(overlay, 'w') as fh:
+        json.dump({'deploy_options.steps_per_call': LEAKY_STEPS}, fh)
+    save_path = os.path.join(WORK, 'leaky_run')
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    res = cli(argv=[
+        'train', '--config', *[os.path.join(REPO, c) for c in LEAKY_CONFIGS],
+        overlay, '--save_path', save_path, '--data_path', *data_paths,
+        '--save_freq', str(LEAKY_STEPS), '--seed', str(SEED), '--device',
+        device.type, '--max_steps', str(LEAKY_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+    losses = res.history['loss']
+    log(f'unet.yaml + leakyReLU.yaml train: {LEAKY_STEPS} steps in '
+        f'{seconds:.3f} s (host clock, the bank solve and data load '
+        f'included); loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches '
+        f'{launches}')
+    if res.epoch != list(range(1, LEAKY_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'train steps {res.epoch}, losses {losses}')
+    n_sites = len(LEAKY_STENCIL_SITES)
+    for name in ('stencil_conv_tile', 'stencil_conv_bwd'):
+        if launches[name] < n_sites * LEAKY_STEPS:
+            raise AssertionError(f'{name} launched {launches[name]} times, '
+                                 f'want >= {n_sites} x {LEAKY_STEPS}')
+    if launches['conv_chain'] or launches['conv_chain_bwd']:
+        raise AssertionError('a chain kernel ran under leakyReLU.yaml')
+
+    config = _config(LEAKY_CONFIGS)
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng.build((BATCH, SIZE, SIZE, 5))
+    eng.load(os.path.join(save_path, 'checkpoints', f'ckpt-{LEAKY_STEPS}'))
+    out_dir = os.path.join(WORK, 'leaky_maps')
+    kernels.reset_launches()
+    count = cli(argv=['predict', '--save_path', save_path, '--data_path',
+                      *data_paths, '--output_path', out_dir, '--batch_size',
+                      str(BATCH), '--output_format', 'npy', '--device',
+                      device.type])
+    predict_launches = kernels.launch_counts()
+    log(f'predict from ckpt-{LEAKY_STEPS}: {count} maps; launches '
+        f'{predict_launches}')
+    if predict_launches['stencil_conv_tile'] < n_sites:
+        raise AssertionError('predict launched the tile '
+                             f'{predict_launches["stencil_conv_tile"]} times')
+    _check_maps(eng.model, data_paths, out_dir,
+                sum(TRAIN_EXAMS) * TRAIN_SLICES,
+                reference=lambda x: _plain_model_forward(eng.model, x))
+
+    ds = pipeline.train_ds(data_paths, **config['data_options']['train'])
+    eng, raw, draws = big_check_state(config, ds, SEED, device)
+    modules = _unet_modules()
+    with _deterministic_cudnn():
+        _compare_step(
+            _big_step(eng, ds, raw, draws, plain=False, modules=modules),
+            _big_step(eng, ds, raw, draws, plain=True, modules=modules),
+            lambda: _big_step(eng, ds, raw, draws, plain=True, f64=True,
+                              modules=modules),
+            'unet.yaml + leakyReLU.yaml')
+    return launches, predict_launches
+
 
 # -- phase 7 -----------------------------------------------------------------
 def _busy_us(prof):
@@ -3093,6 +3360,7 @@ BF16_SLICES = (
                 'conv_chain_bwd_bf16': len(BF16_CHAIN_SITES),
                 'stencil_conv_bf16': len(BF16_STENCIL_SITES),
                 'stencil_conv_bwd_bf16': len(BF16_STENCIL_SITES),
+                'stencil_conv_tile_bf16': 1,   # down_2.conv_0
                 'warp_twopass': 1},
          zero=('conv_chain', 'conv_chain_bwd', 'stencil_conv',
                'stencil_conv_bwd', 'tconv2x2', 'tconv2x2_bwd'),
@@ -3564,6 +3832,8 @@ def main():
             mulmo_kernel_sites(device, results, mulmo_sites)
         with phase('3h bf16 kernel forms'):
             bf16_kernel_sites(device, results)
+        with phase('3i leaky stencil sites'):
+            leaky_kernel_sites(device, results)
         with phase('4 predict'):
             predict_launches = run_slice(eng, data_paths, save_path,
                                          os.path.join(WORK, 'maps'))
@@ -3588,6 +3858,9 @@ def main():
                 bf16_policy(device, train_paths, overlay)
         with phase('12b unet.yaml and MulmoUNet in bf16'):
             bf16_launches = bf16_slices(device, train_paths)
+        with phase('13 unet.yaml + leakyReLU.yaml train'):
+            leaky_launches, leaky_predict = leaky_train_slice(device,
+                                                              train_paths)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -3619,6 +3892,9 @@ def main():
         counts['stencil_conv_nhwc'] = mulmo['stencil_conv_nhwc']
     # the bf16 forms': phase 12b's train calls
     launches.update(bf16_launches)
+    # the NCHW stencil conv's tile route: phase 13's train and predict calls
+    launches['stencil_conv_tile'] = leaky_launches['stencil_conv_tile']
+    predict_launches['stencil_conv_tile'] = leaky_predict['stencil_conv_tile']
     csrc = 'dnncancerannotator_torch/csrc/'
     kernels_line = {'kernels': [
         {'name': name, 'route': 'cuda',

@@ -28,12 +28,17 @@ def reset_launches():
         mod.launches = 0
     for mod in BF16_KERNELS:
         mod.launches_bf16 = 0
+    stencil_conv.launches_tile = stencil_conv.launches_tile_bf16 = 0
 
 
 def launch_counts():
-    '''{kernel: launches}, the bf16 forms as ``<kernel>_bf16``.'''
+    '''{kernel: launches}, the bf16 forms as ``<kernel>_bf16``; and of
+    stencil_conv's, those of its tile route as ``stencil_conv_tile`` (and
+    ``stencil_conv_tile_bf16``).'''
     counts = {mod.__name__.rsplit('.', 1)[-1]: mod.launches
               for mod in KERNELS}
     counts.update({mod.__name__.rsplit('.', 1)[-1] + '_bf16':
                    mod.launches_bf16 for mod in BF16_KERNELS})
+    counts.update(stencil_conv_tile=stencil_conv.launches_tile,
+                  stencil_conv_tile_bf16=stencil_conv.launches_tile_bf16)
     return counts

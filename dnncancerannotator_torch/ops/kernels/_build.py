@@ -51,6 +51,9 @@ _SIGNATURES = {
     # x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu,
     # device, stream
     'dnnca_stencil_conv': [_P] * 4 + [_I] * 13 + [_P],
+    # x, w, bias, out, B, Ci, Co, H, W, KH, KW, pt, pl, OH, OW, relu, cpt,
+    # px, ri, rows, cols, xs_w, ks, threads, smem, device, stream
+    'dnnca_stencil_conv_tile': [_P] * 4 + [_I] * 22 + [_P],
     # x, c1, c2, g, w1, w2, dx, out, scratch, B, Ci, Cm, Co, H, W, K, cpt,
     # tile_h, tile_w, c1_w, c1_s, gs_w, slices, threads, blocks, fused, smem,
     # wgrad_blocks, device, stream
@@ -95,6 +98,7 @@ _SIGNATURES = {
     'dnnca_conv_chain_bf16': [_P] * 8 + [_I] * 16 + [_P],
     'dnnca_conv_chain_bwd_bf16': [_P] * 9 + [_I] * 20 + [_P],
     'dnnca_stencil_conv_bf16': [_P] * 4 + [_I] * 13 + [_P],
+    'dnnca_stencil_conv_tile_bf16': [_P] * 4 + [_I] * 22 + [_P],
     'dnnca_pointwise_conv_bf16': [_P] * 4 + [_I] * 8 + [_P],
     'dnnca_stencil_conv_nhwc_bf16': [_P] * 4 + [_I] * 18 + [_P],
     'dnnca_stencil_conv_bwd_bf16': [_P] * 6 + [_I] * 13 + [_P],
@@ -103,6 +107,7 @@ _SIGNATURES = {
 }
 # the entries with a bf16 form; any other takes f32 alone
 BF16_FORMS = ('dnnca_conv_chain', 'dnnca_conv_chain_bwd', 'dnnca_stencil_conv',
+              'dnnca_stencil_conv_tile',
               'dnnca_pointwise_conv', 'dnnca_stencil_conv_nhwc',
               'dnnca_stencil_conv_bwd', 'dnnca_pointwise_conv_bwd',
               'dnnca_stencil_conv_bwd_tile')

@@ -987,3 +987,126 @@ def test_stencil_conv_bwd_split_route(cuda, dtype):
             _bits(a, c.to(BF16))
     assert library_launches(
         lambda: SCB.stencil_conv_bwd(x, g, wk, pads)) == 3
+
+
+# NCHW forward tile ------------------------------------------------------------
+# b, ci, co, h, w, kh, kw, pads: unet.yaml + leakyReLU.yaml's nine stencil
+# sites (down_2.conv_0 also unet.yaml + bf16.yaml's) at B=8, then odd H and
+# W, asymmetric pads, VALID, 1 x 3, 5 x 5, 2 x 2, a padded 1 x 1, 32
+# channels, a padded group (Co 16, 5), B=1
+_NCHW_TILES = [(8, ci, co, s, s, 3, 3, _SAME3) for ci, co, s in (
+    (5, 3, 256), (3, 3, 256), (3, 6, 128), (6, 6, 128), (6, 12, 64),
+    (12, 6, 128), (6, 3, 256))] + [
+    (1, 3, 3, 37, 53, 3, 3, _SAME3), (2, 4, 6, 19, 23, 3, 3, ((0, 2), (1, 0))),
+    (2, 3, 4, 12, 13, 3, 3, _ZERO), (2, 3, 5, 17, 21, 1, 3, ((0, 0), (1, 1))),
+    (2, 5, 7, 19, 23, 5, 5, ((2, 2), (2, 2))),
+    (3, 2, 3, 10, 12, 2, 2, ((1, 0), (0, 1))),
+    (2, 3, 4, 10, 10, 1, 1, ((2, 2), (1, 1))),
+    (2, 32, 32, 8, 8, 3, 3, _SAME3), (1, 6, 12, 64, 64, 3, 3, _SAME3),
+    (2, 3, 16, 9, 30, 3, 3, _SAME3), (1, 4, 5, 33, 17, 3, 3, _SAME3),
+    (2, 3, 5, 10, 18, 3, 3, _SAME3), (1, 3, 6, 11, 20, 3, 3, _SAME3),
+    (64, 5, 3, 256, 256, 3, 3, _SAME3),   # predict's batch, 2048 tiles
+]
+
+
+def _nchw_inputs(gen, b, ci, co, h, w, kh, kw, rand=_rand):
+    return rand(gen, b, ci, h, w), rand(gen, co, ci, kh, kw), rand(gen, co)
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,kh,kw,pads', _NCHW_TILES)
+@pytest.mark.parametrize('relu', [False, True])
+def test_stencil_conv_tile(cuda, b, ci, co, h, w, kh, kw, pads, relu):
+    '''The tile route against the plain version, one launch a call by the
+    library's count.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(ci * 31 + co + kh)
+    x, wk, bias = _nchw_inputs(gen, b, ci, co, h, w, kh, kw)
+    assert SC.route(ci, co, kh, kw, pads, h, w) == 'tile'
+    got = SC.stencil_conv(x, wk, bias, pads, relu)
+    _assert_close(got, SC.plain(x, wk, bias, pads, relu))
+    assert library_launches(
+        lambda: SC.stencil_conv(x, wk, bias, pads, relu)) == 1
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,kh,kw,pads', _NCHW_TILES)
+def test_stencil_conv_tile_bf16_form(cuda, b, ci, co, h, w, kh, kw, pads):
+    gen = torch.Generator().manual_seed(ci * 29 + co + kh)
+    x, wk, bias = _nchw_inputs(gen, b, ci, co, h, w, kh, kw, _rand16)
+    got = SC.stencil_conv(x, wk, bias, pads, True)
+    _bits(got, SC.stencil_conv(*_f32(x, wk, bias), pads, True).to(BF16))
+    assert _one_call(SC, lambda: SC.stencil_conv(x, wk, bias, pads, True),
+                     'launches_bf16') == 1
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, BF16])
+def test_stencil_conv_direct_route(cuda, dtype):
+    '''A shape whose one staged row does not fit a block's shared memory
+    (32 channels 8192 wide) keeps the direct kernel: against the plain
+    version (bf16: bit-equal to its f32 form), one launch.'''
+    from chip_smoke import library_launches
+    gen = torch.Generator().manual_seed(28)
+    rand = _rand if dtype == torch.float32 else _rand16
+    x, wk, bias = _nchw_inputs(gen, 1, 32, 32, 8, 8192, 3, 3, rand)
+    assert SC.route(32, 32, 3, 3, _SAME3, 8, 8192) == 'stencil'
+    got = SC.stencil_conv(x, wk, bias, _SAME3, True)
+    if dtype == torch.float32:
+        _assert_close(got, SC.plain(x, wk, bias, _SAME3, True))
+    else:
+        _bits(got, SC.stencil_conv(*_f32(x, wk, bias), _SAME3,
+                                   True).to(BF16))
+    assert library_launches(
+        lambda: SC.stencil_conv(x, wk, bias, _SAME3, True)) == 1
+
+
+@pytest.mark.parametrize('b,ci,co,h,w,kh,kw,pads', [
+    (8, 6, 12, 64, 64, 3, 3, _SAME3), (2, 4, 6, 19, 23, 3, 3,
+                                       ((0, 2), (1, 0)))])
+@pytest.mark.parametrize('relu', [False, True])
+def test_stencil_conv_fn_grads_through_the_tile(cuda, b, ci, co, h, w, kh,
+                                                kw, pads, relu):
+    '''StencilConvFn (the tile forward, the stencil backward) against
+    autograd of the plain version: the output and every gradient.'''
+    from dnncancerannotator_torch.ops import functions
+    gen = torch.Generator().manual_seed(ci * 19 + co)
+    x, wk, bias = _nchw_inputs(gen, b, ci, co, h, w, kh, kw)
+    oh, ow = h + sum(pads[0]) - kh + 1, w + sum(pads[1]) - kw + 1
+    g = _rand(gen, b, co, oh, ow)
+    assert SC.route(ci, co, kh, kw, pads, h, w) == 'tile'
+    grads = []
+    for fn in (functions.stencil_conv, SC.plain):
+        leaves = [t.clone().requires_grad_() for t in (x, wk, bias)]
+        out = fn(*leaves, pads, relu)
+        (out * g).sum().backward()
+        grads.append((out.detach(),) + tuple(t.grad for t in leaves))
+    got, want = grads
+    _assert_close(got[0], want[0])
+    _assert_close(got[1], want[1])
+    for a, c in zip(got[2:], want[2:]):
+        _assert_close(a, c, _W_TOL)
+
+
+@pytest.mark.parametrize('cpt,px', SC.TILES)
+@pytest.mark.parametrize('rows', [1, 3, 4])
+@pytest.mark.parametrize('k,pads', [(3, ((0, 2), (1, 0))),
+                                    (5, ((2, 2), (2, 2)))])
+@pytest.mark.parametrize('ks', [1, 2])
+def test_stencil_conv_tile_every_work_item(cuda, monkeypatch, cpt, px, rows,
+                                           k, pads, ks):
+    '''Each (CPT, PX) the kernel is built for, at row counts with and without
+    the lanes' row pairs, with one and two lanes an item, against the plain
+    version (f32) and its f32 form (bf16), one launch a call.'''
+    from chip_smoke import library_launches
+    import functools
+    co = 12 if cpt in SC.EXACT_CPT else 13
+    monkeypatch.setattr(SC, 'plan', functools.partial(
+        SC.plan, rows=rows, px=px, cpt=cpt, ks=ks))
+    gen = torch.Generator().manual_seed(cpt * 7 + px + rows + k + ks)
+    x, wk, bias = _nchw_inputs(gen, 2, 5, co, 19, 23, k, k)
+    got = SC.stencil_conv(x, wk, bias, pads, True)
+    _assert_close(got, SC.plain(x, wk, bias, pads, True))
+    assert library_launches(
+        lambda: SC.stencil_conv(x, wk, bias, pads, True)) == 1
+    x16, w16, b16 = (t.to(BF16) for t in (x, wk, bias))
+    _bits(SC.stencil_conv(x16, w16, b16, pads, True),
+          SC.stencil_conv(*_f32(x16, w16, b16), pads, True).to(BF16))
+

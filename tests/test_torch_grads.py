@@ -12,6 +12,7 @@ layer, taken in another order, through 13 layers; 2.2e-6 measured).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from dnncancerannotator_tpu import models as jax_models
@@ -63,13 +64,20 @@ def test_max_pool_grad_with_planted_ties_equals_jax():
 
 
 # -- the model ---------------------------------------------------------------------
-def test_unet_param_grads_match_jax():
+@pytest.mark.parametrize('activation', [
+    'relu', {'class_name': 'LeakyReLU', 'config': {'alpha': 0.3}}],
+    ids=['relu', 'leaky'])
+def test_unet_param_grads_match_jax(activation):
     '''Every parameter gradient of unet.yaml's UNetAnnotator (B=2, 32 x 32)
-    for the loss sum(logits * G), against jax.grad on the same weights.'''
+    for the loss sum(logits * G), against jax.grad on the same weights;
+    with relu (the chains fused) and with leakyReLU.yaml's activation
+    (every conv alone: nine on the stencil conv's route, the rest the
+    library's).'''
+    options = dict(UNET_OPTIONS, activation=activation)
     rng = np.random.default_rng(4)
     x = rng.random((2, 32, 32, 5), dtype=np.float32)
     gmap = rng.standard_normal((2, 32, 32, 1)).astype(np.float32)
-    model, _ = jax_models.build_model('UNetAnnotator', UNET_OPTIONS)
+    model, _ = jax_models.build_model('UNetAnnotator', options)
     params = model.init(jax.random.PRNGKey(4), jnp.asarray(x[:1]))['params']
     flat = flat_params(params)
     for key in flat:
@@ -84,7 +92,7 @@ def test_unet_param_grads_match_jax():
 
     want = convert.torch_state_from_flax(
         flat_params(jax.jit(jax.grad(loss))(_jax_params(flat))))
-    port, _ = torch_models.build_model('UNetAnnotator', UNET_OPTIONS,
+    port, _ = torch_models.build_model('UNetAnnotator', options,
                                        in_channels=5)
     port.load_state_dict(convert.torch_state_from_flax(
         flat, expected=port.state_dict()))

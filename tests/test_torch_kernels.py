@@ -172,7 +172,8 @@ def test_cpu_tensors_launch_no_kernel():
         'pool2x2_nhwc_bwd': 0, 'tconv2x2_nhwc': 0, 'tconv2x2_nhwc_bwd': 0,
         'warp_crop': 0, 'stencil_conv_nhwc': 0, 'conv_chain_bf16': 0,
         'conv_chain_bwd_bf16': 0, 'stencil_conv_bf16': 0,
-        'stencil_conv_bwd_bf16': 0, 'stencil_conv_nhwc_bf16': 0}
+        'stencil_conv_bwd_bf16': 0, 'stencil_conv_nhwc_bf16': 0,
+        'stencil_conv_tile': 0, 'stencil_conv_tile_bf16': 0}
 
 
 def test_wrappers_raise_outside_their_bounds():

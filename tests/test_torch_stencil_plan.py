@@ -1,8 +1,9 @@
-'''The head conv's two routes and its one-launch backward's plan, computed
-on the CPU.
+'''The head conv's route and its one-launch backward's plan, computed on
+the CPU.
 
 ``stencil_conv.route`` sends a 1 x 1 conv with zero pads to the pointwise
-kernels and every other shape to the stencil kernels. The backward's
+kernels, every other shape whose tile fits a block to the tile kernel, and
+the rest to the direct stencil kernel. The backward's
 pointwise kernel (csrc/stencil_conv_bwd.cu: pointwise_bwd_kernel) trusts
 ``stencil_conv_bwd.plan``: these tests hold the plan to what the kernel
 needs. Its tiles cover every pixel of every plane exactly once, whole
@@ -28,9 +29,9 @@ ZERO = ((0, 0), (0, 0))
     (3, 1, 1, ZERO, 256, 256, 'pointwise'),          # the logits head
     (32, 32, 1, ZERO, 255, 257, 'pointwise'),
     (1, 1, 1, ZERO, 1, 3, 'pointwise'),
-    (3, 1, 1, ((0, 1), (0, 0)), 256, 256, 'stencil'),  # padded 1 x 1
-    (3, 3, 3, ((1, 1), (1, 1)), 16, 16, 'stencil'),
-    (4, 2, 3, ((0, 2), (1, 0)), 8, 8, 'stencil'),
+    (3, 1, 1, ((0, 1), (0, 0)), 256, 256, 'tile'),  # padded 1 x 1
+    (3, 3, 3, ((1, 1), (1, 1)), 16, 16, 'tile'),
+    (4, 2, 3, ((0, 2), (1, 0)), 8, 8, 'tile'),
     (32, 1, 1, ZERO, 8192, 8192, 'stencil'),    # past 32-bit plane offsets
 ])
 def test_route(ci, co, k, pads, h, w, want):

@@ -1,10 +1,13 @@
 '''Phase cycle counts of the stencil backward's one-launch tile kernel
-(csrc/stencil_conv_bwd.cu: stencil_tile_bwd_kernel), or of the NHWC
+(csrc/stencil_conv_bwd.cu: stencil_tile_bwd_kernel), of the NHWC
 stencil conv's tile kernel (csrc/stencil_conv_nhwc.cu:
-stencil_nhwc_tile_kernel), on a GPU:
+stencil_nhwc_tile_kernel), or of the NCHW stencil conv's tile kernel
+(csrc/stencil_conv.cu: stencil_tile_kernel), on a GPU:
 
     python3 tools/probe_torch_stencil.py [--shape B:CI:CO:H:W:K] [--bf16]
     python3 tools/probe_torch_stencil.py --nhwc {encoder,head} [--bf16]
+    python3 tools/probe_torch_stencil.py --nchw [--shape B:CI:CO:H:W:K]
+        [--bf16]
 
 It copies the kernel's source with clock64() stamps at its phases (start,
 weights staged, the tile staged, dx, dw and db, the cluster's first sync,
@@ -20,7 +23,13 @@ NHWC tile kernel instead at MulmoUNet's encoder conv_0 (3x3 SAME 1 -> 16
 with relu, a channel of a [8, 256, 256, 5] batch in f32, a contiguous
 channel in bf16) or head (1x1 16 -> 1, B=8) with the wrapper's plan: the
 start, the staging (the weights with it), the compute and the output's
-staging, the barrier, and the copy of the tile's run. It imports nothing of JAX.
+staging, the barrier, and the copy of the tile's run. ``--nchw`` probes
+the NCHW forward tile at ``--shape`` (3x3 SAME, no relu, as unet.yaml +
+leakyReLU.yaml runs its convs; by default down_2.conv_0, 6 -> 12 at 64 x
+64, B=8) with the wrapper's plan: the issue of the weights', the
+bias's and the input rows' copies, their wait to the barrier, the sums
+of thread 0's work items, and their stores.
+It imports nothing of JAX.
 '''
 
 import argparse
@@ -270,6 +279,128 @@ int main(int argc, char** argv) {
 '''
 
 
+NCHW_BIAS = '  dnnca::tile::stage_bias<T>(bs, a.bias, a.Co, CPT, groups);\n'
+NCHW_ROWS = '  const T* xb = a.x + static_cast<size_t>(b) * a.Ci * in_plane;\n'
+NCHW_WAIT = '  dnnca::tile::cp_async_wait_all();\n  __syncthreads();\n'
+NCHW_STORE = ('#pragma unroll\n    for (int o = 0; o < CPT; ++o) {\n'
+              '      if (g * CPT + o >= a.Co) break;')
+NCHW_END = ('                    v, a.OW - col);\n    }\n  }\n}\n')
+
+NCHW_MAIN = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+extern "C" int dnnca_stencil_conv_tile(const float*, const float*,
+    const float*, float*, int, int, int, int, int, int, int, int, int, int,
+    int, int, int, int, int, int, int, int, int, int, int, int, void*);
+extern "C" int dnnca_stencil_conv_tile_bf16(const __nv_bfloat16*,
+    const __nv_bfloat16*, const __nv_bfloat16*, __nv_bfloat16*, int, int,
+    int, int, int, int, int, int, int, int, int, int, int, int, int, int,
+    int, int, int, int, int, int, void*);
+int main(int argc, char** argv) {
+  int v[17];
+  for (int i = 0; i < 17; ++i) v[i] = atoi(argv[i + 1]);
+  const int B = v[0], Ci = v[1], Co = v[2], H = v[3], W = v[4], K = v[5],
+            cpt = v[6], px = v[7], ri = v[8], rows = v[9], cols = v[10],
+            xs_w = v[11], ks = v[12], threads = v[13], smem = v[14],
+            blocks = v[15], bf = v[16];
+  const int p = K / 2, es = bf ? 2 : 4;
+  const size_t nx = size_t(B) * Ci * H * W, no = size_t(B) * Co * H * W,
+               nw = size_t(Co) * Ci * K * K;
+  void *x, *w, *bias, *out;
+  cudaMalloc(&x, nx * es);
+  cudaMalloc(&w, nw * es);
+  cudaMalloc(&bias, Co * es);
+  cudaMalloc(&out, no * es);
+  cudaMemset(x, 0x3c, nx * es);
+  cudaMemset(w, 0x3c, nw * es);
+  cudaMemset(bias, 0, Co * es);
+  auto run = [&]() {
+    return bf ? dnnca_stencil_conv_tile_bf16(
+                    (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+                    (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, B, Ci,
+                    Co, H, W, K, K, p, p, H, W, 0, cpt, px, ri, rows, cols,
+                    xs_w, ks, threads, smem, 0, nullptr)
+              : dnnca_stencil_conv_tile(
+                    (const float*)x, (const float*)w, (const float*)bias,
+                    (float*)out, B, Ci, Co, H, W, K, K, p, p, H, W, 0, cpt,
+                    px, ri, rows, cols, xs_w, ks, threads, smem, 0, nullptr);
+  };
+  for (int i = 0; i < 5; ++i) run();
+  cudaEvent_t a, b;
+  cudaEventCreate(&a);
+  cudaEventCreate(&b);
+  cudaEventRecord(a);
+  for (int i = 0; i < 20; ++i) run();
+  cudaEventRecord(b);
+  cudaEventSynchronize(b);
+  float ms;
+  cudaEventElapsedTime(&ms, a, b);
+  printf("B=%d %d->%d %dx%d K=%d %s cpt %d px %d ks %d rows %d threads %d "
+         "blocks %d smem %d: %.4f ms a call (%s)\n", B, Ci, Co, H, W, K,
+         bf ? "bf16" : "f32", cpt, px, ks, rows, threads, blocks, smem,
+         ms / 20, cudaGetErrorString(cudaGetLastError()));
+  cudaMemset(probe_ptr(), 0, sizeof(long long) * kProbeBlocks * 16);
+  run();
+  cudaDeviceSynchronize();
+  std::vector<long long> st(kProbeBlocks * 16);
+  cudaMemcpy(st.data(), probe_ptr(), st.size() * 8, cudaMemcpyDeviceToHost);
+  const char* names[] = {"weights", "bias", "rows", "wait", "compute",
+                         "store"};
+  const int nb = blocks < kProbeBlocks ? blocks : kProbeBlocks;
+  for (int ph = 0; ph < 6; ++ph) {
+    double sum = 0;
+    long long most = 0;
+    for (int k = 0; k < nb; ++k) {
+      const long long d = st[k * 16 + ph + 1] - st[k * 16 + ph];
+      sum += d;
+      most = d > most ? d : most;
+    }
+    printf("  %-10s %8.0f cycles mean, %8lld most (%d blocks)\n",
+           names[ph], sum / nb, most, nb);
+  }
+  long long s0 = 1LL << 62, s1 = 0, e0 = 1LL << 62, e1 = 0;
+  for (int k = 0; k < nb; ++k) {
+    s0 = st[k * 16 + 10] < s0 ? st[k * 16 + 10] : s0;
+    s1 = st[k * 16 + 10] > s1 ? st[k * 16 + 10] : s1;
+    e0 = st[k * 16 + 11] < e0 ? st[k * 16 + 11] : e0;
+    e1 = st[k * 16 + 11] > e1 ? st[k * 16 + 11] : e1;
+  }
+  printf("  global timer: starts spread %.2f us, ends %.2f-%.2f us after "
+         "the first start (the first %d blocks)\n", (s1 - s0) / 1e3,
+         (e0 - s0) / 1e3, (e1 - s0) / 1e3, nb);
+  return 0;
+}
+"""
+
+
+def nchw_probe_source():
+    '''stencil_conv.cu with the stamps put into the tile kernel: 0 at its
+    start, 1 when the weights' copies are issued, 2 the bias's, 3 the
+    rows', 4 when they have landed, 5 before thread 0's last work item
+    stores, 6 at its end.'''
+    src = open(os.path.join(CSRC, 'stencil_conv.cu')).read()
+    start = src.index('stencil_tile_kernel(TileArgs<T> a) {')
+    end = src.index('template <int CPT, int PX, typename T>\n'
+                    'cudaError_t launch_tile')
+    body = src[start:end]
+    first = 'stencil_tile_kernel(TileArgs<T> a) {\n'
+    edits = [(first, first + '  STAMP(0);\n'),
+             (NCHW_BIAS, '  STAMP(1);\n' + NCHW_BIAS),
+             (NCHW_ROWS, '  STAMP(2);\n' + NCHW_ROWS),
+             (NCHW_WAIT, '  STAMP(3);\n' + NCHW_WAIT + '  STAMP(4);\n'),
+             (NCHW_STORE, '    STAMP(5);\n' + NCHW_STORE),
+             (NCHW_END, NCHW_END[:-2] + '  STAMP(6);\n}\n')]
+    for old, new in edits:
+        if body.count(old) != 1:
+            raise RuntimeError(f'the kernel changed: {old!r} found '
+                               f'{body.count(old)} times')
+        body = body.replace(old, new)
+    head = src[:start].replace('#include "conv_tile.cuh"',
+                               '#include "conv_tile.cuh"\n' + PRELUDE, 1)
+    return (head + body + src[end:] + NCHW_MAIN).replace(
+        'if ((i) == 4) g_probe', 'if ((i) == 6) g_probe')
+
 def nhwc_probe_source():
     '''stencil_conv_nhwc.cu with the stamps put into the tile kernel.'''
     src = open(os.path.join(CSRC, 'stencil_conv_nhwc.cu')).read()
@@ -318,9 +449,12 @@ def main():
                         help='B:CI:CO:H:W:K (SAME pads)')
     parser.add_argument('--bf16', action='store_true')
     parser.add_argument('--nhwc', choices=('encoder', 'head'), default=None)
+    parser.add_argument('--nchw', action='store_true',
+                        help='probe the NCHW forward tile at --shape')
     args = parser.parse_args()
     sys.path.insert(0, HERE)
     from dnncancerannotator_torch.ops.kernels import _build
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
     from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
     from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
     os.makedirs(OUT, exist_ok=True)
@@ -341,6 +475,20 @@ def main():
         return
     b, ci, co, h, w, k = (int(v) for v in args.shape.split(':'))
     pads = ((k // 2, k // 2), (k // 2, k // 2))
+    if args.nchw:
+        pl = SC.plan(b, ci, co, h, w, k, k, pads)
+        cu, exe = os.path.join(OUT, 'nchw.cu'), os.path.join(OUT, 'nchw')
+        with open(cu, 'w') as fh:
+            fh.write(nchw_probe_source())
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, '-std=c++17',
+                        '-O3', f'-I{CSRC}', '-o', exe, cu,
+                        os.path.join(CSRC, 'common.cu')], check=True)
+        subprocess.run([exe, *(str(v) for v in (
+            b, ci, co, h, w, k, pl.cpt, pl.px, pl.ri, pl.rows, pl.cols,
+            pl.xs_w, pl.ks, pl.threads, pl.smem, pl.blocks,
+            int(args.bf16)))],
+            check=True, timeout=120)
+        return
     pl = SCB.tile_plan(b, ci, co, h, w, k, k, pads)
     cu, exe = os.path.join(OUT, 'probe.cu'), os.path.join(OUT, 'probe')
     with open(cu, 'w') as fh:

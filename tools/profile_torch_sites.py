@@ -3,7 +3,7 @@ backward) and warp resample kernels at the shapes their paths call them
 with:
 
     python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--warp]
-        [--stencil] [--sweep | --sweep-head | --sweep-warp |
+        [--stencil | --leaky] [--sweep | --sweep-head | --sweep-warp |
         --sweep-stencil]
 
 On one GPU, with seeded inputs, it times:
@@ -47,11 +47,17 @@ routes (ops/kernels/cca.py: route), for the rules' choices;
 smooth and a random flow, at every strip width and segment height whose
 tile fits (ops/kernels/warp_twopass.py: TUNED) and on the direct route,
 beside the plan's choice. ``--stencil`` times instead the NHWC stencil
-conv at MulmoUNet's encoder conv_0 and head (f32 and bf16, B=8 and 64)
-and the NCHW stencil backward at unet.yaml + bf16.yaml's down_2.conv_0
-(bf16 and f32, B=8), each labelled with its route; ``--sweep-stencil``
-times both stencil tiles at every tile height that fits (and the
-backward's at several block caps), beside the plans' choices.
+conv at MulmoUNet's encoder conv_0 and head (f32 and bf16, B=8 and 64),
+the NCHW stencil conv and backward at unet.yaml + bf16.yaml's
+down_2.conv_0 (bf16 and f32, B=8), and the NCHW stencil conv at
+unet.yaml + leakyReLU.yaml's nine sites (``LEAKY_SITES``: seven shapes,
+f32 and bf16, B=8 and 64, no relu: the leaky relu is a separate op), each
+labelled with its route and beside ``F.conv2d`` with the bias
+(``--leaky`` these alone);
+``--sweep-stencil`` times the three stencil tiles at every tile height
+that fits (the NCHW forward's also at runs of 4 and 8 pixels, each
+exact channel group and one or two lanes an item; the backward's at
+several block caps), beside the plans' choices.
 It imports nothing of JAX and builds the kernels with nvcc.
 '''
 
@@ -74,6 +80,16 @@ import chip_smoke  # noqa: E402  (before --repo goes on the path)
 # (site, Ci, Co, input H = W) of unet.yaml's transposed convs at 256 x 256
 TCONV_SITES = (('up_0', 12, 12, 32), ('up_1', 12, 6, 64), ('up_2', 6, 3, 128))
 TRAIN_BATCH, PREDICT_BATCH = 8, 64
+# unet.yaml + leakyReLU.yaml's stencil sites: (names, Ci, Co, H = W), 3 x 3
+# SAME, each conv alone (down_1.conv_1 and up_1.conv_1, down_0.conv_1 and
+# up_2.conv_1 share a shape)
+LEAKY_SITES = (('down_0.conv_0', 5, 3, 256),
+               ('down_0.conv_1 up_2.conv_1', 3, 3, 256),
+               ('down_1.conv_0', 3, 6, 128),
+               ('down_1.conv_1 up_1.conv_1', 6, 6, 128),
+               ('down_2.conv_0', 6, 12, 64),
+               ('up_1.conv_0', 12, 6, 128),
+               ('up_2.conv_0', 6, 3, 256))
 EVAL_SLICES = 20   # metrics/region.py: PIXEL_BUDGET // (100 * 128 * 128)
 
 
@@ -442,14 +458,90 @@ def stencil_jobs(device):
                          functools.partial(conv_bwd, g, x, w, [co], [1, 1],
                                            [k // 2, k // 2], [1, 1], False,
                                            [0, 0], 1, [True] * 3), None))
+    return jobs + leaky_jobs(device)
+
+
+def leaky_jobs(device, batches=(TRAIN_BATCH, PREDICT_BATCH),
+               dtypes=(torch.float32, torch.bfloat16)):
+    '''(label, call, bound ms) of the NCHW stencil conv at unet.yaml +
+    leakyReLU.yaml's sites (LEAKY_SITES, no relu), and beside each
+    ``F.conv2d`` with the bias; each checked against its plain version.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    F = torch.nn.functional
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED + 14)
+    same, jobs = ((1, 1), (1, 1)), []
+    for dtype in dtypes:
+        tag = 'f32' if dtype == torch.float32 else 'bf16'
+        for nb in batches:
+            for names, ci, co, hw in LEAKY_SITES:
+                x = torch.rand((nb, ci, hw, hw), generator=gen,
+                               device=device).to(dtype)
+                w = (torch.randn((co, ci, 3, 3), generator=gen,
+                                 device=device) * 0.3).to(dtype)
+                b = torch.randn((co,), generator=gen, device=device).to(dtype)
+                out = SC.stencil_conv(x, w, b, same)
+                err = float((out.float() - SC.plain(x, w, b, same)
+                             .float()).abs().max())
+                if err > (1e-5 if dtype == torch.float32 else 1e-2) * float(
+                        out.float().abs().max()):
+                    raise AssertionError(f'stencil_conv {tag} {names} '
+                                         f'differs by {err}')
+                route = SC.route(ci, co, 3, 3, same, hw, hw)
+                name = f'{tag} B={nb} leaky {names} 3x3 {ci}->{co} @{hw}'
+                jobs.append((f'stencil_conv {name} ({route})',
+                             functools.partial(SC.stencil_conv, x, w, b,
+                                               same),
+                             chip_smoke.bound(
+                                 chip_smoke.nbytes(x, w, b, out),
+                                 2 * out.numel() * ci * 9)[0]))
+                jobs.append((f'library F.conv2d {name}',
+                             functools.partial(F.conv2d, x, w, b, padding=1),
+                             None))
     return jobs
 
 
+def sweep_nchw_stencil(device):
+    '''Device ms of the NCHW forward's tile at unet.yaml + leakyReLU.yaml's
+    seven shapes in f32 (B=8 and 64) at every channel group, run length,
+    lanes an item (1 or 2) and height (1, 2, 4, 8 or 16 rows) that fits,
+    beside the plan's choice.'''
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+
+    def device_ms(call):
+        split = chip_smoke._fullest_split(call)
+        return sum(ms for ms, _ in split.values())
+
+    nchw_plan = SC.plan
+    for label, call, _ in leaky_jobs(device, dtypes=(torch.float32,)):
+        if not label.startswith('stencil_conv'):
+            continue
+        x, w = call.args[0], call.args[1]
+        shape = (x.shape[0], x.shape[1], w.shape[0], *x.shape[2:],
+                 *w.shape[2:], call.args[3])
+        print(f'{label}: plan {nchw_plan(*shape)} device '
+              f'{device_ms(call):.4f} ms', flush=True)
+        for (cpt, px), ks, rows in itertools.product(
+                SC.TILES, (1, 2), (1, 2, 4, 8, 16)):
+            if cpt not in SC.tile_groups(w.shape[0]) or rows > x.shape[2]:
+                continue
+            pl = nchw_plan(*shape, rows=rows, px=px, cpt=cpt, ks=ks)
+            if pl.smem > SC._build.MAX_SMEM_BYTES:
+                continue
+            SC.plan = functools.partial(nchw_plan, rows=rows, px=px,
+                                        cpt=cpt, ks=ks)
+            print(f'  cpt {cpt:2d} px {px} ks {ks} rows {rows:2d}: blocks '
+                  f'{pl.blocks:5d} threads {pl.threads:3d} smem '
+                  f'{pl.smem:6d} device {device_ms(call):.4f} ms',
+                  flush=True)
+        SC.plan = nchw_plan
+
+
 def sweep_stencil(device):
-    '''Device ms of the two stencil tiles at their main-path shapes (as
-    ``stencil_jobs``) at every tile height that fits: the NHWC tile route
-    at 1-8 rows, and the backward's tile form at 1-8 rows, a cap of 64-256
-    blocks and clusters of 2-8 blocks, beside the plans' own choices.'''
+    '''Device ms of the three stencil tiles at their main-path shapes at
+    every tile height that fits: the NCHW forward's (``sweep_nchw_stencil``),
+    the NHWC tile route at 1-8 rows (as ``stencil_jobs``), and the
+    backward's tile form at 1-8 rows, a cap of 64-256 blocks and clusters
+    of 2-8 blocks, beside the plans' own choices.'''
     from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
     from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
 
@@ -457,6 +549,7 @@ def sweep_stencil(device):
         split = chip_smoke._fullest_split(call)
         return sum(ms for ms, _ in split.values())
 
+    sweep_nchw_stencil(device)
     jobs = stencil_jobs(device)
     plan, route = SN.plan, SN.route
     for label, call, _ in jobs:
@@ -517,6 +610,9 @@ def main():
                              'backward\'s sites alone')
     parser.add_argument('--sweep-stencil', action='store_true',
                         help='time the stencil tiles at every tile height')
+    parser.add_argument('--leaky', action='store_true',
+                        help='time unet.yaml + leakyReLU.yaml\'s NCHW stencil '
+                             'sites alone')
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.repo))
     from dnncancerannotator_torch import engine
@@ -544,6 +640,8 @@ def main():
         return report(warp_jobs(device), args, card)
     if args.stencil:
         return report(stencil_jobs(device), args, card)
+    if args.leaky:
+        return report(leaky_jobs(device), args, card)
     for label, masks in cca_sets(device).items():
         got = K.cca_raw_labels(masks)
         if not torch.equal(got, K.plain(masks)):

@@ -209,6 +209,21 @@ Phases (each raises on failure, so the process exits non-zero):
    plain forward of its weights (MAP_TOL); one step on a seeded state
    through the kernels against a plain step (STEP_TOL, else F64_RATIO of
    the plain step's distance from the f64 step, as 5).
+14. training options: the unet.yaml stack (B=8 256 x 256 crops, banked
+   warp) + enable_label_smoothing.yaml + kernel_regularizer.yaml. (a) the
+   ``train`` CLI for OPTIONS_STEPS steps: every loss finite, each kernel
+   of the train step launched at least (sites x steps) times and the
+   library's own count above 0, then one step on the trained weights
+   through the kernels against a plain step as in 5, the regularizer's
+   share in the loss and every gradient; (b) each optimizer of the
+   registry for OPTIMIZER_STEPS steps of ``Engine.train``: losses finite,
+   state on the card, lamb's and lion's updated parameters against a
+   plain step's; (c) the (a) run with ``debug_asserts: true``, and the
+   step time with and without the checks; (d) SIGTERM to the ``train``
+   CLI in a subprocess after its first logged step: exit 0, a checkpoint
+   at the stop step, a resume of two steps; (e) ``--profile`` over
+   PROFILE_TRAIN_STEPS steps: the trace names the chain kernel. The
+   phase's train throughput is printed beside phase 5's.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -1227,9 +1242,10 @@ def _plain_warp():
 def _step_grads(eng, ds, raw, draws, plain, f64=False):
     '''Loss and parameter gradients of one train step on ``raw`` with the
     given augmentation draws, through the kernels or their plain
-    versions. With ``f64`` the plain step's model and loss run in f64 on
-    the same augmented f32 batch, and the model is put back in f32 after
-    (as ``_big_step``).'''
+    versions; the loss is the engine's (label smoothing included) plus its
+    kernel regularizer's term, where it has one. With ``f64`` the plain
+    step's model and loss run in f64 on the same augmented f32 batch, and
+    the model is put back in f32 after (as ``_big_step``).'''
     from dnncancerannotator_torch.data import augment
 
     bank = eng._warp_bank(ds)
@@ -1245,6 +1261,9 @@ def _step_grads(eng, ds, raw, draws, plain, f64=False):
         logits = plain_logits(eng.model, x) if plain else eng.model(
             x, return_logits=True)
         loss = eng.loss(y, logits)
+        reg = eng.regularization()
+        if reg is not None:
+            loss = loss + reg
         loss.backward()
         return float(loss.detach()), {n: p.grad.clone()
                                       for n, p in eng.model.named_parameters()}
@@ -1252,6 +1271,49 @@ def _step_grads(eng, ds, raw, draws, plain, f64=False):
         if f64:
             eng.model.float()
             eng.model.zero_grad(set_to_none=True)
+
+
+def check_step_grads(eng, ds, raw, gen, label):
+    """One train step's loss and every parameter gradient through the
+    kernels against a plain train step on ``raw`` and the same draws (from
+    ``gen``): the loss to LOSS_TOL relative, each gradient to STEP_TOL of
+    max|ref|, else no further from an f64 step than F64_RATIO times the
+    plain step."""
+    from dnncancerannotator_torch.data import augment
+
+    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
+                               eng._warp_bank(ds))
+    loss, grads = _step_grads(eng, ds, raw, draws, plain=False)
+    plain_loss, plain_grads = _step_grads(eng, ds, raw, draws, plain=True)
+    log(f'one {label}: loss {loss:.7f} kernels, {plain_loss:.7f} plain')
+    if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
+        raise AssertionError(f'{label} loss {loss} vs plain {plain_loss}')
+    # a gradient further than STEP_TOL from the plain step is held to the
+    # f64 step, as _compare_step holds unet_big's: no further from it than
+    # F64_RATIO times the plain f32 step
+    worst, exact = 0.0, []
+    for name, want in plain_grads.items():
+        err = float((grads[name] - want).abs().max())
+        scale = float(want.abs().max())
+        if err <= STEP_TOL * scale:
+            worst = max(worst, err / scale)
+            continue
+        if not exact:
+            exact.append(_step_grads(eng, ds, raw, draws, plain=True,
+                                     f64=True)[1])
+        err64, plain64 = (float((t.double() - exact[0][name]).abs().max())
+                          for t in (grads[name], want))
+        log(f'  {name}: {err:.3e} > {STEP_TOL} * {scale:.3e} from the plain '
+            f'step; from the f64 step: kernels {err64:.3e}, plain '
+            f'{plain64:.3e}')
+        if not err64 <= F64_RATIO * plain64:
+            raise AssertionError(f'{name}: gradient {err} > {STEP_TOL} * '
+                                 f'{scale} from the plain {label}, and '
+                                 f'{err64} from the f64 step against the '
+                                 f'plain step\'s {plain64}')
+    log(f'one {label}: {len(grads)} parameter gradients within '
+        f'{worst:.3e} * max|ref| of the plain step, but for those held to '
+        'the f64 step above')
 
 
 def train_slice(device):
@@ -1328,39 +1390,7 @@ def train_slice(device):
     resident = eng._resident(ds)
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     raw = eng.sample_batch(resident, TRAIN_BATCH, gen)
-    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
-                               eng._warp_bank(ds))
-    loss, grads = _step_grads(eng, ds, raw, draws, plain=False)
-    plain_loss, plain_grads = _step_grads(eng, ds, raw, draws, plain=True)
-    log(f'one train step: loss {loss:.7f} kernels, {plain_loss:.7f} plain')
-    if not abs(loss - plain_loss) <= LOSS_TOL * abs(plain_loss):
-        raise AssertionError(f'train-step loss {loss} vs plain {plain_loss}')
-    # a gradient further than STEP_TOL from the plain step is held to the
-    # f64 step, as _compare_step holds unet_big's: no further from it than
-    # F64_RATIO times the plain f32 step
-    worst, exact = 0.0, []
-    for name, want in plain_grads.items():
-        err = float((grads[name] - want).abs().max())
-        scale = float(want.abs().max())
-        if err <= STEP_TOL * scale:
-            worst = max(worst, err / scale)
-            continue
-        if not exact:
-            exact.append(_step_grads(eng, ds, raw, draws, plain=True,
-                                     f64=True)[1])
-        err64, plain64 = (float((t.double() - exact[0][name]).abs().max())
-                          for t in (grads[name], want))
-        log(f'  {name}: {err:.3e} > {STEP_TOL} * {scale:.3e} from the plain '
-            f'step; from the f64 step: kernels {err64:.3e}, plain '
-            f'{plain64:.3e}')
-        if not err64 <= F64_RATIO * plain64:
-            raise AssertionError(f'{name}: gradient {err} > {STEP_TOL} * '
-                                 f'{scale} from the plain train step, and '
-                                 f'{err64} from the f64 step against the '
-                                 f'plain step\'s {plain64}')
-    log(f'one train step: {len(grads)} parameter gradients within '
-        f'{worst:.3e} * max|ref| of the plain step, but for those held to '
-        'the f64 step above')
+    check_step_grads(eng, ds, raw, gen, 'train step')
 
     # the train step's time, kernels vs plain (a copy of the model and its
     # own Adam for the plain step)
@@ -1395,6 +1425,7 @@ def train_slice(device):
             times.setdefault(n, []).append(time.perf_counter() - start)
     rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
                                            min(times[short]))
+    RATES['unet.yaml (phase 5)'] = rate
     log(f'train throughput: {rate:.2f} slices/s ({short}-step calls '
         f'{times[short]} s, {long}-step calls {times[long]} s; '
         f'steps_per_call {STEPS_PER_CALL})')
@@ -2575,6 +2606,360 @@ def leaky_train_slice(device, data_paths):
     return launches, predict_launches
 
 
+# -- phase 14 ----------------------------------------------------------------
+# the training options: label smoothing and the kernel regularizer on the
+# unet.yaml stack (overlays last: deploy_options.yaml replaces the dict)
+OPTIONS_CONFIGS = CONFIGS + ('configs/additionals/enable_label_smoothing.yaml',
+                             'configs/additionals/kernel_regularizer.yaml')
+OPTIONS_STEPS = 20          # (a), (c): the train CLI, in chunks of 10
+OPTIONS_SPC = 10
+OPTIMIZER_STEPS = 3         # (b): each optimizer of the registry
+PROFILE_TRAIN_STEPS = 212   # (e): past the profiler window [200, 210)
+SIGTERM_TIMEOUT = 300       # (d): seconds the train subprocess may take
+RATES = {}                  # train throughput by phase, slices/s
+
+
+def _overlay_file(name, options):
+    path = os.path.join(WORK, name)
+    with open(path, 'w') as fh:
+        json.dump(options, fh)
+    return path
+
+
+def _options_argv(device, data_paths, save_path, *overlays):
+    return ['train', '--config',
+            *[os.path.join(REPO, c) for c in OPTIONS_CONFIGS], *overlays,
+            '--save_path', save_path, '--data_path', *data_paths, '--seed',
+            str(SEED), '--device', device.type]
+
+
+def _options_engine(device, ds, bank_from=None, **deploy):
+    """An Engine of the options stack with ``deploy`` options set, sharing
+    the warp bank of ``bank_from`` (solved once)."""
+    from dnncancerannotator_torch import engine
+    config = _config(OPTIONS_CONFIGS)
+    config['deploy_options'].update(deploy)
+    eng = engine.Engine(config, seed=SEED, device=device)
+    if bank_from is not None:
+        eng._bank_cache = bank_from._bank_cache
+    return eng
+
+
+def options_cli(device, data_paths):
+    """(a) The train CLI with the options stack for OPTIONS_STEPS steps:
+    every loss finite, every kernel of the train step launched at least
+    (sites x steps) times by its wrapper's count and the library's own
+    count above 0; then one step on the trained weights through the
+    kernels against a plain step (``check_step_grads``, the regularizer's
+    share included). Returns the run's losses, an Engine of the stack
+    holding the trained state, and its dataset."""
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.ops.kernels import _build
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    save_path = os.path.join(WORK, 'options_run')
+    spc = _overlay_file('options_spc.json',
+                        {'deploy_options.steps_per_call': OPTIONS_SPC})
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    library = _build.library_launches()
+    start = time.perf_counter()
+    res = cli(argv=_options_argv(device, data_paths, save_path, spc) + [
+        '--save_freq', str(OPTIONS_STEPS), '--max_steps',
+        str(OPTIONS_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    library = _build.library_launches() - library
+    launches = kernels.launch_counts()
+    losses = res.history['loss']
+    log(f'options-stack train: {OPTIONS_STEPS} steps in {seconds:.3f} s '
+        f'(host clock, the bank solve and data load included); loss '
+        f'{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}; the '
+        f'library counted {library}')
+    if res.epoch != list(range(1, OPTIONS_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'train steps {res.epoch}, losses {losses}')
+    for name, sites in TRAIN_SITES.items():
+        if launches[name] < sites * OPTIONS_STEPS:
+            raise AssertionError(
+                f'{name} launched {launches[name]} times under the options '
+                f'stack, want >= {sites} x {OPTIONS_STEPS}')
+    if library <= 0:
+        raise AssertionError('the kernel library counted no launch')
+
+    ds = pipeline.train_ds(data_paths,
+                           **_config(OPTIONS_CONFIGS)['data_options']['train'])
+    eng = _options_engine(device, ds)
+    eng._setup_training(ds)
+    eng.load(os.path.join(save_path, 'checkpoints', f'ckpt-{OPTIONS_STEPS}'))
+    eng.current_step = OPTIONS_STEPS
+    if eng.l2_scale != 0.01 or not eng.loss.label_smoothing:
+        raise AssertionError('the options stack lost an option: l2 '
+                             f'{eng.l2_scale}, smoothing '
+                             f'{eng.loss.label_smoothing}')
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    raw = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
+    log(f'kernel regularizer on the trained weights: '
+        f'{float(eng.regularization().detach()):.7f}')
+    check_step_grads(eng, ds, raw, gen, 'options-stack train step')
+    return losses, eng, ds
+
+
+def _updated_params(eng, ds, raw, draws, plain, f64=False):
+    """The parameters after one optimizer step on the gradients of
+    ``_step_grads`` (the kernels, their plain versions, or with ``f64`` the
+    plain step in f64, its optimizer state cast to f64 too), and those
+    gradients; the model, its gradients and the optimizer state are put
+    back after."""
+    model0 = copy.deepcopy(eng.model.state_dict())
+    opt0 = copy.deepcopy(eng.optimizer.state_dict())
+    _, grads = _step_grads(eng, ds, raw, draws, plain, f64)
+    try:
+        if f64:
+            eng.model.double()
+        # load_state_dict casts the state to its parameter's dtype
+        eng.optimizer.load_state_dict(copy.deepcopy(opt0))
+        for group in eng.optimizer.param_groups:
+            group['lr'] = eng.schedule(eng.current_step)
+        for n, p in eng.model.named_parameters():
+            p.grad = grads[n]
+        eng.optimizer.step()
+        return ({n: p.detach().clone()
+                 for n, p in eng.model.named_parameters()}, grads)
+    finally:
+        eng.model.float()
+        eng.model.load_state_dict(model0)
+        eng.optimizer.load_state_dict(opt0)
+        eng.model.zero_grad(set_to_none=True)
+
+
+def check_optimizer_step(eng, ds, name):
+    """One step of lamb or lion on the trained state through the kernels
+    against the plain step, by phase 5's rule on the updated parameters:
+    each within STEP_TOL of its plain update's max|.|, else no further from
+    the f64 step than F64_RATIO times the plain step. For lion an element
+    may take the other sign where its sign argument, (1 - b1) g + b1 mu,
+    lies within the gradient's tolerance of 0 on the plain step: those
+    elements are counted and left out."""
+    from dnncancerannotator_torch.data import augment
+
+    gen = torch.Generator(device=eng.device).manual_seed(SEED + 15)
+    raw = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
+    draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
+                               eng._warp_bank(ds))
+    before = {n: p.detach().clone() for n, p in eng.model.named_parameters()}
+    mu = {n: eng.optimizer.state[p]['mu'].clone()
+          for n, p in eng.model.named_parameters()}
+    b1 = eng.optimizer.param_groups[0]['b1']
+    got, _ = _updated_params(eng, ds, raw, draws, plain=False)
+    want, grads = _updated_params(eng, ds, raw, draws, plain=True)
+    worst, flips, exact = 0.0, 0, []
+    for n, w in want.items():
+        scale = float((w - before[n]).abs().max())
+        keep = torch.ones_like(w, dtype=torch.bool)
+        if name == 'lion':
+            sign_arg = ((1 - b1) * grads[n] + b1 * mu[n]).abs()
+            near = sign_arg <= (1 - b1) * STEP_TOL * float(
+                grads[n].abs().max())
+            flips += int((near & ((got[n] - w).abs() > STEP_TOL * scale))
+                         .sum())
+            keep = ~near
+        err = float(((got[n] - w).abs() * keep).max())
+        if err <= STEP_TOL * scale:
+            worst = max(worst, err / scale if scale else 0.0)
+            continue
+        if not exact:
+            exact.append(_updated_params(eng, ds, raw, draws, plain=True,
+                                         f64=True)[0])
+        err64, plain64 = (float(((t.double() - exact[0][n]).abs() * keep)
+                                .max()) for t in (got[n], w))
+        log(f'  {name}: {n} updated {err:.3e} > {STEP_TOL} * {scale:.3e} '
+            f'from the plain step; from the f64 step: kernels {err64:.3e}, '
+            f'plain {plain64:.3e}')
+        if not err64 <= F64_RATIO * plain64:
+            raise AssertionError(
+                f'{name}: {n} updated {err} from the plain step, past '
+                f'{STEP_TOL} * {scale}, and {err64} from the f64 step '
+                f'against the plain step\'s {plain64}')
+    log(f'{name}: one step through the kernels against the plain step: '
+        f'every parameter within {worst:.3e} of its update\'s max|.|, but '
+        'for those held to the f64 step above'
+        + (f'; {flips} sign flips, each at a sign argument within the '
+           'gradient tolerance of 0' if flips else ''))
+
+
+def options_optimizers(device, ds, base):
+    """(b) A few steps of Engine.train with each optimizer of the
+    registry: every loss finite and every state tensor on the card; lamb
+    and lion also against a plain step (``check_optimizer_step``)."""
+    from dnncancerannotator_torch.train import optimizers
+
+    for name in sorted(optimizers._REGISTRY):
+        eng = _options_engine(device, ds, base, optimizer=name,
+                              steps_per_call=OPTIMIZER_STEPS)
+        res = eng.train(ds, max_steps=OPTIMIZER_STEPS, save_freq=1 << 30)
+        losses = res.history['loss']
+        if len(losses) != OPTIMIZER_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f'{name}: losses {losses}')
+        state = [(key, v) for st in eng.optimizer.state.values()
+                 for key, v in st.items() if key != 'step']
+        # sgd without momentum keeps no state, as optax.sgd keeps none
+        if (not state and name != 'sgd') or any(
+                v.device != device for _, v in state):
+            raise AssertionError(f'{name}: state tensors on '
+                                 f'{sorted({str(v.device) for _, v in state})}')
+        log(f'{name}: {type(eng.optimizer).__name__}, {OPTIMIZER_STEPS} '
+            f'steps, loss {losses[0]:.4f} -> {losses[-1]:.4f}, '
+            f'{len(state)} state tensors on {device} '
+            f'({", ".join(sorted({k for k, _ in state}))})')
+        if name in ('lamb', 'lion'):
+            check_optimizer_step(eng, ds, name)
+
+
+def options_debug_asserts(device, data_paths, ds, base, losses):
+    """(c) The (a) run with ``deploy_options.debug_asserts: true`` as an
+    inline overlay: it passes; its losses beside (a)'s; the train step's
+    time with and without the checks, and a profiler window of each step
+    (deferred to phase 9)."""
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    save_path = os.path.join(WORK, 'options_checked_run')
+    overlays = (_overlay_file('options_spc.json', {
+        'deploy_options.steps_per_call': OPTIONS_SPC}),
+        _overlay_file('debug_asserts.json',
+                      {'deploy_options.debug_asserts': True}))
+    res = cli(argv=_options_argv(device, data_paths, save_path, *overlays)
+              + ['--save_freq', str(OPTIONS_STEPS), '--max_steps',
+                 str(OPTIONS_STEPS)])
+    checked = res.history['loss']
+    if len(checked) != OPTIONS_STEPS or not np.isfinite(checked).all():
+        raise AssertionError(f'debug_asserts run: losses {checked}')
+    log(f'debug_asserts: true: {OPTIONS_STEPS} steps pass; max|loss - '
+        f'(a)\'s loss| {max(abs(a - b) for a, b in zip(checked, losses))}')
+    # the step's time, from Engine.train calls that differ only in step
+    # count (as phase 5: 25 and 100 steps, each the minimum of three),
+    # with and without the checks in turns
+    engines = {label: _options_engine(device, ds, base, debug_asserts=on,
+                                      steps_per_call=STEPS_PER_CALL)
+               for label, on in (('without', False), ('with', True))}
+    times = {}
+    for eng in engines.values():
+        eng.train(ds, max_steps=10, save_freq=1 << 30)
+    for _ in range(3):
+        for label, eng in engines.items():
+            for n in (25, 100):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                eng.train(ds, max_steps=eng.current_step + n,
+                          save_freq=1 << 30)
+                torch.cuda.synchronize()
+                times.setdefault((label, n), []).append(
+                    time.perf_counter() - start)
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    raw = base.sample_batch(base._resident(ds), TRAIN_BATCH, gen)
+    for label, eng in engines.items():
+        _DEFERRED.append(lambda eng=eng, label=label: _profile_steps(
+            f'options-stack train step {label} debug_asserts',
+            lambda: eng.train_step(raw, eng.current_step, gen)))
+        ms, median_ms = (1e3 * (f(times[label, 100]) - f(times[label, 25]))
+                         / 75 for f in (min, statistics.median))
+        RATES[f'options stack, {label} debug_asserts'] = \
+            1e3 * TRAIN_BATCH / ms
+        log(f'options-stack train step {label} debug_asserts: {ms:.4f} ms, '
+            f'{1e3 * TRAIN_BATCH / ms:.2f} slices/s ({median_ms:.4f} ms from '
+            f'the medians; 25-step calls {times[label, 25]} s, 100-step '
+            f'calls {times[label, 100]} s; steps_per_call {STEPS_PER_CALL})')
+
+
+def options_sigterm(device, data_paths):
+    """(d) The train CLI in a subprocess, signalled with SIGTERM after its
+    first logged step: it exits 0 and leaves one checkpoint, at the step
+    it stopped at; a second call resumes there for two more steps."""
+    import re
+    import signal
+    import threading
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    save_path = os.path.join(WORK, 'sigterm_run')
+    argv = _options_argv(device, data_paths, save_path)
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'dnncancerannotator_torch', *argv,
+         '--save_freq', '50000', '--max_steps', '100000'],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    timer = threading.Timer(SIGTERM_TIMEOUT, proc.kill)
+    timer.start()
+    first = None
+    try:
+        for line in proc.stdout:
+            m = re.search(r'step (\d+)/100000', line)
+            if m:
+                first = int(m.group(1))
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest = proc.communicate()[0]
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if first is None or proc.returncode != 0:
+        raise AssertionError(f'the train subprocess: rc {proc.returncode}, '
+                             f'first logged step {first}; its end:\n'
+                             f'{rest[-2000:] if rest else ""}')
+    m = re.search(r'Preempted \(SIGTERM\) at step (\d+)', rest)
+    ckpts = sorted(os.listdir(os.path.join(save_path, 'checkpoints')))
+    if not m or ckpts != [f'ckpt-{m.group(1)}'] or int(m.group(1)) < first:
+        raise AssertionError(f'SIGTERM after step {first}: checkpoints '
+                             f'{ckpts}, log {m and m.group(0)}')
+    stop = int(m.group(1))
+    res = cli(argv=argv + ['--save_freq', '50000', '--max_steps',
+                           str(stop + 2)])
+    if res.epoch != [stop + 1, stop + 2] or \
+            not np.isfinite(res.history['loss']).all():
+        raise AssertionError(f'the resumed call ran {res.epoch}: '
+                             f'{res.history["loss"]}')
+    log(f'SIGTERM after logged step {first}: rc 0, ckpt-{stop}; resumed '
+        f'steps {res.epoch}')
+
+
+def options_profile(device, data_paths):
+    """(e) The train CLI with --profile for PROFILE_TRAIN_STEPS steps: one
+    trace under save_path/tfevents/profile, naming the chain kernel."""
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    save_path = os.path.join(WORK, 'profile_run')
+    cli(argv=_options_argv(device, data_paths, save_path) + [
+        '--profile', '--save_freq', '1000', '--max_steps',
+        str(PROFILE_TRAIN_STEPS)])
+    out_dir = os.path.join(save_path, 'tfevents', 'profile')
+    files = os.listdir(out_dir)
+    if len(files) != 1:
+        raise AssertionError(f'profile files {files}')
+    with open(os.path.join(out_dir, files[0])) as fh:
+        events = json.load(fh)['traceEvents']
+    names = {e['name'] for e in events if e.get('cat') == 'kernel'}
+    chain = sorted(n for n in names if 'conv_chain' in n)
+    if not chain:
+        raise AssertionError(f'the trace {files[0]} names no chain kernel '
+                             f'among {sorted(names)[:20]}')
+    log(f'profile: {files[0]}: {len(events)} events, {len(names)} kernel '
+        f'names; the chain\'s: {chain}')
+
+
+def options_slice(device, data_paths):
+    """Phase 14: (a)-(e) above."""
+    losses, eng, ds = options_cli(device, data_paths)
+    options_optimizers(device, ds, eng)
+    options_debug_asserts(device, data_paths, ds, eng, losses)
+    log('train throughput, slices/s: ' + json.dumps(RATES) + ' ('
+        + torch.cuda.get_device_name(0) + ')')
+    options_sigterm(device, data_paths)
+    # last: a profiler session slows the host's later CUDA calls
+    options_profile(device, data_paths)
+
+
 # -- phase 7 -----------------------------------------------------------------
 def _busy_us(prof):
     '''Microseconds of a profiler window in which the device ran a kernel,
@@ -2616,7 +3001,9 @@ def _profile_steps(label, step, steps=5, top=12):
     log(f'{label} under torch.profiler: {wall * 1e3 / steps:.3f} ms a step, '
         f'device busy {busy_us / 1e3 / steps:.3f} ms a step '
         f'({100 * busy_us / 1e6 / wall:.1f}% of the wall time; kernel times '
-        f'summed {summed_us / 1e3 / steps:.3f} ms); by kernel:')
+        f'summed {summed_us / 1e3 / steps:.3f} ms; '
+        f'{sum(e.count for e in device) / steps:.1f} kernels a step); by '
+        'kernel:')
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
             f'{e.count // steps:4d}x  {e.key[:90]}')
@@ -3861,6 +4248,8 @@ def main():
         with phase('13 unet.yaml + leakyReLU.yaml train'):
             leaky_launches, leaky_predict = leaky_train_slice(device,
                                                               train_paths)
+        with phase('14 training options'):
+            options_slice(device, train_paths)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()

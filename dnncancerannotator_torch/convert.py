@@ -79,21 +79,28 @@ def torch_state_from_flax(flat, expected=None):
     return state
 
 
+def flax_key(name):
+    '''The flax path of a PyTorch state_dict key, e.g.
+    ``unet.encoder.down_0.convchain.conv_0.weight`` ->
+    ``params/unet/encoder/down_0/convchain/conv_0/kernel``.'''
+    *module_path, leaf = name.split('.')
+    leaf = 'kernel' if leaf == 'weight' else leaf
+    if leaf not in _COLLECTION:
+        raise KeyError(f'unknown state_dict key {name!r}')
+    return '/'.join([_COLLECTION[leaf], *module_path, leaf])
+
+
 def flax_from_torch_state(state):
     '''Inverse of ``torch_state_from_flax``: a PyTorch state_dict to the
     flat flax-keyed dict of numpy arrays.'''
     flat = {}
     for name, tensor in state.items():
-        *module_path, leaf = name.split('.')
+        key = flax_key(name)
         arr = tensor.detach().cpu().numpy().astype(np.float32)
-        if leaf == 'weight':
-            if _is_tconv(module_path):
+        if key.endswith('/kernel'):
+            if _is_tconv(name.split('.')[:-1]):
                 arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
             else:
                 arr = arr.transpose(2, 3, 1, 0)
-            leaf = 'kernel'
-        elif leaf not in _COLLECTION:
-            raise KeyError(f'unknown state_dict key {name!r}')
-        flat['/'.join([_COLLECTION[leaf], *module_path, leaf])] = \
-            np.ascontiguousarray(arr)
+        flat[key] = np.ascontiguousarray(arr)
     return flat

@@ -12,16 +12,28 @@ Training (``train``) follows the JAX engine's device-resident path:
 - the step: uint8 -> /255 -> augmentation chain -> feature/label split ->
   forward -> weighted BCE -> backward (the kernels' autograd Functions) ->
   optimizer step at the schedule's learning rate for that step;
+- the loss is the configured loss (label smoothing blurs the labels
+  first), plus ``l2 * sum(kernel**2)`` over the conv and transposed-conv
+  kernels under ``model_options.kernel_regularizer``; the logged ``loss``
+  is the data loss alone;
 - ``steps_per_call`` steps run per chunk, a chunk never crosses a
   ``save_freq`` boundary, and each chunk's losses come back to the host in
-  one read, where a non-finite loss stops the run;
+  one read, where a non-finite loss stops the run; with
+  ``deploy_options.debug_asserts`` the loss's checks (utils/checks.py) come
+  back in the same read, and a failed one stops the run naming its step;
 - with ``deploy_options.metrics``, every step's metrics are computed on its
   own probabilities and labels (reset, update, result) and logged;
 - at every ``save_freq`` step (and the last): validation on ``val_data``
   (``val_*`` logs), a checkpoint, and the Visualizer passes; early stopping
   when ``val_loss`` has not improved for ``early_stop_steps`` steps;
 - the logs go to ``save_path/tfevents/train`` as scalars; a new ``train``
-  call resumes from the newest checkpoint.
+  call resumes from the newest checkpoint;
+- on SIGTERM (with the handler installed from the main thread) the
+  chunk in flight finishes, a checkpoint is written at that step unless it
+  was just saved, and ``train`` returns; the next call resumes from it;
+- with ``profile``, a torch.profiler window over steps [start + 200, start
+  + 210) of the call (PROFILE_START, PROFILE_STEPS) is written under
+  ``save_path/tfevents/profile``.
 The kernel gates come from ``deploy_options`` (ops/gates.py) and are in
 scope wherever the Engine runs its model (``Engine.scope``): in training
 mode for the train step, in eval mode (BatchNorm on its running statistics)
@@ -31,8 +43,7 @@ crop-fused chain; else the warp bank, solved once per Engine, or the
 per-step spline solve). The sampler and the augmentation draw from device
 generators reseeded at every step from (seed, step), so a resumed run draws
 what an unbroken one would. Not ported yet (they raise or are not offered):
-the profiler window, SIGTERM draining, host streaming, the kernel
-regularizer, ``debug_asserts`` and ``spatial_partition``.
+host streaming and ``spatial_partition``.
 
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
@@ -41,9 +52,12 @@ every checkpoint of a run, and writes ``results.csv`` and
 A checkpoint directory holds ``params.npz`` (the flax parameter paths with
 HWIO kernels, and a BatchNorm model's ``batch_stats/...`` running
 statistics, convert.py) and, once trained, ``opt_state.npz``: the
-optimizer's moments under optax's names by flax parameter path
-(``mu/<path>``, ``nu/<path>`` for Adam, ``trace/<path>`` for SGD momentum)
-in the same layout, and ``step``. numpy reads both without JAX; reading the JAX
+optimizer's state under optax's names by flax parameter path
+(``mu/<path>`` and ``nu/<path>`` for Adam, AdamW, Adamax, NAdam and LAMB,
+``trace/<path>`` for SGD momentum, ``nu`` and ``trace`` (and ``mu`` when
+centered) for RMSprop, ``sum_of_squares`` for Adagrad, ``e_g`` and ``e_x``
+for Adadelta, ``mu`` for Lion; train/optimizers.py) in the same layout,
+and ``step``. numpy reads both without JAX; reading the JAX
 package's Orbax checkpoints is not ported yet.
 '''
 
@@ -54,6 +68,8 @@ import math
 import os
 import re
 import shutil
+import signal
+import threading
 import time
 from collections import OrderedDict
 
@@ -68,6 +84,7 @@ from .ops import gates as gates_lib
 from .train import losses as losses_lib
 from .train import optimizers as optimizers_lib
 from .train import schedules as schedules_lib
+from .utils import checks as checks_lib
 from .utils import tboard
 from .utils import viz as viz_lib
 
@@ -75,16 +92,28 @@ logger = logging.getLogger(__name__)
 
 PARAMS_FILE = 'params.npz'
 OPT_STATE_FILE = 'opt_state.npz'
-# torch optimizer state keys <-> optax's names in opt_state.npz
-_OPT_KEYS = {'exp_avg': 'mu', 'exp_avg_sq': 'nu', 'momentum_buffer': 'trace'}
 # random streams of an Engine, each seeded from (seed, stream[, step])
 _BANK, _SAMPLE, _AUGMENT = 0x77a5, 1, 2
-_NOT_PORTED = 'is not ported yet (ROADMAP.md queue 1)'
+# the profiler window of ``train(profile=True)``: steps [start +
+# PROFILE_START, start + PROFILE_START + PROFILE_STEPS) of the call, from
+# the first chunk that starts inside it to the first that ends past it
+PROFILE_START, PROFILE_STEPS = 200, 10
 
 
 def _stream_seed(*words):
     return int(np.random.SeedSequence(list(words)).generate_state(
         1, np.uint64)[0])
+
+
+def solve_regularizer(spec):
+    '''The L2 scale of a ``kernel_regularizer`` spec: 0 for none, ``l2``
+    (default 0.01) for ``{'class_name': 'L2' or 'l2', 'config': {...}}``;
+    any other spec raises ValueError.'''
+    if spec is None:
+        return 0.0
+    if isinstance(spec, dict) and spec.get('class_name') in ('L2', 'l2'):
+        return float((spec.get('config') or {}).get('l2', 0.01))
+    raise ValueError(f'Unsupported kernel_regularizer: {spec!r}')
 
 
 def resolve_device(device):
@@ -141,10 +170,7 @@ class Engine:
         # BatchNorm statistics and checkpoints stay f32 (engine.py:151-154)
         self.compute_dtype = (torch.bfloat16 if deploy.get('precision') in (
             'bfloat16', 'bf16') else None)
-        if deploy.get('debug_asserts'):
-            raise NotImplementedError(
-                'debug_asserts (the weight, label and positive-rate checks) '
-                'is not ported yet (ROADMAP.md queue 1 item 5)')
+        self.debug_asserts = bool(deploy.get('debug_asserts', False))
         if int(deploy.get('spatial_partition', 1)) > 1:
             raise NotImplementedError(
                 'spatial_partition is not ported yet (ROADMAP.md queue 1 '
@@ -156,6 +182,8 @@ class Engine:
         self.max_checkpoints_to_keep = deploy.get('max_checkpoints_to_keep')
         self.warp_bank_size = int(deploy.get('warp_bank_size', 512))
         self.gates = gates_lib.KernelGates.from_deploy_options(deploy)
+        self.l2_scale = solve_regularizer(
+            self.model_config['model_options'].get('kernel_regularizer'))
         self.model_name = model_config['model']
         self.device = resolve_device(device)
         self.model = None
@@ -163,6 +191,9 @@ class Engine:
         self.loss = None
         self.current_step = 0
         self._bank_cache = {}
+        # (step, check messages, device vector) of each train step's
+        # debug_asserts checks, read with its chunk's losses
+        self._check_log = []
 
     def build(self, input_shape):
         '''Build the model for [B, H, W, C] inputs with seeded glorot
@@ -242,7 +273,8 @@ class Engine:
         plus the step.'''
         names = {p: n for n, p in self.model.named_parameters()}
         flat = {'step': np.asarray(step, np.int64)}
-        for key, optax_name in _OPT_KEYS.items():
+        for key, optax_name in optimizers_lib.state_names(
+                self.optimizer).items():
             state = {names[p]: st[key]
                      for p, st in self.optimizer.state.items()
                      if torch.is_tensor(st.get(key))}
@@ -256,7 +288,8 @@ class Engine:
         with np.load(path) as npz:
             flat = {key: npz[key] for key in npz.files}
         step = float(flat.pop('step'))
-        for key, optax_name in _OPT_KEYS.items():
+        for key, optax_name in optimizers_lib.state_names(
+                self.optimizer).items():
             group = {k.split('/', 1)[1]: v for k, v in flat.items()
                      if k.split('/', 1)[0] == optax_name}
             if not group:
@@ -265,8 +298,7 @@ class Engine:
             for name, value in state.items():
                 entry = self.optimizer.state[params[name]]
                 entry[key] = value.to(self.device)
-                if key == 'exp_avg':
-                    entry['step'] = torch.tensor(step)
+                entry['step'] = torch.tensor(step)
 
     def load(self, path):
         '''Load a checkpoint directory into the built model, and its
@@ -296,10 +328,8 @@ class Engine:
     # -- training ----------------------------------------------------------
     def _setup_training(self, dataset):
         '''Build the model, loss, optimizer, warp bank and augmentation
-        chain for ``dataset``; raises for what the port does not run.'''
+        chain for ``dataset``.'''
         deploy = self.model_config['deploy_options']
-        if self.model_config['model_options'].get('kernel_regularizer'):
-            raise NotImplementedError(f'kernel_regularizer {_NOT_PORTED}')
         self.build(dataset.feature_shape)
         self._solve_loss()
         if self.optimizer is None:
@@ -316,6 +346,18 @@ class Engine:
                 self.model_config['deploy_options'].get(
                     'loss', 'WeightedCrossentropy'))
         return self.loss
+
+    def regularization(self):
+        '''``l2 * sum(w**2)`` over the parameters whose flax path ends in
+        ``kernel`` (the conv and transposed-conv kernels, not biases or
+        BatchNorm), on the parameters' own (f32) values; None without a
+        kernel regularizer.'''
+        if not self.l2_scale:
+            return None
+        kernels = [p for name, p in self.model.named_parameters()
+                   if convert.flax_key(name).endswith('/kernel')]
+        return self.l2_scale * torch.stack([p.square().sum()
+                                            for p in kernels]).sum()
 
     def _build_metrics(self):
         return [metrics_lib.solve_metric(s) for s in self.metric_specs]
@@ -396,8 +438,13 @@ class Engine:
             images = self._augment(raw.float() / 255.0, gen)
             x, y = augment_mod.to_feature_label(images, self._slice_types)
             logits = self.model(x, return_logits=True)
-        loss = self.loss(y, logits)
-        loss.backward()
+        with checks_lib.collect(self.debug_asserts) as found:
+            loss = self.loss(y, logits)
+        if found:
+            self._check_log.append((step + 1, [m for m, _ in found],
+                                    torch.cat([v for _, v in found])))
+        reg = self.regularization()
+        (loss if reg is None else loss + reg).backward()
         self.optimizer.step()
         if outputs:
             return loss.detach(), torch.sigmoid(logits.detach()[..., 0]), y
@@ -405,12 +452,15 @@ class Engine:
 
     def train(self, dataset, val_data=None, save_path=None, save_freq=100,
               max_steps=None, early_stop_steps=None, visualization=None,
-              auto_resume=True, log_every=50, steps_per_call=None):
+              auto_resume=True, log_every=50, steps_per_call=None,
+              profile=False):
         '''Train for ``max_steps`` steps in all (1 step == 1 reference
         "epoch"), checkpointing under ``save_path`` every ``save_freq``
         steps, validating on ``val_data`` there and running the Visualizer
-        of each ``visualization`` {tag: EvalDataset}; returns TrainResults
-        of this call's steps.'''
+        of each ``visualization`` {tag: EvalDataset}; with ``profile``,
+        a torch.profiler trace of the window PROFILE_START.. of the call
+        under ``save_path/tfevents/profile``. Returns TrainResults of this
+        call's steps.'''
         if max_steps is None:
             raise ValueError('train needs max_steps')
         self._setup_training(dataset)
@@ -433,14 +483,29 @@ class Engine:
                              for tag, viz_ds in (visualization or {}).items()]
         sample_gen = torch.Generator(device=self.device)
         aug_gen = torch.Generator(device=self.device)
-        step = self.current_step
+        start_step = step = self.current_step
         best_val, best_step = float('inf'), step
-        stop = False
+        saved_at = step if ckpt_dir and step in self.get_ckpts(ckpt_dir) \
+            else None
+        stop = profiled = False
+        window = None   # (profiler, its first step) while it records
+        # preemption: SIGTERM lets the chunk in flight finish, then stops
+        # at a checkpoint (a handler can only be installed from the main
+        # thread; elsewhere save_freq alone bounds the loss)
+        preempted = []
+        on_main = threading.current_thread() is threading.main_thread()
+        if on_main:
+            old_handler = signal.getsignal(signal.SIGTERM)
+            signal.signal(signal.SIGTERM, lambda *_: preempted.append(True))
         t_start = time.perf_counter()
         try:
-            while step < max_steps:
+            while step < max_steps and not preempted:
+                if profile and save_path and not profiled and \
+                        step >= start_step + PROFILE_START:
+                    window, profiled = (self._start_profiler(), step), True
                 boundary = min(max_steps, (step // save_freq + 1) * save_freq)
                 chunk = []
+                self._check_log = []
                 for s in range(step, min(step + spc, boundary)):
                     sample_gen.manual_seed(_stream_seed(self.seed, _SAMPLE, s))
                     aug_gen.manual_seed(_stream_seed(self.seed, _AUGMENT, s))
@@ -449,8 +514,14 @@ class Engine:
                     chunk.append(self.train_step(
                         raw, s, aug_gen, outputs=bool(train_metrics)))
                 outs = chunk if train_metrics else [(c,) for c in chunk]
-                # the chunk's one host read
-                losses = torch.stack([o[0] for o in outs]).tolist()
+                # the chunk's one host read: its losses and its checks
+                values = torch.cat([torch.stack([o[0] for o in outs])] +
+                                   [v for _, _, v in self._check_log]
+                                   ).tolist()
+                losses = values[:len(outs)]
+                checks_lib.raise_failed(
+                    [(at, names) for at, names, _ in self._check_log],
+                    values[len(outs):])
                 if not all(map(math.isfinite, losses)):
                     raise FloatingPointError(
                         f'non-finite loss in steps {step + 1}-'
@@ -485,9 +556,14 @@ class Engine:
                     self.current_step = step
                     if at_save and ckpt_dir:
                         self.save_ckpt(ckpt_dir, step)
+                        saved_at = step
                     if at_save:
                         for callback in viz_callbacks:
                             callback.on_step(self, step)
+                if window and step >= (start_step + PROFILE_START +
+                                       PROFILE_STEPS):
+                    self._stop_profiler(*window, step, save_path)
+                    window = None
                 if stop:
                     break
                 if early_stop_steps is not None and val_data is not None \
@@ -501,11 +577,43 @@ class Engine:
                     # stops
                     stop = True
         finally:
+            if on_main:
+                signal.signal(signal.SIGTERM, signal.SIG_DFL
+                              if old_handler is None else old_handler)
+            if window:
+                self._stop_profiler(*window, step, save_path)
+            self._check_log = []
             if writer:
                 writer.close()
             for callback in viz_callbacks:
                 callback.close()
+        if preempted and ckpt_dir and saved_at != step:
+            logger.warning('Preempted (SIGTERM) at step %d: saving a '
+                           'checkpoint', step)
+            self.save_ckpt(ckpt_dir, step)
         return results
+
+    def _start_profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == 'cuda':
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler, first, last, save_path):
+        '''Stop the window over steps (first, last] and write its trace
+        (Chrome JSON, which TensorBoard's profiler plugin reads) under
+        ``save_path/tfevents/profile``.'''
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out_dir = os.path.join(save_path, 'tfevents', 'profile')
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir,
+                            f'steps-{first + 1}-{last}.pt.trace.json')
+        profiler.export_chrome_trace(path)
+        logger.info('Wrote the profiler trace %s', path)
 
     # -- evaluation and prediction ---------------------------------------------
     def _make_eval_step(self, slice_types):

@@ -19,6 +19,7 @@ def train(
     validate=False,
     val_data_path=None,
     visualize=False,
+    profile=False,
     seed=0,
     device='cuda',
 ):
@@ -42,6 +43,9 @@ def train(
         visualize (bool): write image and PR-curve summaries of the
             training data (and of the validation data, when given) at every
             checkpoint
+        profile (bool): write a torch.profiler trace of steps 201-210 of
+            this call under save_path/tfevents/profile (nothing when the
+            call runs fewer steps)
         seed (int): seed of the weight init, the warp bank, the batch
             sampler and the augmentation draws
         device (str): 'cuda' (default; raises when no GPU is visible),
@@ -73,7 +77,8 @@ def train(
     results = model.train(ds, val_data=val_ds, save_path=save_path,
                           max_steps=max_steps,
                           early_stop_steps=early_stop_steps,
-                          save_freq=save_freq, visualization=visualization)
+                          save_freq=save_freq, visualization=visualization,
+                          profile=profile)
     dump_lib.dump_train_results(
         os.path.join(save_path, 'results.pkl'), results, format_='pickle')
     return results

@@ -6,10 +6,17 @@ is unset it is ``1 / positive_rate`` of the whole batch (1 when the batch has
 no positive pixel), then ``weight_mul * w + weight_add``. Returns the
 per-sample loss [B] (mean over pixels); callers take the batch mean.
 
-Label smoothing (a Gaussian blur of the mask) is not ported yet.
+Label smoothing blurs the label mask with a Gaussian
+(``ops/filters.py``) before the loss, wherever ``per_sample`` runs: the
+train step and the validation loss. With ``deploy_options.debug_asserts``
+the train step checks the labels, the positive rate and the weight
+(``utils/checks.py``).
 '''
 
 import torch
+
+from ..ops.filters import gaussian_filter2d
+from ..utils import checks
 
 
 def sigmoid_bce_from_logits(labels, logits):
@@ -32,20 +39,25 @@ def positive_rate(labels):
 
 
 def weighted_crossentropy(labels, logits, weight=None, weight_add=0.0,
-                          weight_mul=1.0):
+                          weight_mul=1.0, check_labels=True):
     '''Per-sample weighted BCE of labels [B, H, W] and logits [B, H, W]
-    (or [B, H, W, 1]).'''
+    (or [B, H, W, 1]); ``check_labels=False`` leaves the labels' range
+    check to the caller.'''
     if logits.dim() == labels.dim() + 1:
         logits = logits.squeeze(-1)
     # at least f32 (bf16 logits are upcast; f64 stays f64)
     dtype = torch.promote_types(logits.dtype, torch.float32)
     labels = labels.to(dtype)
     logits = logits.to(dtype)
+    if check_labels:
+        checks.check_range(labels, 0.0, 1.0, 'labels')
     if weight is None:
         rate = positive_rate(labels)
+        checks.check_range(rate, 0.0, 1.0, 'positive_rate')
         weight = torch.where(rate > 0, 1.0 / rate.clamp(min=1e-12),
                              torch.ones_like(rate))
     weight = weight_mul * weight + weight_add
+    checks.check_non_negative(weight, 'loss weight', device=labels.device)
     weight_mask = labels * (weight - 1.0) + 1.0
     bce = sigmoid_bce_from_logits(labels, logits)
     return (bce * weight_mask).mean(dim=(1, 2))
@@ -58,19 +70,27 @@ class WeightedCrossentropy:
     def __init__(self, weight=None, weight_add=0.0, weight_mul=1.0,
                  label_smoothing=False, label_smoothing_filter_size=6,
                  label_smoothing_sigma=3):
-        del label_smoothing_filter_size, label_smoothing_sigma
-        if label_smoothing:
-            raise NotImplementedError(
-                'label_smoothing is not ported yet: it needs the Gaussian '
-                'filter of ops/filters.py (ROADMAP.md queue 1)')
         self.weight = weight
         self.weight_add = weight_add
         self.weight_mul = weight_mul
+        self.label_smoothing = label_smoothing
+        self.label_smoothing_filter_size = label_smoothing_filter_size
+        self.label_smoothing_sigma = label_smoothing_sigma
 
     def per_sample(self, labels, logits):
+        if self.label_smoothing:
+            # the labels' check reads them before the blur: the blur of a
+            # region of ones is 1 + an ulp, which the JAX package's check,
+            # after it, rejects
+            checks.check_range(labels, 0.0, 1.0, 'labels')
+            labels = gaussian_filter2d(
+                labels[..., None],
+                filter_shape=self.label_smoothing_filter_size,
+                sigma=self.label_smoothing_sigma)[..., 0]
         return weighted_crossentropy(
             labels, logits, weight=self.weight, weight_add=self.weight_add,
-            weight_mul=self.weight_mul)
+            weight_mul=self.weight_mul,
+            check_labels=not self.label_smoothing)
 
     def __call__(self, labels, logits):
         return self.per_sample(labels, logits).mean()

@@ -99,7 +99,6 @@ def test_bf16_precision_raises():
 
 
 @pytest.mark.parametrize('option,value,item', [
-    ('debug_asserts', True, 'queue 1 item 5'),
     ('spatial_partition', 2, 'queue 1 item 8'),
 ])
 def test_unported_deploy_options_raise(option, value, item):

@@ -65,12 +65,6 @@ def test_weighted_crossentropy_matches_jax(labels, spec):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
-def test_label_smoothing_raises():
-    with pytest.raises(NotImplementedError, match='label_smoothing'):
-        losses.solve_loss({'class_name': 'WeightedCrossentropy',
-                           'config': {'label_smoothing': True}})
-
-
 @pytest.mark.parametrize('spec', [
     'lambda epoch, current_lr: 0.001 * 0.96 ** (epoch // 1000)',
     'lambda e, lr: 0.01 * 0.9 ** e', 'lambda e, lr: 0.005',
@@ -122,8 +116,14 @@ def test_adam_eps_and_unported_optimizers():
     opt, _ = optimizers.solve_optimizer('adam', [torch.nn.Parameter(
         torch.zeros(1))])
     assert opt.defaults['eps'] == 1e-7
-    with pytest.raises(NotImplementedError, match='rmsprop'):
-        optimizers.solve_optimizer('rmsprop', [torch.nn.Parameter(
+    # every name of the JAX registry resolves, in any case
+    for name in jax_optimizers._REGISTRY:
+        for spelled in (name, name.upper()):
+            opt, schedule = optimizers.solve_optimizer(
+                spelled, [torch.nn.Parameter(torch.zeros(1))])
+            assert schedule(0) == jax_optimizers._DEFAULT_LR[name]
+    with pytest.raises(ValueError, match='Unknown optimizer'):
+        optimizers.solve_optimizer('ftrl', [torch.nn.Parameter(
             torch.zeros(1))])
 
 

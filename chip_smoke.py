@@ -224,6 +224,31 @@ Phases (each raises on failure, so the process exits non-zero):
    at the stop step, a resume of two steps; (e) ``--profile`` over
    PROFILE_TRAIN_STEPS steps: the trace names the chain kernel. The
    phase's train throughput is printed beside phase 5's.
+15. host data layer: (a) the host library (csrc/host/*.cc, built with
+   g++ in phase 2) and CRC32C's rate, native against its plain version, on
+   one CRC_BYTES buffer, the same CRC; (b) a seeded PNG exam tree (5
+   cancer and 5 healthy exams of 16 slices, 512 x 512) through the
+   ``generate_tfrecords`` CLI: every record decodes natively to the Python
+   codec's bytes and to ``prepare_combined_slices`` of its exam, the
+   library declines none; the decode rates (native serial, native with
+   the pool, Python); (c) the ``train`` CLI as phase 5 with
+   ``data_options.train.device_cache: false`` (an overlay in the phase's
+   work directory), streaming phase 5's records through the prefetcher:
+   every loss finite, the stream started once a call, the seven kernels
+   of the step launched at least (sites x steps) times and the library's
+   own count at least their sum, ckpt-25 and ckpt-50, a resume, predict
+   from the checkpoint against a plain forward (MAP_TOL); (d) one streamed
+   step bit-equal (loss and every gradient) to the resident step on the
+   same raw batch and draws, the first STREAM_CHECK_BATCHES streamed
+   batches equal to ``raw_batches(seed)`` on the host, and a
+   ``load_resident`` budget one byte below the set falling back to the
+   stream; (e) ``train`` from the exam tree for TREE_STEPS steps,
+   resident and streamed, and ``evaluate`` from the tree equal to
+   ``evaluate`` from its records; (f) train throughput streamed against
+   resident (phase 5's differential calls, in turns) and evaluate s/ckpt
+   at phase 6's setting, prefetched against the serial pass (in turns,
+   results equal), beside phase 6's figure. The phase writes no set past
+   the 8 GiB resident budget: the fallback is the same code at any budget.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -249,6 +274,7 @@ import contextlib
 import copy
 import functools
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -490,6 +516,13 @@ def build():
         os.remove(stale)  # build from the checkout's sources, every run
     _build.library()
     log(f'build: {_build.build_seconds:.2f} s -> {_build.library_path()}')
+    from dnncancerannotator_torch.data import _native
+    stale = _native.library_path()
+    if os.path.exists(stale):
+        os.remove(stale)
+    _native.library()
+    log(f'host library build (g++): {_native.build_seconds:.2f} s -> '
+        f'{_native.library_path()}')
     with open(os.path.join(_build.BUILD_DIR, 'nvcc.log')) as fh:
         for line in fh:
             if 'Compiling entry function' in line:
@@ -1732,6 +1765,7 @@ def eval_slice(device, val_paths, train_paths, run):
     launches = kernels.launch_counts()
     n_ckpt = len(result_rows)
     n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    EVAL_SECONDS['phase 6'] = seconds / n_ckpt
     log(f'evaluate: {n_ckpt} checkpoints x {n_slices} slices in '
         f'{seconds:.3f} s -> {seconds / n_ckpt:.3f} s per checkpoint, '
         f'{n_ckpt * n_slices / seconds:.2f} slices/s (host clock, the '
@@ -4185,6 +4219,480 @@ def fused_aug_slice(device, data_paths):
     return launches
 
 
+# -- phase 15 ----------------------------------------------------------------
+# the host data layer: a PNG exam tree of phase 4's count (5 cancer and 5
+# healthy exams of 16 slices) at phase 5's 512 x 512, trained on TREE_STEPS
+# steps; CRC32C over one CRC_BYTES buffer; streaming against resident
+# throughput from phase 5's differential calls
+TREE_EXAMS = (5, 5)
+TREE_SLICES = 16
+TREE_STEPS = 20
+CRC_BYTES = 64 << 20
+STREAM_CHECK_BATCHES = 8
+EVAL_SECONDS = {}            # evaluate s/ckpt by phase and route
+
+
+def write_exam_tree(root, size=EXAM_SIZE, n_exams=TREE_EXAMS,
+                    n_slices=TREE_SLICES):
+    """A seeded PNG exam tree root/{cancer,healthy}/<pid>/1/<type>/<s>.png
+    of write_records' exams (noise, disc lesions; a healthy exam has no
+    label directory), written by 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+    from dnncancerannotator_torch.data.records import DEFAULT_SLICE_TYPES
+
+    rng = np.random.default_rng(SEED + 15)
+    yy, xx = np.mgrid[:size, :size]
+    jobs = []
+    for category, n in zip(('cancer', 'healthy'), n_exams):
+        types = DEFAULT_SLICE_TYPES if category == 'cancer' else \
+            DEFAULT_SLICE_TYPES[:-1]
+        for pid in range(1, n + 1):
+            exam = os.path.join(root, category, str(pid), '1')
+            for t in types:
+                os.makedirs(os.path.join(exam, t))
+            for s in range(1, n_slices + 1):
+                img = rng.integers(0, 255, (len(types), size, size), np.uint8)
+                if category == 'cancer':
+                    cy, cx = rng.integers(size // 5, size - size // 5, 2)
+                    r = rng.integers(size // 32, size // 8)
+                    disk = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+                    img[:5, disk] = 220
+                    img[5] = disk * np.uint8(255)
+                jobs += [(img[c], os.path.join(exam, t, f'{s:02d}.png'))
+                         for c, t in enumerate(types)]
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda job: Image.fromarray(job[0]).save(job[1]), jobs))
+    return root
+
+
+def _timed(fn, runs=1):
+    """(result, min seconds over ``runs`` calls)."""
+    best = float('inf')
+    for _ in range(runs):
+        start = time.perf_counter()
+        out = fn()
+        best = min(best, time.perf_counter() - start)
+    return out, best
+
+
+def host_library_rates(smi):
+    """(a) The host library's build and CRC32C's rate, native against its
+    plain version, on one CRC_BYTES buffer: the same CRC."""
+    from dnncancerannotator_torch.data import _native
+    from dnncancerannotator_torch.data import tfrecord as tfr
+
+    built = ('an earlier build' if _native.build_seconds is None else
+             f'built in {_native.build_seconds:.2f} s (phase 2)')
+    log(f'host library: {built} -> {_native.library_path()}')
+    buf = np.random.default_rng(SEED).integers(
+        0, 256, CRC_BYTES, np.uint8).tobytes()
+    crc, native_s = _timed(lambda: tfr.crc32c(buf), runs=3)
+    plain, plain_s = _timed(lambda: tfr.crc32c_plain(buf))
+    mb = CRC_BYTES / 1e6
+    log(f'CRC32C of {CRC_BYTES >> 20} MiB: native {mb / native_s:.1f} MB/s '
+        f'(min of 3), plain {mb / plain_s:.1f} MB/s, both {crc:#010x} '
+        f'[{smi}]')
+    if crc != plain:
+        raise AssertionError(f'CRC32C: native {crc:#x}, plain {plain:#x}')
+
+
+def tree_records(work, smi):
+    """(b) generate_tfrecords on a seeded PNG tree: every record decodes
+    natively to the Python codec's bytes and to prepare_combined_slices of
+    its exam, the library declines none; the decode rates. Returns (tree,
+    its records)."""
+    from glob import glob
+    from dnncancerannotator_torch.data import pipeline, records
+    from dnncancerannotator_torch.data import tfrecord as tfr
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    declined = records.declined
+    _, seconds = _timed(lambda: write_exam_tree(os.path.join(work, 'tree')))
+    tree = os.path.join(work, 'tree')
+    log(f'exam tree: {sum(TREE_EXAMS)} exams x {TREE_SLICES} slices of '
+        f'{EXAM_SIZE}^2 PNGs in {seconds:.2f} s')
+    out = os.path.join(work, 'tree.tfrecords')
+    n, seconds = _timed(lambda: cli(argv=['generate_tfrecords', '--path',
+                                          tree, '--output', out]))
+    log(f'generate_tfrecords: {n} exams in {seconds:.2f} s, '
+        f'{os.path.getsize(out) / 1e6:.1f} MB')
+    exam_dirs = sorted(glob(os.path.join(tree, '*', '*', '*')))
+    bufs = list(tfr.read_records(out, verify_crc=True))
+    if n != sum(TREE_EXAMS) or len(bufs) != n:
+        raise AssertionError(f'{n} exams written, {len(bufs)} records')
+    for buf, exam_dir in zip(bufs, exam_dirs):
+        native = records.parse_example_exam_native(buf)
+        plain = records.parse_example_exam_plain(buf)
+        want = records.prepare_combined_slices(exam_dir)
+        if native is None or not np.array_equal(native['slices'],
+                                                plain['slices']) or \
+                not np.array_equal(native['slices'], want['slices']):
+            raise AssertionError(f'the record of {exam_dir} decodes to '
+                                 'other bytes')
+        for key in ('patientID', 'examID', 'path', 'category'):
+            if not native[key] == plain[key] == want[key]:
+                raise AssertionError(f'{exam_dir}: {key} {native[key]!r}, '
+                                     f'{plain[key]!r}, {want[key]!r}')
+
+    def decode(pool):
+        reader = records.TFRecordExamReader(out)   # a fresh cache
+        return sum(e['slices'].nbytes for e in reader.iter_exams(pool=pool))
+
+    def decode_plain():
+        reader = records.TFRecordExamReader(out)
+        return sum(records.parse_example_exam_plain(tfr.read_record_at(
+            out, *at))['slices'].nbytes for at in reader.index)
+
+    pool = pipeline._resolve_pool('auto')
+    nbytes, serial_s = _timed(lambda: decode(0), runs=3)
+    _, pool_s = _timed(lambda: decode(pool), runs=3)
+    _, plain_s = _timed(decode_plain, runs=3)
+    mb = nbytes / 1e6
+    log(f'exam decode of {mb:.1f} MB of slices (min of 3, warm page '
+        f'cache): native serial {mb / serial_s:.1f} MB/s, native with a '
+        f'pool of {pool} {mb / pool_s:.1f} MB/s, Python '
+        f'{mb / plain_s:.1f} MB/s [{smi}]')
+    log(f'records the host library declined: {records.declined - declined}')
+    if records.declined != declined:
+        raise AssertionError(f'{records.declined - declined} records '
+                             'declined')
+    return tree, out
+
+
+@contextlib.contextmanager
+def _spied_raw_batches():
+    """Within the block, the seeds of every TrainDataset.raw_batches call."""
+    from dnncancerannotator_torch.data import pipeline
+
+    calls, raw_batches = [], pipeline.TrainDataset.raw_batches
+
+    def spy(self, seed=None):
+        calls.append(seed)
+        yield from raw_batches(self, seed)
+    pipeline.TrainDataset.raw_batches = spy
+    try:
+        yield calls
+    finally:
+        pipeline.TrainDataset.raw_batches = raw_batches
+
+
+def stream_cli(device, train_paths, work):
+    """(c) The train CLI streaming phase 5's records from the host
+    (device_cache: false): as phase 5, the stream started once a call."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.ops.kernels import _build
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    overlay = os.path.join(work, 'stream.json')
+    with open(overlay, 'w') as fh:
+        json.dump({'deploy_options.steps_per_call': STEPS_PER_CALL,
+                   'data_options.train.device_cache': False}, fh)
+    save_path = os.path.join(work, 'stream_run')
+    ckpt_dir = os.path.join(save_path, 'checkpoints')
+    argv = ['train', '--config', *[os.path.join(REPO, c) for c in CONFIGS],
+            overlay, '--save_path', save_path, '--data_path', *train_paths,
+            '--save_freq', str(SAVE_FREQ), '--seed', str(SEED), '--device',
+            device.type, '--max_steps']
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    before = _build.library_launches()
+    with _spied_raw_batches() as calls:
+        res, seconds = _timed(lambda: cli(argv=argv + [str(TRAIN_STEPS)]))
+    torch.cuda.synchronize()
+    library = _build.library_launches() - before
+    launches = kernels.launch_counts()
+    losses = res.history['loss']
+    log(f'streamed train: {TRAIN_STEPS} steps in {seconds:.3f} s, loss '
+        f'{losses[0]:.4f} -> {losses[-1]:.4f}; raw_batches calls {calls}; '
+        f'the library launched {library} kernels')
+    log(f'launches during the streamed train: {launches}')
+    if calls != [SEED] or res.epoch != list(range(1, TRAIN_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'streamed train: stream calls {calls}, steps '
+                             f'{res.epoch}, losses {losses}')
+    for step in range(SAVE_FREQ, TRAIN_STEPS + 1, SAVE_FREQ):
+        files = set(os.listdir(os.path.join(ckpt_dir, f'ckpt-{step}')))
+        if files != {'params.npz', 'opt_state.npz'}:
+            raise AssertionError(f'ckpt-{step} holds {sorted(files)}')
+    for name, sites in TRAIN_SITES.items():
+        if launches[name] < sites * TRAIN_STEPS:
+            raise AssertionError(f'{name} launched {launches[name]} times, '
+                                 f'want >= {sites} x {TRAIN_STEPS}')
+    if library < sum(TRAIN_SITES.values()) * TRAIN_STEPS:
+        raise AssertionError(f'the library launched {library} kernels')
+
+    last = TRAIN_STEPS + SAVE_FREQ
+    with _spied_raw_batches() as calls:
+        res = cli(argv=argv + [str(last)])
+    if calls != [SEED] or res.epoch != list(range(TRAIN_STEPS + 1,
+                                                  last + 1)):
+        raise AssertionError(f'the resumed call ran steps {res.epoch}, '
+                             f'stream calls {calls}')
+    log(f'streamed train resumed at step {TRAIN_STEPS}: steps '
+        f'{res.epoch[0]}-{res.epoch[-1]}, the stream started again')
+    config = config_lib.load_config(
+        os.path.join(save_path, 'options.yaml'))['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng.build(pipeline.train_ds(
+        train_paths, **config['data_options']['train']).feature_shape)
+    eng.load(os.path.join(ckpt_dir, f'ckpt-{last}'))
+    out_dir = os.path.join(work, 'stream_maps')
+    count = cli(argv=['predict', '--save_path', save_path, '--data_path',
+                      *train_paths, '--output_path', out_dir, '--batch_size',
+                      str(BATCH), '--output_format', 'npy', '--device',
+                      device.type])
+    log(f'predict from the streamed ckpt-{last}: {count} maps')
+    _check_maps(eng.model, train_paths, out_dir,
+                sum(TRAIN_EXAMS) * TRAIN_SLICES)
+    return launches
+
+
+def _first_step_spy(eng, seen, first):
+    """Record the raw batch of every train step of ``eng`` in ``seen``, and
+    the first step's loss and gradients in ``first``."""
+    step_fn = eng.train_step
+
+    def train_step(raw, *args, **kwargs):
+        seen.append(raw.clone())
+        out = step_fn(raw, *args, **kwargs)
+        if len(seen) == 1:
+            first['loss'] = (out[0] if isinstance(out, tuple) else out).clone()
+            first['grads'] = {n: p.grad.clone()
+                              for n, p in eng.model.named_parameters()}
+        return out
+    eng.train_step = train_step
+
+
+def stream_step_check(device, train_paths):
+    """(d) A streamed step against the resident step on the same raw batch
+    and draws (loss and every gradient the same bits), the first
+    STREAM_CHECK_BATCHES streamed batches against raw_batches(seed) on the
+    host, and the fallback to streaming under a budget below the set."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+
+    config = _config(CONFIGS)
+    resident_opts = config['data_options']['train']
+    stream_opts = dict(resident_opts, device_cache=False)
+    a = engine.Engine(config, seed=SEED, device=device)
+    seen, streamed = [], {}
+    _first_step_spy(a, seen, streamed)
+    a.train(pipeline.train_ds(train_paths, **stream_opts),
+            max_steps=STREAM_CHECK_BATCHES, save_freq=1 << 30)
+    host = itertools.islice(pipeline.train_ds(
+        train_paths, **stream_opts).raw_batches(SEED), STREAM_CHECK_BATCHES)
+    n_equal = sum(torch.equal(got.cpu(), torch.from_numpy(want))
+                  for got, want in zip(seen, host))
+    log(f'streamed batches equal to raw_batches({SEED}) on the host: '
+        f'{n_equal} of {STREAM_CHECK_BATCHES}')
+    if n_equal != STREAM_CHECK_BATCHES or len(seen) != n_equal:
+        raise AssertionError('the streamed batches differ from the host '
+                             'stream')
+
+    b = engine.Engine(config, seed=SEED, device=device)
+    b._bank_cache = a._bank_cache
+    b.sample_batch = lambda pool, size, gen: seen[0]
+    resident_seen, resident = [], {}
+    _first_step_spy(b, resident_seen, resident)
+    ds = pipeline.train_ds(train_paths, **resident_opts)
+    b.train(ds, max_steps=1, save_freq=1 << 30)
+    if b._resident(ds) is None:
+        raise AssertionError('the resident check streamed')
+    unequal = [n for n, g in streamed['grads'].items()
+               if not torch.equal(g, resident['grads'][n])]
+    log(f'streamed step vs resident step on the same batch and draws: loss '
+        f'{float(streamed["loss"]):.7f} / {float(resident["loss"]):.7f}, '
+        f'{len(streamed["grads"]) - len(unequal)} of '
+        f'{len(streamed["grads"])} gradients the same bits')
+    if not torch.equal(streamed['loss'], resident['loss']) or unequal:
+        raise AssertionError(f'streamed step differs: gradients {unequal}')
+
+    size = ds.load_resident()['data'].nbytes
+    over = pipeline.train_ds(train_paths, **resident_opts)
+    over.load_resident = functools.partial(over.load_resident,
+                                           budget_bytes=size - 1)
+    c = engine.Engine(config, seed=SEED, device=device)
+    c._bank_cache = a._bank_cache
+    with _spied_raw_batches() as calls:
+        res = c.train(over, max_steps=2, save_freq=1 << 30)
+    log(f'budget {size - 1} bytes below the set\'s {size}: resident pool '
+        f'{c._resident(over)}, raw_batches calls {calls}, losses '
+        f'{res.history["loss"]}')
+    if c._resident(over) is not None or calls != [SEED] or \
+            not np.isfinite(res.history['loss']).all() or \
+            pipeline.train_ds(train_paths, **resident_opts).load_resident(
+                budget_bytes=size) is None:
+        raise AssertionError('no fallback to streaming under the budget')
+
+
+def tree_slice(device, tree, tree_records_path, work):
+    """(e) The train CLI from the exam tree, resident and streaming, for
+    TREE_STEPS steps; evaluate from the tree, equal to evaluate from its
+    records."""
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    runs = {}
+    for cache in (True, False):
+        overlay = os.path.join(work, f'tree_{cache}.json')
+        with open(overlay, 'w') as fh:
+            json.dump({'deploy_options.steps_per_call': TREE_STEPS // 2,
+                       'data_options.train.device_cache': cache}, fh)
+        save_path = os.path.join(work, f'tree_run_{cache}')
+        with _spied_raw_batches() as calls:
+            res, seconds = _timed(lambda: cli(argv=[
+                'train', '--config', *[os.path.join(REPO, c)
+                                       for c in CONFIGS], overlay,
+                '--save_path', save_path, '--data_path', tree,
+                '--max_steps', str(TREE_STEPS), '--save_freq',
+                str(TREE_STEPS), '--seed', str(SEED), '--device',
+                device.type]))
+        route = 'resident' if cache else 'streamed'
+        log(f'train from the exam tree ({route}): steps {res.epoch[0]}-'
+            f'{res.epoch[-1]} in {seconds:.2f} s, loss '
+            f'{res.history["loss"][0]:.4f} -> {res.history["loss"][-1]:.4f}'
+            f', raw_batches calls {calls}')
+        if res.epoch != list(range(1, TREE_STEPS + 1)) or \
+                not np.isfinite(res.history['loss']).all() or \
+                calls != ([] if cache else [SEED]):
+            raise AssertionError(f'train from the tree ({route}): '
+                                 f'{res.epoch}, {res.history["loss"]}')
+        runs[route] = save_path
+    tables = {}
+    for tag, paths in (('tree', [tree]), ('records', [tree_records_path])):
+        _, seconds = _timed(lambda: cli(argv=[
+            'evaluate', '--save_path', runs['resident'], '--data_path',
+            *paths, '--tag', tag, '--config',
+            os.path.join(REPO, METRICS_CONFIG), '--export_csv',
+            '--skip_visualization', '--device', device.type]))
+        tables[tag] = _read_csv(os.path.join(
+            runs['resident'], 'tfevents', tag, 'results.csv'))
+        log(f'evaluate from the {tag}: {seconds:.2f} s, {tables[tag][1]}')
+    if tables['tree'] != tables['records'] or len(tables['tree']) != 2:
+        raise AssertionError(f'evaluate from the tree {tables["tree"]} '
+                             f'!= from its records {tables["records"]}')
+
+
+class _InlineBatches:
+    """engine._Prefetcher's interface without its thread: each item is read
+    and copied to the device (pageable) when the loop asks for it, as the
+    serial evaluate pass did before the prefetcher."""
+
+    def __init__(self, iterator, device, to_host=lambda item: item):
+        self._iterator, self._device = iterator, device
+        self._to_host = to_host
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = next(self._iterator)
+        return item, torch.from_numpy(self._to_host(item)).to(self._device)
+
+    def close(self):
+        self._iterator.close()
+
+
+def host_rates(device, val_paths, train_paths, run, smi):
+    """(f) Train throughput streaming against resident (phase 5's
+    differential calls, each the minimum of three, in turns), and evaluate
+    s/ckpt at phase 6's setting prefetched against the serial pass, in
+    turns, beside phase 6's figure; the two passes' results equal."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    config = _config(CONFIGS)
+    config['deploy_options']['steps_per_call'] = STEPS_PER_CALL
+    opts = config['data_options']['train']
+    routes = {}
+    for route, cache in (('resident', True), ('streamed', False)):
+        eng = engine.Engine(config, seed=SEED, device=device)
+        if routes:
+            eng._bank_cache = routes['resident'][0]._bank_cache
+        ds = pipeline.train_ds(train_paths, **dict(opts, device_cache=cache))
+        eng.train(ds, max_steps=10, save_freq=1 << 30)
+        routes[route] = (eng, ds)
+    short, long = 25, 100
+    times = {}
+    for n in (short, long):
+        for _ in range(3):
+            for route, (eng, ds) in routes.items():
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                eng.train(ds, max_steps=eng.current_step + n,
+                          save_freq=1 << 30)
+                torch.cuda.synchronize()
+                times.setdefault((route, n), []).append(
+                    time.perf_counter() - start)
+    rates = {route: (long - short) * TRAIN_BATCH / (
+        min(times[route, long]) - min(times[route, short]))
+        for route in routes}
+    for route in routes:
+        log(f'{route} train throughput: {rates[route]:.2f} slices/s '
+            f'({short}-step calls {times[route, short]} s, {long}-step calls '
+            f'{times[route, long]} s) [{smi}]')
+    log(f'streamed / resident throughput: '
+        f'{rates["streamed"] / rates["resident"]:.3f} [{smi}]')
+
+    n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    tables = {}
+    for tag in ('prefetched', 'serial', 'prefetched_', 'serial_'):
+        with contextlib.ExitStack() as stack:
+            if tag.startswith('serial'):
+                stack.enter_context(_swapped(engine, '_Prefetcher',
+                                             _InlineBatches))
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            rows = cli(argv=[
+                'evaluate', '--save_path', run, '--data_path', *val_paths,
+                '--tag', f'rate_{tag}', '--config',
+                os.path.join(REPO, METRICS_CONFIG), '--export_csv',
+                '--export_images', '--export_casewise_metrics', '--device',
+                device.type])
+            torch.cuda.synchronize()
+        seconds = (time.perf_counter() - start) / len(rows)
+        EVAL_SECONDS.setdefault(tag.rstrip('_'), []).append(seconds)
+        tables[tag] = _read_csv(os.path.join(run, 'tfevents', f'rate_{tag}',
+                                             'results.csv'))
+    log(f'evaluate at phase 6\'s setting ({n_slices} slices a checkpoint, '
+        f'every export), s/ckpt: prefetched {EVAL_SECONDS["prefetched"]}, '
+        f'serial {EVAL_SECONDS["serial"]}, phase 6 (prefetched) '
+        f'{EVAL_SECONDS["phase 6"]:.3f} [{smi}]')
+    if len({json.dumps(t) for t in tables.values()}) != 1:
+        raise AssertionError('the prefetched and serial evaluate passes '
+                             f'differ: {tables}')
+
+
+@contextlib.contextmanager
+def _swapped(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def data_layer_slice(device, val_paths, train_paths, run, smi):
+    """Phase 15: the host data layer on the card, (a)-(f)."""
+    from dnncancerannotator_torch.data import records
+
+    work = os.path.join(WORK, 'data_layer')
+    os.makedirs(work)
+    host_library_rates(smi)
+    tree, tree_records_path = tree_records(work, smi)
+    launches = stream_cli(device, train_paths, work)
+    stream_step_check(device, train_paths)
+    tree_slice(device, tree, tree_records_path, work)
+    host_rates(device, val_paths, train_paths, run, smi)
+    log(f'records the host library declined in this run: {records.declined}')
+    return launches
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -4250,6 +4758,8 @@ def main():
                                                               train_paths)
         with phase('14 training options'):
             options_slice(device, train_paths)
+        with phase('15 host data layer'):
+            data_layer_slice(device, data_paths, train_paths, train_run, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()

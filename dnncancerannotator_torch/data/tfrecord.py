@@ -8,11 +8,12 @@ Implements:
 - Example{BytesList,Int64List,FloatList} encode/decode,
 - TensorProto encode/decode matching ``tf.io.serialize_tensor``.
 
-CRC32C has no native fast path here: long buffers are cut into many chunks
-whose CRC registers advance together as numpy vectors, and the chunk
-registers are then joined with the linear "advance over L zero bytes"
-operator. That runs at tens of MB/s, where the byte-at-a-time loop runs at
-about 0.5 MB/s; both give the same CRC.
+``crc32c`` runs in the host library (csrc/host/tfrecord_io.cc, slicing-by-8,
+built by data/_native.py; a failed build raises). ``crc32c_plain`` is its
+plain version: long buffers are cut into many chunks whose CRC registers
+advance together as numpy vectors, and the chunk registers are then joined
+with the linear "advance over L zero bytes" operator (tens of MB/s, where
+the byte-at-a-time loop runs at about 0.5 MB/s); all give the same CRC.
 '''
 
 import functools
@@ -20,6 +21,8 @@ import os
 import struct
 
 import numpy as np
+
+from . import _native
 
 # ---------------------------------------------------------------------------
 # CRC32C (Castagnoli)
@@ -64,7 +67,17 @@ def _zero_advance_tables(length):
     return [row.tolist() for row in regs.reshape(4, 256)]
 
 
-def crc32c(data: bytes) -> int:
+def crc32c(data) -> int:
+    '''CRC32C of a bytes-like object, in the host library.'''
+    lib = _native.library()
+    if isinstance(data, bytes):
+        return lib.crc32c(data, len(data))
+    arr = np.frombuffer(data, np.uint8)
+    return lib.crc32c(arr.ctypes.data, arr.size)
+
+
+def crc32c_plain(data) -> int:
+    '''CRC32C in numpy (the plain version of ``crc32c``).'''
     arr = np.frombuffer(data, np.uint8)
     n = arr.size
     if n < _CHUNKED_MIN_BYTES:

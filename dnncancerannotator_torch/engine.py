@@ -6,9 +6,16 @@ evaluates it, enumerates, saves and loads step-indexed checkpoints
 (``ckpt-<step>`` directories, the JAX package's names and ordering) and
 predicts.
 
-Training (``train``) follows the JAX engine's device-resident path:
-- the whole uint8 training set sits on the device, and each step samples
-  its batch there (equal probability per source with ``normalize_exams``);
+Training (``train``) follows the JAX engine's two input paths:
+- device-resident: the whole uint8 training set sits on the device, and
+  each step samples its batch there (equal probability per source with
+  ``normalize_exams``);
+- host streaming, where ``load_resident`` returns None (past its budget,
+  ``device_cache: false``, ``loader: grain``): each step takes the next
+  batch of ``raw_batches(seed)`` in stream order through a ``_Prefetcher``
+  (a producer thread; on a CUDA device pinned host buffers copied on a side
+  stream); every ``train`` call restarts the stream from the seed, as the
+  JAX engine does;
 - the step: uint8 -> /255 -> augmentation chain -> feature/label split ->
   forward -> weighted BCE -> backward (the kernels' autograd Functions) ->
   optimizer step at the schedule's learning rate for that step;
@@ -42,12 +49,13 @@ The augmentation routes by the gates in that scope too (``fused_aug``: the
 crop-fused chain; else the warp bank, solved once per Engine, or the
 per-step spline solve). The sampler and the augmentation draw from device
 generators reseeded at every step from (seed, step), so a resumed run draws
-what an unbroken one would. Not ported yet (they raise or are not offered):
-host streaming and ``spatial_partition``.
+what an unbroken one would (the streamed batches excepted: a resumed call
+starts the stream again). Not ported yet (it raises): ``spatial_partition``.
 
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
-``casewise_results.csv``.
+``casewise_results.csv``; its batches are decoded and copied to the device
+by a ``_Prefetcher`` while the one before them computes.
 
 A checkpoint directory holds ``params.npz`` (the flax parameter paths with
 HWIO kernels, and a BatchNorm model's ``batch_stats/...`` running
@@ -66,6 +74,7 @@ import copy
 import logging
 import math
 import os
+import queue
 import re
 import shutil
 import signal
@@ -137,6 +146,124 @@ def resolve_device(device):
     elif dev.type != 'cpu':
         raise ValueError(f'unsupported device {device!r} (cuda or cpu)')
     return dev
+
+
+class _Prefetcher:
+    '''Host -> device pipeline: a producer thread turns the items of
+    ``iterator`` into device tensors up to DEPTH ahead of the consumer, so
+    host decode and batch assembly overlap the device's work.
+
+    ``to_host(item)`` is the uint8 array of an item; iterating yields
+    ``(item, tensor)``. On a CUDA device the producer fills a pinned host
+    buffer (one of a ring of DEPTH + 2, each refilled only after its
+    last copy has completed) and copies it with ``non_blocking=True`` on a
+    side stream; the consumer's stream waits on that copy's event and the
+    tensor is ``record_stream``-ed to it, so the caching allocator does not
+    hand its memory back while the consumer still reads it. On the CPU the
+    tensor shares the host array. An exception of the producer is raised in
+    the consumer; ``close()`` (idempotent) stops the producer, closes the
+    iterator and joins the thread, and must run on every exit path.'''
+
+    _DONE = object()
+    DEPTH = 3
+    THREAD_NAME = 'dnnca-prefetch'
+
+    def __init__(self, iterator, device, to_host=lambda item: item):
+        self._iterator = iterator
+        self._device = torch.device(device)
+        self._to_host = to_host
+        self._q = queue.Queue(maxsize=self.DEPTH)
+        # (pinned buffer, the event of its last copy)
+        self._slots = [[None, None] for _ in range(self.DEPTH + 2)]
+        self._err = None
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name=self.THREAD_NAME)
+        self._thread.start()
+
+    def _put(self, item):
+        # bounded put that gives up once the consumer has closed, so the
+        # producer never blocks forever holding batch buffers
+        while not self._stop:
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _to_device(self, host, slot, side):
+        host = np.ascontiguousarray(host)
+        if host.dtype != np.uint8:
+            raise TypeError(f'prefetched batches are uint8, got {host.dtype}')
+        if self._device.type != 'cuda':
+            return torch.from_numpy(host), None
+        buf, event = self._slots[slot]
+        if event is not None:
+            event.synchronize()   # this buffer's last copy has completed
+        if buf is None or buf.numel() < host.nbytes:
+            buf = torch.empty(host.nbytes, dtype=torch.uint8, pin_memory=True)
+        pinned = buf[:host.nbytes].view(host.shape)
+        np.copyto(pinned.numpy(), host)
+        with torch.cuda.stream(side):
+            tensor = torch.empty(host.shape, dtype=torch.uint8,
+                                 device=self._device)
+            tensor.copy_(pinned, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(side)
+        self._slots[slot] = [buf, event]
+        return tensor, event
+
+    def _run(self):
+        try:
+            side = None
+            guard = contextlib.nullcontext()
+            if self._device.type == 'cuda':
+                guard = torch.cuda.device(self._device)
+            with guard:
+                if self._device.type == 'cuda':
+                    side = torch.cuda.Stream(self._device)
+                for n, item in enumerate(self._iterator):
+                    if self._stop:
+                        return
+                    tensor, event = self._to_device(
+                        self._to_host(item), n % len(self._slots), side)
+                    if not self._put((item, tensor, event)):
+                        return
+        except BaseException as exc:   # raised again in the consumer
+            self._err = exc
+        finally:
+            close = getattr(self._iterator, 'close', None)
+            if close is not None:
+                close()
+            self._put(self._DONE)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        got = self._q.get()
+        if got is self._DONE:
+            self._q.put(self._DONE)   # every later call ends too
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        item, tensor, event = got
+        if event is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            tensor.record_stream(stream)
+        return item, tensor
+
+    def close(self):
+        '''Stop the producer, drop the queued batches and join the thread.'''
+        self._stop = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=30)
 
 
 class TrainResults:
@@ -397,10 +524,18 @@ class Engine:
 
     def _resident(self, dataset):
         '''The training set on the device (cached on the dataset):
-        (uint8 pool [N, h, w, C], starts, counts, balanced).'''
+        (uint8 pool [N, h, w, C], starts, counts, balanced); None where
+        ``load_resident`` returns None and the set streams from the host
+        (remembered on the dataset too).'''
         cached = getattr(dataset, '_device_pool', None)
+        if cached is False:
+            return None
         if cached is None or cached[0].device != self.device:
             host = dataset.load_resident()
+            if host is None:
+                logger.info('Streaming the training set from the host')
+                dataset._device_pool = False
+                return None
             logger.info('Device-resident input: %d slices (%.1f MB)',
                         host['data'].shape[0], host['data'].nbytes / 1e6)
             cached = (torch.from_numpy(host['data']).to(self.device),
@@ -497,6 +632,9 @@ class Engine:
         if on_main:
             old_handler = signal.getsignal(signal.SIGTERM)
             signal.signal(signal.SIGTERM, lambda *_: preempted.append(True))
+        # host streaming: each train call starts the stream from the seed
+        stream = None if resident is not None or step >= max_steps else \
+            _Prefetcher(dataset.raw_batches(seed=self.seed), self.device)
         t_start = time.perf_counter()
         try:
             while step < max_steps and not preempted:
@@ -507,10 +645,14 @@ class Engine:
                 chunk = []
                 self._check_log = []
                 for s in range(step, min(step + spc, boundary)):
-                    sample_gen.manual_seed(_stream_seed(self.seed, _SAMPLE, s))
                     aug_gen.manual_seed(_stream_seed(self.seed, _AUGMENT, s))
-                    raw = self.sample_batch(resident, dataset.batch_size,
-                                            sample_gen)
+                    if stream is not None:
+                        raw = self._next_streamed(stream, s)
+                    else:
+                        sample_gen.manual_seed(
+                            _stream_seed(self.seed, _SAMPLE, s))
+                        raw = self.sample_batch(resident, dataset.batch_size,
+                                                sample_gen)
                     chunk.append(self.train_step(
                         raw, s, aug_gen, outputs=bool(train_metrics)))
                 outs = chunk if train_metrics else [(c,) for c in chunk]
@@ -577,6 +719,8 @@ class Engine:
                     # stops
                     stop = True
         finally:
+            if stream is not None:
+                stream.close()
             if on_main:
                 signal.signal(signal.SIGTERM, signal.SIG_DFL
                               if old_handler is None else old_handler)
@@ -592,6 +736,16 @@ class Engine:
                            'checkpoint', step)
             self.save_ckpt(ckpt_dir, step)
         return results
+
+    @staticmethod
+    def _next_streamed(stream, step):
+        '''The next batch of a training stream, for step ``step`` (0-based).'''
+        try:
+            return next(stream)[1]
+        except StopIteration:
+            raise RuntimeError(
+                f'the training stream ended before step {step + 1} '
+                '(data_options.train.repeat is false)') from None
 
     def _start_profiler(self):
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -617,7 +771,8 @@ class Engine:
 
     # -- evaluation and prediction ---------------------------------------------
     def _make_eval_step(self, slice_types):
-        '''The forward step of evaluation: uint8 [B, H, W, C] host batch ->
+        '''The forward step of evaluation: uint8 [B, H, W, C] batch (host
+        array or tensor) ->
         (per-slice loss [B], probabilities [B, H, W, 1], labels [B, H, W]),
         on the device. The batch is not padded, so a short last batch gives
         the per-slice losses of the JAX step, which pads and masks it.'''
@@ -627,8 +782,9 @@ class Engine:
 
         @torch.no_grad()
         def step(raw_batch):
-            images = torch.from_numpy(np.asarray(raw_batch)).to(device)
-            images = images.to(torch.float32) / 255.0
+            images = raw_batch if torch.is_tensor(raw_batch) else \
+                torch.from_numpy(np.asarray(raw_batch))
+            images = images.to(device).to(torch.float32) / 255.0
             x, y = augment_mod.to_feature_label(images, slice_types)
             with self.scope():
                 logits = model(x, return_logits=True)
@@ -638,13 +794,21 @@ class Engine:
 
     def _eval_dataset(self, eval_step, dataset, metrics):
         '''One pass over an EvalDataset: {'loss': mean per-slice loss,
-        metric name: result}.'''
+        metric name: result}. A ``_Prefetcher`` decodes the next batch and
+        copies it to the device while this one computes; the short last
+        batch stays as it is.'''
         losses = []
-        for batch in dataset.batches():
-            loss_vec, probs, y = eval_step(batch['slices'])
-            losses.append(loss_vec.cpu().numpy())
-            for metric in metrics:
-                metric.update_state(y, probs)
+        batches = _Prefetcher(dataset.batches(), self.device,
+                              to_host=lambda batch: batch['slices'])
+        try:
+            for _batch, raw in batches:
+                loss_vec, probs, y = eval_step(raw)
+                losses.append(loss_vec.cpu().numpy())
+                for metric in metrics:
+                    metric.update_state(y, probs)
+        finally:
+            # a failing step or metric must not leave the producer running
+            batches.close()
         results = {'loss': float(np.concatenate(losses).mean())
                    if losses else float('nan')}
         for metric in metrics:

@@ -1,5 +1,6 @@
 '''CLI dispatcher: subcommands generated from function docstrings.
-``train``, ``evaluate`` and ``predict`` are ported so far.'''
+``train``, ``evaluate``, ``predict`` and ``generate_tfrecords`` are ported
+so far.'''
 
 import argparse
 import logging
@@ -10,12 +11,14 @@ from ..utils import dscli
 def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     logging.basicConfig(level=logging.INFO)
     from . import evaluate, predict, train
+    from ..data.records import generate_tfrecords
 
     parser = argparse.ArgumentParser(prog=prog)
     subparsers = parser.add_subparsers(help='command')
     dscli.add_command(subparsers, train.train)
     dscli.add_command(subparsers, evaluate.evaluate)
     dscli.add_command(subparsers, predict.predict)
+    dscli.add_command(subparsers, generate_tfrecords)
     return dscli.run(parser, argv)
 
 

@@ -32,7 +32,8 @@ def evaluate(
     Args:
         save_path: training output directory holding checkpoints and
             options.yaml
-        data_path (list[str]): evaluation data (.tfrecords files)
+        data_path (list[str]): evaluation data (.tfrecords files or exam
+            directory trees)
         tag: name of the results subdirectory under tfevents/
         config (list[str]): optional config overlays applied on top of the
             recorded training options

@@ -29,7 +29,8 @@ def predict(
 
     Args:
         save_path: where to find weights/configs
-        data_path (list[str]): .tfrecords files to predict
+        data_path (list[str]): .tfrecords files or exam directory trees
+            to predict
         output_path: directory for the predicted maps
         config (list[str]): extra configuration overlays
         threshold (float): optional binarization threshold for the output

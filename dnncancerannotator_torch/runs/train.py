@@ -33,13 +33,18 @@ def train(
             is the base and each later file is overlaid onto it
             (dotted keys merge into nested sections)
         save_path: output directory for checkpoints, options and results
-        data_path (list[str]): training data (.tfrecords files)
+        data_path (list[str]): training data: .tfrecords files, or exam
+            directory trees (path/{cancer,healthy}/patientID/examID/
+            <slice_type>/*.png); a set past the device-resident budget
+            (or with data_options.train.device_cache false) streams from
+            the host
         max_steps (int): stop after this many optimizer steps in all
         early_stop_steps (int): stop when the validation loss has not
             improved for this many steps; disabled when None (default)
         save_freq (int): checkpoint every N steps (default 500)
         validate (bool): evaluate on val_data_path at every checkpoint
-        val_data_path (list[str]): validation data (.tfrecords files)
+        val_data_path (list[str]): validation data (.tfrecords files or
+            exam directory trees)
         visualize (bool): write image and PR-curve summaries of the
             training data (and of the validation data, when given) at every
             checkpoint

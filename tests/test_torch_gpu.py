@@ -174,24 +174,47 @@ def test_tconv2x2_bwd_widths_same_bits(cuda, ci, co, need_dx):
     assert int(TCB.ticket(cuda)) == 0
 
 
+# profiler windows taken, at most, until one holds a record
+PROFILE_TRIES = 10
+
+
+def _window_launches(call):
+    '''{name: launches} of one call in a torch.profiler window: every
+    record the device ran, the memsets of an allocation included.'''
+    cuda_activity = torch.profiler.ProfilerActivity.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[cuda_activity]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
 @pytest.mark.parametrize('ci,co,hw', [(12, 12, 32), (12, 6, 64), (6, 3, 128)])
 def test_tconv2x2_bwd_one_launch_at_the_sites(cuda, ci, co, hw):
-    '''unet.yaml's decoder sites at B=8: one kernel a call (the profiler
-    counts every launch, the memsets of an allocation included).'''
+    '''unet.yaml's decoder sites at B=8: one kernel a call by the kernel
+    library's own count over 10 calls (chip_smoke.library_launches), and
+    nothing beside it, no memset of an allocation either: the profiler sees
+    those, but drops a window's records now and then, so an empty window
+    is taken again (at most PROFILE_TRIES windows; all empty fails), and
+    the first that holds a record must hold the one kernel alone.'''
+    from chip_smoke import library_launches
     gen = torch.Generator().manual_seed(5)
     x, wk = _rand(gen, 8, ci, hw, hw), _rand(gen, ci, co, 2, 2)
     g = _rand(gen, 8, co, 2 * hw, 2 * hw)
-    TCB.tconv2x2_bwd(x, g, wk)
-    torch.cuda.synchronize()
-    cuda_activity = torch.profiler.ProfilerActivity.CUDA
-    with torch.profiler.profile(activities=[cuda_activity]) as prof:
-        got = TCB.tconv2x2_bwd(x, g, wk)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    assert sum(e.count for e in kernels) == 1, [e.key for e in kernels]
-    _assert_grads(got, TCB.plain(x, g, wk))
+    call = lambda: TCB.tconv2x2_bwd(x, g, wk)  # noqa: E731
+    call()
+    assert library_launches(call) == 1
+    for _ in range(PROFILE_TRIES):
+        window = _window_launches(call)
+        if window:
+            break
+    else:
+        pytest.fail(f'{PROFILE_TRIES} profiler windows recorded nothing')
+    assert not [k for k in window if 'memset' in k.lower()], window
+    assert sum(window.values()) == 1, window
+    _assert_grads(call(), TCB.plain(x, g, wk))
 
 
 @pytest.mark.parametrize('ci,co,k,pads', [
@@ -1147,3 +1170,41 @@ def test_optimizer_step_on_the_card(cuda, spec):
                         assert value.device == cuda, key
     for got, want in zip(runs[str(cuda)], runs['cpu']):
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+
+
+# -- the host input path: pinned copies on a side stream --------------------------
+def test_prefetcher_pinned_copies_equal_the_host(cuda):
+    '''200 batches through the prefetcher's pinned buffers and side stream,
+    each read on the consumer's stream without a host sync in between (a
+    digest a batch, read at the end) and dropped at once, so a buffer
+    refilled or a device block handed back too early shows as a wrong
+    digest; every 20th also compared whole. The stream is closed
+    mid-way: the producer ends.'''
+    from dnncancerannotator_torch import engine
+    import threading
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 256, (8, 268, 268, 6), np.uint8)
+    weights = torch.arange(1, 7, device=cuda, dtype=torch.int64)
+
+    def stream():
+        for i in range(400):
+            yield base ^ np.uint8(i % 251)
+
+    batches = engine._Prefetcher(stream(), cuda)
+    digests, want = [], []
+    try:
+        for i in range(200):
+            item, tensor = next(batches)
+            assert tensor.is_cuda and tensor.dtype == torch.uint8
+            digests.append((tensor.to(torch.int64) * weights).sum())
+            want.append(int((item.astype(np.int64) * np.arange(1, 7)).sum()))
+            if i % 20 == 0:
+                assert torch.equal(tensor.cpu(), torch.from_numpy(item))
+            del tensor
+    finally:
+        batches.close()
+    assert torch.stack(digests).tolist() == want
+    assert not [t for t in threading.enumerate()
+                if t.name == engine._Prefetcher.THREAD_NAME and t.is_alive()]

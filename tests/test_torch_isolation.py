@@ -1,5 +1,7 @@
-'''The port stands alone: it never imports JAX, and it never picks the CPU
-when a GPU was asked for and none is visible.'''
+'''The port stands alone: it never imports JAX or the JAX package, its host
+library builds from its own sources into build/torch_host/ and nothing of
+the root native/ directory is loaded, and it never picks the CPU when a GPU
+was asked for and none is visible.'''
 
 import os
 import subprocess
@@ -10,11 +12,12 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = '''
-import contextlib, io, sys
+import contextlib, io, os, sys
 import dnncancerannotator_torch
 from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import metrics
-from dnncancerannotator_torch.data import augment, pipeline
+from dnncancerannotator_torch.data import (_native, augment, pipeline,
+                                           records, tfrecord)
 from dnncancerannotator_torch.metrics import pixel, region
 from dnncancerannotator_torch.models import (blocks, fastbn, fastconv,
                                              multiresunet, unet)
@@ -27,15 +30,31 @@ from dnncancerannotator_torch.ops.kernels import (
 from dnncancerannotator_torch.runs import evaluate, predict, train
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
-from dnncancerannotator_torch.utils import dump, tboard, viz
-for command in ('predict', 'train', 'evaluate'):
+from dnncancerannotator_torch.utils import dump, hostmem, tboard, viz
+for command, flag in (('predict', '--device'), ('train', '--device'),
+                      ('evaluate', '--device'),
+                      ('generate_tfrecords', '--output_size')):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         try:
             main(argv=[command, '--help'])
         except SystemExit as exc:
             assert exc.code == 0, exc.code
-    assert '--device' in out.getvalue(), out.getvalue()
+    assert flag in out.getvalue(), out.getvalue()
+repo = os.path.dirname(os.path.dirname(os.path.abspath(
+    dnncancerannotator_torch.__file__)))
+assert tfrecord.crc32c(b'123456789') == 0xE3069283
+src = os.path.realpath(_native.HOST_SRC_DIR)
+assert src == os.path.join(repo, 'dnncancerannotator_torch', 'csrc',
+                           'host'), src
+for name in _native.SOURCES:
+    assert os.path.realpath(os.path.join(src, name)).startswith(src + '/')
+lib = _native.library_path()
+assert lib.startswith(os.path.join(repo, 'build', 'torch_host') + '/'), lib
+with open('/proc/self/maps') as fh:
+    maps = fh.read()
+assert lib in maps, lib
+assert os.path.join(repo, 'native') + '/' not in maps
 import torch
 from dnncancerannotator_torch import models
 for name, opts in (('UNetAnnotator', {'f32_head': True}),

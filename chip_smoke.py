@@ -249,10 +249,29 @@ Phases (each raises on failure, so the process exits non-zero):
    at phase 6's setting, prefetched against the serial pass (in turns,
    results equal), beside phase 6's figure. The phase writes no set past
    the 8 GiB resident budget: the fallback is the same code at any budget.
+16. export and serve: phase 5's unet.yaml run (a symbolic batch) and
+   phase 12's unet_big.yaml as shipped in bf16 (``batch_size`` 8) through
+   the ``export_model`` CLI (a ``torch.export`` program traced on the host
+   under ``gates.library_only()``), each loaded and moved to the card
+   (every parameter, buffer, constant and ``device`` keyword there) and
+   served by ``runs/serve.py``'s ``make_server`` on a thread; phase 4's
+   first record slices POSTed at B = 1, 8 and 64 (unet.yaml) and 3
+   (padded) and 8 (unet_big; 9 refused with a 400). Checks /healthz and
+   /spec, each answer float32 [B, 256, 256, 1], finite, in [0, 1] and
+   within SERVE_TOL of ``load_exported`` on the same slices; unet.yaml's
+   within MAP_TOL of the kernel path's eval step on the same checkpoint,
+   unet_big's against its live forward under the force-off scope by
+   tests/test_torch_bf16.py's rule; TF32 off while serving (turned on
+   before the load); no kernel launched during export and serving (each
+   kernel's count and the library's own). Prints the export seconds and
+   artifact MB, the load-and-move seconds, each batch's request latency
+   beside the eval step's (host clock, median of SERVE_TIMED, in turns)
+   and the served slices/s at B = 64 beside the kernel path's.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
-   phases 5, 7, 8, 10, 11 and 12 are taken last, after every host-clock and
+   phases 5, 7, 8, 10, 11 and 12 are taken last, after phase 16 and every
+   host-clock and
    CUDA-event measurement; then a line of the B=8 chain forward's times
    summed over the six sites, and one of the NHWC pool and tconv kernels'
    times summed over MulmoUNet's sites.
@@ -274,6 +293,7 @@ import contextlib
 import copy
 import functools
 import hashlib
+import io
 import itertools
 import json
 import os
@@ -281,8 +301,11 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -4693,6 +4716,269 @@ def data_layer_slice(device, val_paths, train_paths, run, smi):
     return launches
 
 
+# -- phase 16 -----------------------------------------------------------------
+# the runs phase 16 exports and serves: phase 5's unet.yaml run with a
+# symbolic batch, and phase 12's unet_big.yaml as shipped (bf16) with a fixed
+# batch; each with the batches its requests carry
+SERVE_RUNS = (
+    dict(label='unet.yaml', name='unet', batch=None, batches=(1, 8, 64)),
+    dict(label='unet_big bf16', name='unet_big', batch=8, batches=(3, 8)),
+)
+SERVE_TOL = 1e-6     # a served answer against load_exported on its slices
+SERVE_TIMED = 10     # request latency: the median of this many, in turns
+
+
+def _npy(arr):
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _post(url, body):
+    '''(status, answer) of a POST of ``body`` (bytes).'''
+    try:
+        with urllib.request.urlopen(url, body, timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        return err.code, err.read()
+
+
+@contextlib.contextmanager
+def _serving(artifact, device):
+    '''The port's server for ``artifact`` on ``device``, on a thread; yields
+    its URL and stops it after.'''
+    from dnncancerannotator_torch.runs.serve import make_server
+    server = make_server(artifact, port=0, device=device.type)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f'http://127.0.0.1:{server.server_address[1]}'
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError('the server thread did not stop')
+
+
+def _launches():
+    '''(each kernel's count, the library's own count) now.'''
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.ops.kernels import _build
+    return kernels.launch_counts(), _build.library_launches()
+
+
+def _check_no_launches(label, before):
+    '''Raise if a kernel launched since ``before`` (``_launches()``).'''
+    counts, library = _launches()
+    moved = {name: n - before[0][name] for name, n in counts.items()
+             if n != before[0][name]}
+    if moved or library != before[1]:
+        raise AssertionError(f'{label}: kernels launched {moved}, the '
+                             f'library {library - before[1]} times')
+
+
+def _check_on_card(path, device):
+    '''Every parameter, buffer and constant of the moved program, and every
+    ``device`` keyword of its graph, on ``device``.'''
+    from torch.export.passes import move_to_device_pass
+    program = move_to_device_pass(torch.export.load(path), device)
+    tensors = {**program.state_dict, **program.constants}
+    off = [name for name, t in tensors.items()
+           if torch.is_tensor(t) and t.device.type != device.type]
+    off += [node.name for node in program.graph.nodes
+            if isinstance(node.kwargs.get('device'), torch.device)
+            and node.kwargs['device'].type != device.type]
+    if off:
+        raise AssertionError(f'{path}: not on {device}: {off}')
+    return len(tensors)
+
+
+def serve_run(spec, device, save_path, features, smi):
+    '''Export ``save_path`` through the CLI, load it, serve it and ask for
+    ``spec['batches']`` slices of ``features``: every answer 200, float32
+    [B, H, W, 1], finite, in [0, 1] and within SERVE_TOL of
+    ``load_exported`` on the same slices; a fixed batch also padded below
+    and refused above. Returns (artifact, {batch: answer}).'''
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.runs.export import load_exported
+
+    label, fixed = spec['label'], spec['batch']
+    argv = ['export_model', '--save_path', save_path, '--output_path',
+            os.path.join(WORK, 'serve', spec['name'])]
+    start = time.perf_counter()
+    path = cli(argv=argv + (['--batch_size', str(fixed)] if fixed else []))
+    seconds = time.perf_counter() - start
+    log(f'{label}: export {seconds:.3f} s, artifact '
+        f'{os.path.getsize(path) / 2**20:.3f} MB ({smi})')
+    start = time.perf_counter()
+    infer = load_exported(path, device=device.type)
+    seconds = time.perf_counter() - start
+    n = _check_on_card(path, device)
+    log(f'{label}: load and move {seconds:.3f} s; {n} tensors, each on the '
+        f'card ({smi})')
+
+    # the server's load turns TF32 off again, as the Engine's device does
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    answers = {}
+    with _serving(path, device) as url:
+        with urllib.request.urlopen(url + '/healthz', timeout=60) as resp:
+            if resp.read() != b'ok':
+                raise AssertionError(f'{label}: /healthz')
+        with urllib.request.urlopen(url + '/spec', timeout=60) as resp:
+            shape = json.loads(resp.read())['input']['shape']
+        if shape != [fixed or -1, *features.shape[1:]]:
+            raise AssertionError(f'{label}: /spec input shape {shape}')
+        for b in spec['batches']:
+            status, body = _post(url + '/predict', _npy(features[:b]))
+            if status != 200:
+                raise AssertionError(f'{label} B={b}: {status} {body[:200]}')
+            got = np.load(io.BytesIO(body))
+            if got.shape != (b, *features.shape[1:3], 1) or \
+                    got.dtype != np.float32 or not np.isfinite(got).all() \
+                    or got.min() < 0 or got.max() > 1:
+                raise AssertionError(f'{label} B={b}: {got.dtype} '
+                                     f'{got.shape}, [{got.min()}, '
+                                     f'{got.max()}]')
+            x = features[:b]
+            if fixed:
+                x = np.concatenate([x, np.zeros_like(features[:fixed - b])])
+            err = float(np.abs(got - infer(x)[:b].cpu().numpy()).max())
+            log(f'{label} B={b}: served against load_exported max|diff| '
+                f'{err:.3e}')
+            if not err <= SERVE_TOL:
+                raise AssertionError(f'{label} B={b}: {err} > {SERVE_TOL}')
+            answers[b] = got
+        if fixed:
+            status, body = _post(url + '/predict',
+                                 _npy(features[:fixed + 1]))
+            want = f'artifact has fixed batch {fixed}; got {fixed + 1}'
+            if status != 400 or json.loads(body)['error'] != want:
+                raise AssertionError(f'{label} B={fixed + 1}: {status} '
+                                     f'{body[:200]}')
+        if torch.backends.cudnn.allow_tf32 or \
+                torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError(f'{label}: TF32 on while serving')
+    return path, answers
+
+
+def _bf16_maps_close(label, got, live, exact):
+    '''tests/test_torch_bf16.py's rule for the served bf16 maps against the
+    live bf16 forward: within BF16_STEP_TOL of its scale, else no further
+    from the f64 forward (``exact()``) than F64_RATIO times the live one
+    by root-mean-square distance.'''
+    err = float(np.abs(got - live).max())
+    scale = float(np.abs(live).max())
+    log(f'{label}: served against the live forward under the force-off '
+        f'scope max|diff| {err:.3e} (scale {scale:.3e})')
+    if err <= BF16_STEP_TOL * scale:
+        return
+    want = exact()
+    mine = float(np.sqrt(np.mean((got.astype(np.float64) - want) ** 2)))
+    theirs = float(np.sqrt(np.mean((live.astype(np.float64) - want) ** 2)))
+    log(f'  from the f64 forward (rms): served {mine:.3e}, live {theirs:.3e}')
+    if not mine <= F64_RATIO * theirs:
+        raise AssertionError(f'{label}: served maps {mine} from the f64 '
+                             f'forward against the live forward\'s {theirs}')
+
+
+def _engine(save_path, device, config=None):
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.utils import config as config_lib
+    config = config or config_lib.load_config(
+        os.path.join(save_path, 'options.yaml'))['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng.build((1, SIZE, SIZE, 5))
+    ckpts = eng.get_ckpts(os.path.join(save_path, 'checkpoints'))
+    eng.load(ckpts[max(ckpts)])
+    return eng
+
+
+def export_serve_slice(device, data_paths, unet_run, smi):
+    '''Phase 16: each SERVE_RUNS run exported and served on the card
+    (``serve_run``) with no kernel launched, the unet.yaml answers against
+    the kernel path's eval step of the same checkpoint (MAP_TOL), the
+    unet_big bf16 answers against its live forward under the force-off
+    scope (``_bf16_maps_close``), then the request latency in turns with
+    the eval step.'''
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.ops import gates
+
+    ds = pipeline.predict_ds(data_paths, output_size=(SIZE, SIZE),
+                             batch_size=BATCH)
+    raw = next(iter(ds.batches()))['slices']
+    features = np.ascontiguousarray(raw[..., :5])
+    saves = {'unet': unet_run,
+             'unet_big': os.path.join(WORK, BF16_BIG_SPEC['run'])}
+
+    before = _launches()
+    served = {spec['name']: serve_run(spec, device, saves[spec['name']],
+                                      features, smi)
+              for spec in SERVE_RUNS}
+    _check_no_launches('export and serving', before)
+    log('launches during export and serving: none (kernels and library)')
+
+    engines = {name: _engine(saves[name], device) for name in saves}
+    steps = {name: eng._make_eval_step(ds.slice_types)
+             for name, eng in engines.items()}
+    for b, got in served['unet'][1].items():
+        want = steps['unet'](raw[:b])[1].cpu().numpy()
+        err = float(np.abs(got - want).max())
+        log(f'unet.yaml B={b}: served against the kernel path\'s eval step '
+            f'max|diff| {err:.3e}')
+        if not err <= MAP_TOL:
+            raise AssertionError(f'unet.yaml B={b}: {err} > {MAP_TOL}')
+    big = engines['unet_big']
+    for b, got in served['unet_big'][1].items():
+        x = torch.from_numpy(features[:b]).to(device).float() / 255.0
+        with torch.no_grad(), big.scope(), gates.library_only():
+            live = torch.sigmoid(big.model(x, return_logits=True))
+
+        def exact(x=x):
+            eng = _engine(saves['unet_big'], device,
+                          _unset_precision(big.model_config))
+            eng.model.double()
+            with torch.no_grad(), eng.scope(), gates.library_only():
+                return torch.sigmoid(eng.model(
+                    x.double(), return_logits=True)).cpu().numpy()
+
+        _bf16_maps_close(f'unet_big bf16 B={b}', got, live.cpu().numpy(),
+                         exact)
+
+    # request latency against the eval step on the same batch, in turns
+    # (host clock; the eval step's maps copied to the host as the server's)
+    for spec in SERVE_RUNS:
+        name = spec['name']
+        path = served[name][0]
+        with _serving(path, device) as url:
+            for b in spec['batches']:
+                times = {'served': [], 'eval': []}
+                body = _npy(features[:b])
+                for _ in range(SERVE_TIMED + 1):
+                    before = _launches()
+                    start = time.perf_counter()
+                    status, _ = _post(url + '/predict', body)
+                    times['served'].append(time.perf_counter() - start)
+                    _check_no_launches(f'{spec["label"]} B={b}', before)
+                    if status != 200:
+                        raise AssertionError(f'{spec["label"]} B={b}: '
+                                             f'{status}')
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    steps[name](raw[:b])[1].cpu()
+                    times['eval'].append(time.perf_counter() - start)
+                served_ms, eval_ms = (1e3 * statistics.median(t[1:])
+                                      for t in times.values())
+                log(f'{spec["label"]} B={b}: request {served_ms:.3f} ms, '
+                    f'eval step {eval_ms:.3f} ms (host clock, median of '
+                    f'{SERVE_TIMED}, in turns; {smi})')
+                if b == BATCH:
+                    log(f'{spec["label"]} B={b}: served '
+                        f'{b * 1e3 / served_ms:.2f} slices/s, kernel path '
+                        f'{b * 1e3 / eval_ms:.2f} slices/s ({smi})')
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -4760,6 +5046,8 @@ def main():
             options_slice(device, train_paths)
         with phase('15 host data layer'):
             data_layer_slice(device, data_paths, train_paths, train_run, smi)
+        with phase('16 export and serve'):
+            export_serve_slice(device, data_paths, train_run, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import functions, pooling
+from ..ops import functions, gates, pooling
 from . import fastbn, fastconv
 
 
@@ -94,8 +94,8 @@ class ConvChain(nn.Module):
     '''``n_conv`` stacked convs, each followed by its BatchNorm ``bn_i``
     when ``bn``. A relu chain of two stride-1 SAME convs without BN in NCHW
     runs whole as one conv_chain kernel where ``fastconv.chain_ok`` takes
-    it in the dtype it runs in; otherwise each conv runs on its own. The
-    parameters are the same either way.'''
+    it in the dtype it runs in, outside ``gates.library_only()``; otherwise
+    each conv runs on its own. The parameters are the same either way.'''
 
     def __init__(self, in_channels, filters, kernel_size, conv_stride, bn,
                  n_conv=2, padding='VALID', activation='relu',
@@ -130,7 +130,8 @@ class ConvChain(nn.Module):
 
     def forward(self, x):
         dtype = self.dtype or (x[0] if isinstance(x, tuple) else x).dtype
-        if self._fused.get(dtype, self._fused[torch.float32]):
+        if self._fused.get(dtype, self._fused[torch.float32]) \
+                and not gates.forced_off():
             c0, c1 = self.conv_0, self.conv_1
             return functions.conv_chain(
                 x.to(dtype), c0.weight.to(dtype), c0.bias.to(dtype),

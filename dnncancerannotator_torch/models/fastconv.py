@@ -16,6 +16,9 @@ ops/functions.py):
   ops/kernels/tconv2x2_nhwc.py);
 - ``chain_ok``: which ConvChain cells run whole through conv_chain.
 
+Inside ``gates.library_only()`` none of these routes is taken: every conv
+and transposed conv is the library call below.
+
 Wider convs and transposed convs are plain ``F.conv2d`` /
 ``F.conv_transpose2d``, as the JAX package leaves them to XLA
 (``lax.conv_general_dilated``, ``lax.conv_transpose``); an NHWC tensor goes
@@ -48,7 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import functions
+from ..ops import functions, gates
 from ..ops.kernels import conv_chain_bwd as conv_chain_bwd_mod
 from ..ops.kernels import stencil_conv as stencil_mod
 from ..ops.kernels import stencil_conv_nhwc as stencil_nhwc_mod
@@ -157,9 +160,11 @@ class Conv2DFast(nn.Module):
         dtype = self.dtype or parts[0].dtype
         parts = tuple(part.to(dtype) for part in parts)
         w, b = self.weight.to(dtype), self.bias.to(dtype)
-        if not nhwc and stencil_mod.eligible(ci, co, kh, kw):
+        kernel = not gates.forced_off()
+        if kernel and not nhwc and stencil_mod.eligible(ci, co, kh, kw):
             return functions.stencil_conv(parts[0], w, b, pads, self.relu)
-        if nhwc and stencil_nhwc_mod.eligible(ci, co, kh, kw, self.padding):
+        if kernel and nhwc and stencil_nhwc_mod.eligible(ci, co, kh, kw,
+                                                         self.padding):
             x = parts[0] if len(parts) == 1 else torch.cat(parts, -1)
             return functions.stencil_conv_nhwc(x, w, b, pads, self.relu)
         out, off = None, 0
@@ -206,7 +211,8 @@ class ConvTranspose2DFast(nn.Module):
                 return functions.tconv2x2_nhwc(x.contiguous(), w, b)
             return _nhwc(plain_tconv(_nchw(x), w, b))
         # f32 only, as tconv_flat_ok (f64 stands for f32 in the checks)
-        if tconv_mod.supported(ci, co) and dtype != torch.bfloat16:
+        if tconv_mod.supported(ci, co) and dtype != torch.bfloat16 \
+                and not gates.forced_off():
             return functions.tconv2x2(x, w, b)
         return plain_tconv(x, w, b)
 

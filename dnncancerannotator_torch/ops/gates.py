@@ -9,11 +9,18 @@ dnncancerannotator_tpu.ops.gates).
   (autograd may run it on another thread, outside the scope).
 - ``DNNCA_*`` environment variables override: a set one beats the scope and
   the default, an unset or empty one is not read.
+- ``library_only()`` is the force-off scope (the JAX package's
+  ``pure_xla()``): within it every gate reads False, whatever the scope
+  and the environment say, and the routes that no gate guards (the NCHW and
+  NHWC stencil convs, the NCHW transposed conv, the fused conv chain) read
+  ``forced_off()`` in the forward, so the model runs library ops alone.
+  Serving export (runs/export.py) traces under it: the artifact holds no
+  custom kernel.
 
 The defaults are the JAX package's: the NHWC pool and transposed-conv
 kernels off, the fused crop + warp off, the warp bank on. The JAX package's
-TPU-only machinery (the interpret switch, the SPMD wrappers, the force-off
-scope for export) has no counterpart here.
+TPU-only machinery (the interpret switch, the SPMD wrappers) has no
+counterpart here.
 '''
 
 import contextlib
@@ -53,6 +60,7 @@ class KernelGates:
 
 
 _active = contextvars.ContextVar('dnnca_torch_kernel_gates', default=None)
+_force_off = contextvars.ContextVar('dnnca_torch_force_off', default=False)
 
 
 @contextlib.contextmanager
@@ -65,8 +73,29 @@ def active(gates):
         _active.reset(token)
 
 
+@contextlib.contextmanager
+def library_only():
+    '''Within the block no kernel of the port is reached: every gate reads
+    False (beating the ``DNNCA_*`` overrides) and ``forced_off()`` is
+    True.'''
+    token = _force_off.set(True)
+    try:
+        yield
+    finally:
+        _force_off.reset(token)
+
+
+def forced_off():
+    '''True inside ``library_only()``: the ungated kernel routes read this
+    at forward time.'''
+    return _force_off.get()
+
+
 def enabled(name):
-    '''Resolve one gate: env override > active scope > default.'''
+    '''Resolve one gate: the force-off scope > env override > active scope
+    > default.'''
+    if _force_off.get():
+        return False
     env = os.environ.get(_ENV[name])
     if env:
         return env not in ('0', 'false', 'False')

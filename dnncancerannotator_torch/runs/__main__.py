@@ -1,6 +1,6 @@
 '''CLI dispatcher: subcommands generated from function docstrings.
-``train``, ``evaluate``, ``predict`` and ``generate_tfrecords`` are ported
-so far.'''
+``train``, ``evaluate``, ``predict``, ``export_model``, ``serve`` and
+``generate_tfrecords`` are ported so far.'''
 
 import argparse
 import logging
@@ -11,6 +11,8 @@ from ..utils import dscli
 def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     logging.basicConfig(level=logging.INFO)
     from . import evaluate, predict, train
+    from . import export as export_mod
+    from . import serve as serve_mod
     from ..data.records import generate_tfrecords
 
     parser = argparse.ArgumentParser(prog=prog)
@@ -18,6 +20,8 @@ def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     dscli.add_command(subparsers, train.train)
     dscli.add_command(subparsers, evaluate.evaluate)
     dscli.add_command(subparsers, predict.predict)
+    dscli.add_command(subparsers, export_mod.export_model)
+    dscli.add_command(subparsers, serve_mod.serve)
     dscli.add_command(subparsers, generate_tfrecords)
     return dscli.run(parser, argv)
 

@@ -8,6 +8,8 @@ test_torch_chain_bwd.py, test_torch_conv_bwd.py and test_torch_augment.py;
 chip_smoke.py repeats these checks at the full main-path shapes.
 '''
 
+import os
+
 import pytest
 import torch
 
@@ -1208,3 +1210,55 @@ def test_prefetcher_pinned_copies_equal_the_host(cuda):
     assert torch.stack(digests).tolist() == want
     assert not [t for t in threading.enumerate()
                 if t.name == engine._Prefetcher.THREAD_NAME and t.is_alive()]
+
+
+# -- the serving artifact: library ops only ---------------------------------------
+@pytest.mark.parametrize('options,deploy', [
+    (dict(n_filters_first=3, n_downsample=3), {}),
+    (dict(n_filters_first=64, n_downsample=2, bn=True),
+     dict(pallas_pool=True, pallas_tconv=True)),
+])
+def test_exported_program_on_the_card(cuda, tmp_path, options, deploy):
+    '''A seeded run exported on the CPU (runs/export.py), moved to the
+    card: every tensor of the program there, the maps equal to the CPU
+    program's to 1e-5 at two batches, and no kernel of the library
+    launched.'''
+    import numpy as np
+    import yaml
+    from chip_smoke import library_launches
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.runs import export
+
+    config = dict(model='UNetAnnotator', model_options=dict(
+        rate=2, kernel_size=3, conv_stride=1, padding='same', **options),
+        deploy_options=deploy, data_options=dict(eval=dict(
+            output_size=[64, 64])))
+    eng = engine.Engine(config, device='cpu')
+    eng.build((2, 64, 64, 5))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, value in eng.model.state_dict().items():
+            if name.endswith(('bias', 'mean')):
+                value.copy_(torch.randn(value.shape, generator=gen) * 0.1)
+    save = str(tmp_path / 'run')
+    os.makedirs(save)
+    with open(os.path.join(save, 'options.yaml'), 'w') as f:
+        yaml.safe_dump(dict(config=config), f)
+    eng.save_ckpt(os.path.join(save, 'checkpoints'), 1)
+    path = export.export_model(save, str(tmp_path / 'art'))
+
+    from torch.export.passes import move_to_device_pass
+    program = move_to_device_pass(torch.export.load(path), cuda)
+    assert all(t.device == cuda for t in program.state_dict.values())
+    on_card = export.load_exported(path, device='cuda')
+    on_host = export.load_exported(path, device='cpu')
+    rng = np.random.default_rng(1)
+    for b in (1, 8):
+        x = rng.integers(0, 256, (b, 64, 64, 5), np.uint8)
+        kernels.reset_launches()
+        launched = library_launches(lambda: on_card(x), calls=2)
+        assert not any(kernels.launch_counts().values())
+        assert launched == 0
+        got = on_card(x)
+        assert got.device == cuda and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), on_host(x), rtol=0, atol=1e-5)

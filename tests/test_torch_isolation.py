@@ -27,12 +27,14 @@ from dnncancerannotator_torch.ops.kernels import (
     _build, conv_chain, conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd,
     stencil_conv, stencil_conv_bwd, stencil_conv_nhwc, tconv2x2_bwd,
     tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_twopass)
-from dnncancerannotator_torch.runs import evaluate, predict, train
+from dnncancerannotator_torch.runs import (evaluate, export, predict, serve,
+                                           train)
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
 from dnncancerannotator_torch.utils import dump, hostmem, tboard, viz
 for command, flag in (('predict', '--device'), ('train', '--device'),
                       ('evaluate', '--device'),
+                      ('export_model', '--batch_size'), ('serve', '--device'),
                       ('generate_tfrecords', '--output_size')):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -93,6 +95,22 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
         engine.Engine({'model': 'UNetAnnotator', 'model_options': {},
                        'deploy_options': {}})
     assert engine.resolve_device('cpu') == torch.device('cpu')
+
+
+def test_serving_on_cuda_without_gpu_raises(monkeypatch, tmp_path):
+    '''Loading an artifact for serving asks for the card by default, and
+    without one raises before anything is read.'''
+    import torch
+    from dnncancerannotator_torch.runs import export, serve
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    path = str(tmp_path / 'model.pt2')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        export.load_exported(path)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        export.load_exported(path, device='cuda')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        serve.make_server(path, port=0, device='cuda')
 
 
 def test_bf16_precision_raises():

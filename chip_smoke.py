@@ -267,6 +267,30 @@ Phases (each raises on failure, so the process exits non-zero):
    artifact MB, the load-and-move seconds, each batch's request latency
    beside the eval step's (host clock, median of SERVE_TIMED, in turns)
    and the served slices/s at B = 64 beside the kernel path's.
+17. data parallelism (``parallel/``, ``enable_multigpu``): (a) one NCCL
+   rank through ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` with DNNCA_MULTIHOST=1 trains phase 5's stack +
+   multigpu.yaml DP_STEPS steps (one checkpoint) and evaluates it: the
+   losses the same bits as the same run with no group, results.csv the
+   same; (b) two ranks on the one card over gloo (NCCL refuses two ranks
+   on one card) take one seeded step each of unet.yaml (phase 5's trained
+   checkpoint and batch), unet_big f32 with pallas_decoder.yaml and
+   unet_big.yaml as shipped in bf16 (``big_check_state``), B=8, 4 rows a
+   rank, through ``Engine.train_step``: every rank drew its rows of the
+   one-rank batch and the one bank, holds the same summed gradients and
+   statistics and, after 3 more steps, the same parameters (bits), and
+   launched every kernel of its step; the step against the one-rank kernel
+   step by phase 5's rule (``_compare_step``; unet_big's statistics by
+   phase 7's limit), bf16 by phase 12's (``_reading``); a 2-rank
+   ``evaluate`` of phase 5's run whose results.csv equals phase 6's
+   (region metrics exactly, the rest within 1e-6 relative), and only rank
+   0's files (one event file); (c) 2 ranks train to DP_STEPS, one rank
+   resumes to 2 x DP_STEPS, the losses within LOSS_TOL of an unbroken
+   2-rank run; (d) with more than one card the CLI's own spawn (one
+   process a card, NCCL) trains and evaluates, else it prints that it did
+   not run. Then the unet.yaml step with and without a world-1 NCCL group
+   in this process (phase 5's differential calls, in turns), and in phase
+   9 the grouped step's profile with its NCCL kernels' device time.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -3040,7 +3064,7 @@ def _profile_steps(label, step, steps=5, top=12):
     '''Where a step's device time goes: ``steps`` calls of ``step`` under
     torch.profiler, the device's busy time (``_busy_us``) and its share of
     the window's wall time, the kernel times summed, and the ``top``
-    kernels by device time.'''
+    kernels by device time; returns the window's device events.'''
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -3064,6 +3088,7 @@ def _profile_steps(label, step, steps=5, top=12):
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:top]:
         log(f'  {e.self_device_time_total / 1e3 / steps:9.3f} ms '
             f'{e.count // steps:4d}x  {e.key[:90]}')
+    return device
 
 
 def _batch_stats(path):
@@ -4979,6 +5004,533 @@ def export_serve_slice(device, data_paths, unet_run, smi):
                         f'{b * 1e3 / eval_ms:.2f} slices/s ({smi})')
 
 
+# -- phase 17 ----------------------------------------------------------------
+MULTIGPU = 'configs/additionals/multigpu.yaml'
+DP_STEPS = 10        # (a), (c): k steps, one checkpoint
+DP_TIMEOUT = 600     # seconds a torchrun launch may take
+DP_REPS = 2          # the world-1 cost: each train call the minimum of this many
+DP_WORLD = 2         # (b), (c): ranks on the one card
+# (b): each seeded step on 2 ranks, the kernels it must launch on every rank
+DP_STEP_KERNELS = {'unet.yaml': tuple(TRAIN_SITES),
+                   'unet_big f32': (*NHWC_KERNELS, 'warp_twopass'),
+                   'unet_big bf16': ('warp_twopass',)}
+
+
+def _dp(*names):
+    return os.path.join(WORK, 'dp', *names)
+
+
+def _write_spec(name, jobs, device, backend=None):
+    '''The jobs of a ``rank_jobs`` launch, in a group of ``backend``
+    (None: NCCL on the card).'''
+    path = _dp(f'{name}.json')
+    with open(path, 'w') as fh:
+        json.dump({'device': device.type, 'backend': backend, 'jobs': jobs},
+                  fh)
+    return path
+
+
+def _torchrun(nproc, spec):
+    '''``spec``'s jobs (``rank_jobs``) in ``nproc`` processes started by
+    ``python -m torch.distributed.run --standalone`` with DNNCA_MULTIHOST=1;
+    returns (process, log).'''
+    env = dict(os.environ, DNNCA_MULTIHOST='1')
+    log_path = spec[:-len('.json')] + '.log'
+    with open(log_path, 'w') as fh:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+             '--nproc_per_node', str(nproc),
+             os.path.join(REPO, 'chip_smoke.py'), '--rank-jobs', spec],
+            cwd=REPO, env=env, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def _finish(label, launch):
+    '''Wait for a ``_torchrun`` launch (stopping it at DP_TIMEOUT); raise
+    with its log's end unless it exited 0.'''
+    proc, log_path = launch
+    try:
+        rc = proc.wait(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.terminate()   # torchrun passes it on to its workers
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        rc = 'timed out'
+    if rc != 0:
+        with open(log_path) as fh:
+            raise AssertionError(f'{label}: torchrun {rc}:\n'
+                                 f'{fh.read()[-4000:]}')
+
+
+def rank_jobs(spec_path):
+    '''One rank of a phase 17 torchrun launch: join the launcher's group
+    (DNNCA_MULTIHOST=1: NCCL on the card, or the spec's backend), run the
+    spec's jobs in order (``cli``: the port's CLI; ``step``:
+    ``_rank_step``), write this rank's group and results beside the spec,
+    leave the group.'''
+    import torch.distributed as dist
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.parallel import multihost
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    multihost.maybe_initialize(spec['device'], spec['backend'])
+    engine.resolve_device(spec['device'])
+    rank = dist.get_rank()
+    try:
+        for job in spec['jobs']:
+            if job['kind'] == 'cli':
+                cli(argv=job['argv'])
+            else:
+                torch.save(_rank_step(job, spec['device']),
+                           f"{job['out']}.rank{rank}.pt")
+        with open(f'{spec_path}.rank{rank}.json', 'w') as fh:
+            json.dump(dict(backend=str(dist.get_backend()),
+                           world=dist.get_world_size()), fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_step(job, device):
+    '''This rank's part of one seeded train step on its rows (the batch and
+    draws of ``big_check_state``, or of phase 5's check on its trained
+    checkpoint), through ``Engine.train_step``: the global loss, the summed
+    gradients, the updated statistics, the rank's rows, the bank's digest,
+    the kernels' launches; then three ``Engine.train`` steps and the
+    parameters.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import augment, pipeline
+    from dnncancerannotator_torch.ops import kernels
+
+    config = job['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    ds = pipeline.train_ds(job['data_paths'],
+                           **config['data_options']['train'])
+    eng._setup_training(ds)
+    if job['ckpt']:
+        eng.load(job['ckpt'])
+    lo, hi, b = eng._rows
+    gen = torch.Generator(device=eng.device).manual_seed(job['gen_seed'])
+    raw = eng.sample_batch(eng._resident(ds), b, gen)[lo:hi]
+    bank = eng._warp_bank(ds)
+    draws = augment.take_rows(augment.draw_chain(
+        ds.augment_methods, (b,) + tuple(raw.shape[1:]), gen, bank), lo, hi)
+    augment_fn = eng._augment
+    eng._augment = lambda images, _gen: augment.apply_chain(
+        ds.augment_methods, images, draws, bank)
+    kernels.reset_launches()
+    with _deterministic_cudnn():
+        loss = float(eng.train_step(raw, 0, None))
+    out = dict(loss=loss, raw=raw.cpu(), launches=kernels.launch_counts(),
+               bank=hashlib.sha256(bank['flows'].cpu().numpy().tobytes()
+                                   ).hexdigest() if bank else None,
+               grads={n: p.grad.to('cpu', copy=True)
+                      for n, p in eng.model.named_parameters()},
+               stats={n: t.to('cpu', copy=True)
+                      for n, t in eng.model.named_buffers()})
+    eng._augment = augment_fn
+    eng.train(ds, max_steps=3, save_freq=1 << 30)
+    out['params'] = {n: p.detach().cpu()
+                     for n, p in eng.model.named_parameters()}
+    return out
+
+
+def _dp_references(device, train_paths, train_run, specs):
+    '''{label: (one-rank kernel step, f64 step or its maker, the batch)}:
+    each seeded step of ``specs`` on one rank, as phases 5, 7 and 12 take
+    them (no group in this process).'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import augment, pipeline
+
+    refs = {}
+    for spec in specs:
+        config, label = spec['config'], spec['label']
+        ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+        if label == 'unet.yaml':
+            eng = engine.Engine(config, seed=SEED, device=device)
+            eng._setup_training(ds)
+            eng.load(spec['ckpt'])
+            gen = torch.Generator(device=device).manual_seed(spec['gen_seed'])
+            raw = eng.sample_batch(eng._resident(ds), TRAIN_BATCH, gen)
+            draws = augment.draw_chain(ds.augment_methods, raw.shape, gen,
+                                       eng._warp_bank(ds))
+            loss, grads = _step_grads(eng, ds, raw, draws, plain=False)
+            refs[label] = ((loss, grads, {}), functools.partial(
+                _step_grads, eng, ds, raw, draws, plain=True, f64=True), raw,
+                eng._warp_bank(ds))
+        elif label == 'unet_big f32':
+            eng, raw, draws = big_check_state(config, ds, SEED, device)
+            with _deterministic_cudnn():
+                one = _big_step(eng, ds, raw, draws, plain=False)
+
+            def exact(eng=eng, ds=ds, raw=raw, draws=draws):
+                with _deterministic_cudnn():
+                    return _big_step(eng, ds, raw, draws, plain=True,
+                                     f64=True)
+            refs[label] = (one, exact, raw, eng._warp_bank(ds))
+        else:
+            one, _, exact, _, eng, raw = bf16_step(config, ds, device)
+            refs[label] = (one, exact, raw, eng._warp_bank(ds))
+    return refs
+
+
+def _dp_step_check(label, out, ref, device):
+    '''(b): the 2-rank step against the one-rank kernel step on the same
+    batch and draws. Every rank drew its rows of the one-rank batch and
+    the one bank, holds the same summed gradients and, after three more
+    steps, the same parameters (bits), and launched each kernel of its
+    path; the step by phase 5's rule (``_compare_step``: the loss to
+    LOSS_TOL, each gradient to STEP_TOL, each statistic to STATS_TOL of its
+    scale, else F64_RATIO of the one-rank step's distance from f64); in
+    bf16 by phase 12's (``_reading``) and each statistic by phase 7's.'''
+    one, exact, raw, bank = ref
+    outs = [torch.load(f'{out}.rank{r}.pt') for r in range(DP_WORLD)]
+    digest = hashlib.sha256(bank['flows'].cpu().numpy().tobytes()
+                            ).hexdigest() if bank else None
+    for r, o in enumerate(outs):
+        lo, hi = r * TRAIN_BATCH // DP_WORLD, (r + 1) * TRAIN_BATCH // DP_WORLD
+        if not torch.equal(o['raw'], raw[lo:hi].cpu()) or o['bank'] != digest:
+            raise AssertionError(f'{label}: rank {r} drew other rows or '
+                                 'another bank than one rank')
+        for key in ('grads', 'params', 'stats'):
+            for name, value in outs[0][key].items():
+                if not torch.equal(o[key][name], value):
+                    raise AssertionError(f'{label}: rank {r} {key} {name} '
+                                         'differs from rank 0')
+        missing = [k for k in DP_STEP_KERNELS[label] if not o['launches'][k]]
+        if missing:
+            raise AssertionError(f'{label}: rank {r} launched no {missing}')
+    log(f'{label}: {DP_WORLD} ranks drew their rows of the one-rank batch '
+        f'(B={TRAIN_BATCH}, {TRAIN_BATCH // DP_WORLD} a rank) and one bank; '
+        'gradients, statistics and the parameters after 3 more steps the '
+        'same bits on every rank; launches a rank: ' + json.dumps(
+            {k: outs[0]['launches'][k] for k in DP_STEP_KERNELS[label]}))
+    got = (outs[0]['loss'],
+           {n: g.to(device) for n, g in outs[0]['grads'].items()},
+           {n: s.to(device) for n, s in outs[0]['stats'].items()})
+    if label == 'unet.yaml':
+        _compare_step(got, one, exact, label=f'{label} 2-rank ("kernels") '
+                      'against 1-rank ("plain")')
+        return
+    if label == 'unet_big f32':
+        _compare_deep_step(label, got, one, exact())
+        return
+    if not _reading(f'{label} on {DP_WORLD} ranks', got, exact):
+        raise AssertionError(f'{label}: the 2-rank step is further from the '
+                             'f64 step than phase 12\'s limits')
+    _reading(f'{label} on 1 rank', one, exact)
+    for name, e in _step_errors(got, one, lambda: exact).items():
+        if e['kind'] == 'stat' and not e['err'] <= e['tol'] * e['scale'] \
+                and not e['err64'] <= F64_RATIO * e['plain64']:
+            raise AssertionError(f'{label}: statistic {name} {e}')
+    log(f'{label}: every updated statistic within STATS_TOL of the 1-rank '
+        'step, or F64_RATIO of its distance from f64')
+
+
+def _rms_share(ours, ref):
+    '''The root-mean-square distance of a dict of tensors from ``ref``'s,
+    over ``ref``'s root mean square.'''
+    diff = sum(float((ours[n].double() - r.double()).pow(2).sum())
+               for n, r in ref.items())
+    return (diff / sum(float(r.double().pow(2).sum())
+                       for r in ref.values())) ** 0.5
+
+
+def _compare_deep_step(label, got, one, exact):
+    '''unet_big f32's 2-rank step against the 1-rank step: the loss to
+    LOSS_TOL, each gradient to STEP_TOL and each statistic to STATS_TOL of
+    its scale (phase 7's limits); past them, the gradients (statistics) as
+    a whole no further from the f64 step by root-mean-square distance than
+    F64_RATIO times the 1-rank step (phase 12b's rule). One value is no
+    truth here: on one rank too, f32 gradients of this deep BatchNorm
+    model sit up to ~1e-3 of their scale from f64.'''
+    errors = _step_errors(got, one, lambda: exact)
+    loss = errors.pop('loss')
+    log(f'one {label} train step: loss {loss["got"]:.7f} on 2 ranks, '
+        f'{loss["plain"]:.7f} on 1')
+    if not loss['err'] <= LOSS_TOL * loss['scale']:
+        raise AssertionError(f'{label}: loss {loss}')
+    for kind, index in (('grad', 1), ('stat', 2)):
+        past = [n for n, e in errors.items()
+                if e['kind'] == kind and not e['err'] <= e['tol'] * e['scale']]
+        worst = max(e['err'] / e['scale'] for e in errors.values()
+                    if e['kind'] == kind)
+        two, ref = _rms_share(got[index], exact[index]), _rms_share(
+            one[index], exact[index])
+        log(f'  {kind}: worst {worst:.3e} of scale from 1 rank, '
+            f'{len(past)} past {errors[past[0]]["tol"] if past else "-"}; '
+            f'rms from f64: 2 ranks {two:.3e}, 1 rank {ref:.3e}')
+        if past and not two <= F64_RATIO * ref:
+            raise AssertionError(f'{label}: {kind} {past} past the 1-rank '
+                                 f'step, and {two} from f64 against {ref}')
+
+
+def _compare_results(label, got_path, want_path):
+    '''results.csv against another: the region metrics (whole counts of
+    regions) exactly, the others within 1e-6 relative.'''
+    got, want = _read_csv(got_path), _read_csv(want_path)
+    if got[0] != want[0] or len(got) != len(want):
+        raise AssertionError(f'{label}: results.csv {got[0]} ({len(got)} '
+                             f'rows) against {want[0]} ({len(want)})')
+    worst = 0.0
+    for row_got, row_want in zip(got[1:], want[1:]):
+        for name, a, b in zip(got[0], row_got, row_want):
+            if name == 'step' or name.startswith('region/'):
+                if a != b:
+                    raise AssertionError(f'{label}: {name} {a} != {b}')
+                continue
+            a, b = float(a), float(b)
+            err = abs(a - b) / max(abs(b), 1e-30)
+            worst = max(worst, err)
+            if not err <= 1e-6:
+                raise AssertionError(f'{label}: {name} {a} vs {b}')
+    log(f'{label}: results.csv {len(got) - 1} rows x {len(got[0])} columns, '
+        'the region metrics equal, the others within '
+        f'{worst:.3e} relative')
+
+
+def _results_losses(save_path):
+    import pickle
+    with open(os.path.join(save_path, 'results.pkl'), 'rb') as fh:
+        return pickle.load(fh)['history']['loss']
+
+
+def nccl_world1_cost(device, train_paths, train_run, smi):
+    '''The unet.yaml step with and without a world-1 NCCL group in this
+    process (phase 5's differential ``Engine.train`` calls of 25 and 100
+    steps, each the minimum of DP_REPS, in turns); the group stays for the
+    deferred profile of the grouped step (its all-reduces' device time) and
+    is left at the end of ``main``.'''
+    import torch.distributed as dist
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.parallel import multihost
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    config = config_lib.load_config(
+        os.path.join(train_run, 'options.yaml'))['config']
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    kwargs = dict(device_id=device) if device.type == 'cuda' else {}
+    dist.init_process_group(
+        'nccl' if device.type == 'cuda' else 'gloo',
+        init_method=f'tcp://localhost:{multihost.free_port()}',
+        world_size=1, rank=0, **kwargs)
+    grouped_config = copy.deepcopy(config)
+    grouped_config['deploy_options']['enable_multigpu'] = True
+    engines = {'no group': engine.Engine(config, seed=SEED, device=device),
+               'world-1 NCCL group': engine.Engine(grouped_config, seed=SEED,
+                                                   device=device)}
+    if engines['no group'].group is not None or \
+            engines['world-1 NCCL group'].group is None:
+        raise AssertionError('the engines are not one without and one in '
+                             'the group')
+    for eng in engines.values():
+        eng.train(ds, max_steps=10, save_freq=1 << 30)
+    short, long = 25, 100
+    times = {}
+    for n in (short, long):
+        for _ in range(DP_REPS):
+            for label, eng in engines.items():
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                eng.train(ds, max_steps=eng.current_step + n,
+                          save_freq=1 << 30)
+                torch.cuda.synchronize()
+                times.setdefault((label, n), []).append(
+                    time.perf_counter() - start)
+    for label in engines:
+        seconds = min(times[(label, long)]) - min(times[(label, short)])
+        log(f'unet.yaml train step, {label}: {seconds * 1e3 / (long - short):.4f}'
+            f' ms a step, {(long - short) * TRAIN_BATCH / seconds:.2f} '
+            f'slices/s ({short}-step calls {times[(label, short)]} s, '
+            f'{long}-step calls {times[(label, long)]} s; {smi})')
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    raw = engines['no group'].sample_batch(
+        engines['no group']._resident(ds), TRAIN_BATCH, gen)
+
+    def profile():
+        sums = {}
+        for label, eng in engines.items():
+            events = _profile_steps(f'unet.yaml train step, {label}',
+                                    lambda: eng.train_step(raw, 0, gen))
+            nccl = [e for e in events if 'nccl' in e.key.lower()]
+            sums[label] = (
+                sum(e.self_device_time_total for e in events) / 1e3 / 5,
+                sum(e.count for e in events) / 5,
+                sum(e.self_device_time_total for e in nccl) / 1e3 / 5,
+                sum(e.count for e in nccl) / 5)
+        (ms0, n0, _, _), (ms1, n1, nccl_ms, nccl_n) = sums.values()
+        log(f'world-1 NCCL group against none, a step: NCCL kernels '
+            f'{nccl_ms:.4f} ms device ({nccl_n:.1f} launches); all kernels '
+            f'{ms1:.4f} against {ms0:.4f} ms, {n1:.1f} against {n0:.1f} '
+            f'launches ({smi})')
+    _DEFERRED.append(profile)
+
+
+def dp_slice(device, data_paths, train_paths, train_run, smi):
+    '''Phase 17; see the module docstring.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    os.makedirs(_dp())
+    configs = [os.path.join(REPO, c) for c in CONFIGS] + [
+        os.path.join(WORK, 'steps_per_call.json'), os.path.join(REPO, MULTIGPU)]
+    one_card = f'{device.type}:0' if device.type == 'cuda' else device.type
+
+    def train_argv(save, steps, on=device.type):
+        return ['train', '--config', *configs, '--save_path', save,
+                '--data_path', *train_paths, '--save_freq', str(DP_STEPS),
+                '--seed', str(SEED), '--device', on, '--max_steps',
+                str(steps)]
+
+    # one overlay for evaluate: overlays stacked on their own would merge
+    # into one dict that replaces the run's whole deploy_options
+    eval_overlay = _dp('evaluate.json')
+    with open(eval_overlay, 'w') as fh:
+        json.dump({'deploy_options.metrics': _config(
+            CONFIGS + (METRICS_CONFIG,))['deploy_options']['metrics'],
+            'deploy_options.enable_multigpu': True}, fh)
+
+    def eval_argv(save, tag, on=device.type):
+        return ['evaluate', '--save_path', save, '--data_path', *data_paths,
+                '--tag', tag, '--config', eval_overlay, '--export_csv',
+                '--skip_visualization', '--device', on]
+
+    def on(config):
+        config = copy.deepcopy(config)
+        config['deploy_options']['enable_multigpu'] = True
+        return config
+
+    unet = config_lib.load_config(
+        os.path.join(train_run, 'options.yaml'))['config']
+    steps = [
+        dict(kind='step', label='unet.yaml', config=on(unet),
+             gen_seed=SEED + 4, ckpt=os.path.join(
+                 train_run, 'checkpoints', f'ckpt-{TRAIN_STEPS + SAVE_FREQ}')),
+        dict(kind='step', label='unet_big f32', config=on(_config(
+            BIG_CONFIGS)), gen_seed=SEED + 7, ckpt=None),
+        dict(kind='step', label='unet_big bf16', config=on(_config(
+            BF16_BIG_CONFIGS)), gen_seed=SEED + 7, ckpt=None)]
+    for spec in steps:
+        spec.update(data_paths=train_paths,
+                    out=_dp(spec['label'].replace(' ', '_')))
+    runs = {name: _dp(name) for name in ('nccl', 'plain', 'broken',
+                                         'unbroken')}
+    # (a) one NCCL rank through torchrun: train, and evaluate its checkpoint
+    spec_a = _write_spec('a', [
+        dict(kind='cli', argv=train_argv(runs['nccl'], DP_STEPS)),
+        dict(kind='cli', argv=eval_argv(runs['nccl'], 'nccl'))], device)
+    # (b), (c): two ranks on the one card over gloo: the seeded steps, train
+    # to k and (unbroken) to 2k, evaluate phase 5's run
+    spec_b = _write_spec('b', steps + [
+        dict(kind='cli', argv=train_argv(runs['broken'], DP_STEPS)),
+        dict(kind='cli', argv=train_argv(runs['unbroken'], 2 * DP_STEPS)),
+        dict(kind='cli', argv=eval_argv(train_run, 'dp'))], device, 'gloo')
+    launches = {'(a)': _torchrun(1, spec_a),
+                '(b), (c)': _torchrun(DP_WORLD, spec_b)}
+    try:
+        # meanwhile in this process (no group): the one-rank references
+        start = time.perf_counter()
+        refs = _dp_references(device, train_paths, train_run, steps)
+        plain = cli(argv=train_argv(runs['plain'], DP_STEPS, one_card))
+        cli(argv=eval_argv(runs['plain'], 'one', one_card))
+        log(f'one-rank references: {time.perf_counter() - start:.2f} s')
+    finally:
+        for label, launch in launches.items():
+            _finish(label, launch)
+
+    # (a): a real NCCL group, the same bits as no group, one checkpoint
+    info = []
+    for path in [f'{spec_a}.rank0.json'] + [f'{spec_b}.rank{r}.json'
+                                            for r in range(DP_WORLD)]:
+        with open(path) as fh:
+            info.append(json.load(fh))
+    log(f'groups: (a) {info[0]}, (b) {info[1:]}')
+    want_backend = 'nccl' if device.type == 'cuda' else 'gloo'
+    if info[0] != dict(backend=want_backend, world=1) or any(
+            i != dict(backend='gloo', world=DP_WORLD) for i in info[1:]):
+        raise AssertionError(f'groups {info}')
+    nccl_losses = _results_losses(runs['nccl'])
+    if nccl_losses != plain.history['loss']:
+        raise AssertionError(f'(a) the NCCL world-1 losses {nccl_losses} '
+                             f'are not the bits of no group\'s '
+                             f'{plain.history["loss"]}')
+    ckpts = sorted(os.listdir(os.path.join(runs['nccl'], 'checkpoints')))
+    if ckpts != [f'ckpt-{DP_STEPS}']:
+        raise AssertionError(f'(a) checkpoints {ckpts}')
+    paths = [os.path.join(runs[name], 'tfevents', tag, 'results.csv')
+             for name, tag in (('nccl', 'nccl'), ('plain', 'one'))]
+    if _read_csv(paths[0]) != _read_csv(paths[1]):
+        raise AssertionError('(a) evaluate through torchrun differs from '
+                             'evaluate with no group')
+    log(f'(a) one NCCL rank: {DP_STEPS} losses the same bits as no group '
+        f'({nccl_losses[0]:.6f} -> {nccl_losses[-1]:.6f}), one checkpoint, '
+        'evaluate results.csv the same')
+
+    # (b): the seeded steps, evaluate, rank 0's files alone
+    for spec in steps:
+        _dp_step_check(spec['label'], spec['out'], refs[spec['label']],
+                       device)
+    _compare_results('(b) evaluate on 2 ranks against phase 6\'s 1 rank',
+                     os.path.join(train_run, 'tfevents', 'dp', 'results.csv'),
+                     os.path.join(train_run, 'tfevents', EVAL_TAG,
+                                  'results.csv'))
+    files = {name: sorted(os.listdir(os.path.join(*parts))) for name, parts in (
+        ('evaluate', (train_run, 'tfevents', 'dp')),
+        ('run', (runs['unbroken'],)),
+        ('events', (runs['unbroken'], 'tfevents', 'train')))}
+    if files['evaluate'] != ['casewise_results.csv', 'results.csv'] or \
+            files['run'] != ['checkpoints', 'options.yaml', 'results.pkl',
+                             'tfevents'] or len(files['events']) != 1:
+        raise AssertionError(f'(b) files of the 2-rank runs: {files}')
+    log(f'(b) files of the 2-rank runs, rank 0\'s alone: {files}')
+
+    # (c): 2 ranks to k, one rank to 2k, against 2 ranks to 2k
+    unbroken = _results_losses(runs['unbroken'])
+    broken = _results_losses(runs['broken'])
+    if broken != unbroken[:DP_STEPS]:
+        raise AssertionError(f'(c) the 2-rank run to {DP_STEPS} {broken} '
+                             f'against the unbroken run {unbroken}')
+    resumed = cli(argv=train_argv(runs['broken'], 2 * DP_STEPS, one_card))
+    if resumed.epoch != list(range(DP_STEPS + 1, 2 * DP_STEPS + 1)):
+        raise AssertionError(f'(c) the resume ran steps {resumed.epoch}')
+    worst = max(abs(a - b) / abs(b) for a, b in zip(
+        resumed.history['loss'], unbroken[DP_STEPS:]))
+    if not worst <= LOSS_TOL:
+        raise AssertionError(f'(c) resumed losses {resumed.history["loss"]} '
+                             f'against unbroken {unbroken[DP_STEPS:]}')
+    log(f'(c) {DP_WORLD} ranks to step {DP_STEPS}, resumed by 1 rank to '
+        f'{2 * DP_STEPS}: losses within {worst:.3e} relative of the '
+        f'unbroken {DP_WORLD}-rank run')
+
+    # (d): every visible card through the CLI's own spawn
+    cards = torch.cuda.device_count() if device.type == 'cuda' else 1
+    if cards < 2:
+        log('nccl multi-card: 1 card visible, not run')
+    else:
+        multi = _dp('multi')
+        res = cli(argv=train_argv(multi, DP_STEPS))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(
+            res.history['loss'], plain.history['loss']))
+        if res.epoch != list(range(1, DP_STEPS + 1)) or not worst <= LOSS_TOL:
+            raise AssertionError(f'(d) {cards} cards: {res.history}')
+        # the one-card run's checkpoint, evaluated on every card
+        cli(argv=eval_argv(runs['plain'], 'multi'))
+        _compare_results(f'(d) evaluate on {cards} cards',
+                         os.path.join(runs['plain'], 'tfevents', 'multi',
+                                      'results.csv'), paths[1])
+        log(f'nccl multi-card: {cards} cards through the CLI\'s spawn, '
+            f'losses within {worst:.3e} relative of one card')
+
+    # the cost of the group at world size 1
+    nccl_world1_cost(device, train_paths, train_run, smi)
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -5048,6 +5600,8 @@ def main():
             data_layer_slice(device, data_paths, train_paths, train_run, smi)
         with phase('16 export and serve'):
             export_serve_slice(device, data_paths, train_run, smi)
+        with phase('17 data parallel'):
+            dp_slice(device, data_paths, train_paths, train_run, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -5063,6 +5617,10 @@ def main():
                     bound_ms=acc['bound_ms'], sites=acc['sites'])
                     for name, acc in mulmo_sites.items()}))
     finally:
+        # phase 17's world-1 group, kept for its deferred profile
+        if torch.distributed.is_available() and \
+                torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
         shutil.rmtree(WORK, ignore_errors=True)
 
     # each kernel's launches in the run of its path: train for the seven of
@@ -5105,4 +5663,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--rank-jobs']:
+        rank_jobs(sys.argv[2])
+    else:
+        main()

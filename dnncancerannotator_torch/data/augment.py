@@ -335,18 +335,36 @@ def apply_fused_chain(methods, images, draws):
         clamp_flow=True, flow_grid_stride=warp_o.get('flow_grid_stride', 4))
 
 
-def build_augment_fn(methods, warp_bank=None):
+def take_rows(draws, lo, hi):
+    '''Rows [lo, hi) of every tensor of a chain's draws (``draw_chain``),
+    nested lists and tuples kept.'''
+    if torch.is_tensor(draws):
+        return draws[lo:hi]
+    return type(draws)(take_rows(d, lo, hi) for d in draws)
+
+
+def build_augment_fn(methods, warp_bank=None, rows=None):
     '''Compose [(name, options)] into ``fn(images [B,H,W,C] float, gen) ->
     images``, routed as in the JAX package: the fused chain where
     ``routes_fused`` holds (even when a bank exists), else the composed
     chain, with ``warp_bank`` (build_warp_bank) serving a random_warp of
-    its size and the per-step solve any other.'''
+    its size and the per-step solve any other. With ``rows`` (lo, hi, b)
+    the images are rows [lo, hi) of a batch of b (a data-parallel rank's):
+    the draws are the whole batch's, and the images take their rows of
+    them, so every rank augments as one device augmenting the batch.'''
+
+    def draw(shape, gen, bank):
+        if rows is None:
+            return draw_chain(methods, shape, gen, bank)
+        lo, hi, b = rows
+        return take_rows(draw_chain(methods, (b,) + tuple(shape[1:]), gen,
+                                    bank), lo, hi)
 
     def apply_all(images, gen):
         if routes_fused(methods, images.shape):
             return apply_fused_chain(methods, images,
-                                     draw_chain(methods, images.shape, gen))
-        draws = draw_chain(methods, images.shape, gen, warp_bank)
+                                     draw(images.shape, gen, None))
+        draws = draw(images.shape, gen, warp_bank)
         return apply_chain(methods, images, draws, warp_bank)
 
     return apply_all

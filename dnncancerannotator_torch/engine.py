@@ -52,6 +52,34 @@ generators reseeded at every step from (seed, step), so a resumed run draws
 what an unbroken one would (the streamed batches excepted: a resumed call
 starts the stream again). Not ported yet (it raises): ``spatial_partition``.
 
+Data parallelism (``deploy_options.enable_multigpu``, default True, as in
+the JAX package): in a process group (parallel/multihost.py: one process a
+card, NCCL) the Engine is one rank of a data-parallel ``Group``
+(parallel/mesh.py) and gives the numbers of one device running the global
+batch, up to the order of a sum:
+- every rank draws the global batch's indices and augmentation from the
+  same generators, seeded from (seed, stream, step), and keeps its rows
+  [floor(r B / n), floor((r + 1) B / n)) (a streamed set: every rank reads
+  the same global batch and keeps its rows), so a run at any world size,
+  and a resume under another one, walks the data of one card;
+- a rank's loss is its rows' share of the global mean, and the parameter
+  gradients and the loss are summed over the ranks in one all_reduce (the
+  kernel regularizer enters once, on rank 0); the positive rate of the loss
+  and BatchNorm's statistics and backward sums are the global batch's
+  (train/losses.py, models/fastbn.py), and so are the ``debug_asserts``
+  checks and the train metrics (the outputs gathered);
+- the preempted flag is reduced over the ranks at each chunk's end, so
+  every rank stops at the same step;
+- evaluation and prediction pad each batch to a multiple of the ranks,
+  each rank runs its rows, and the outputs are gathered to every rank;
+  rank 0 alone runs the metrics;
+- rank 0 alone writes (checkpoints, with every rank waiting for them, the
+  logs, the Visualizer's exports, the CSVs, the profile), and every rank
+  loads a checkpoint to resume.
+At one rank the arithmetic is the one-device arithmetic: the shares are 1.0
+and each sum over the ranks is the rank's own value. Without a process
+group (or with ``enable_multigpu: false``) there is no Group.
+
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
 ``casewise_results.csv``; its batches are decoded and copied to the device
@@ -71,6 +99,7 @@ package's Orbax checkpoints is not ported yet.
 
 import contextlib
 import copy
+import itertools
 import logging
 import math
 import os
@@ -90,6 +119,8 @@ from . import metrics as metrics_lib
 from . import models as models_lib
 from .data import augment as augment_mod
 from .ops import gates as gates_lib
+from .parallel import mesh as mesh_lib
+from .parallel import multihost
 from .train import losses as losses_lib
 from .train import optimizers as optimizers_lib
 from .train import schedules as schedules_lib
@@ -298,6 +329,7 @@ class Engine:
         self.compute_dtype = (torch.bfloat16 if deploy.get('precision') in (
             'bfloat16', 'bf16') else None)
         self.debug_asserts = bool(deploy.get('debug_asserts', False))
+        self.enable_multigpu = bool(deploy.get('enable_multigpu', True))
         if int(deploy.get('spatial_partition', 1)) > 1:
             raise NotImplementedError(
                 'spatial_partition is not ported yet (ROADMAP.md queue 1 '
@@ -313,6 +345,11 @@ class Engine:
             self.model_config['model_options'].get('kernel_regularizer'))
         self.model_name = model_config['model']
         self.device = resolve_device(device)
+        # the data-parallel group (None: one rank, no collectives), and
+        # this rank's rows (lo, hi) of a training batch of B rows, (lo, hi,
+        # B) (set by _setup_training)
+        self.group = mesh_lib.group(self.enable_multigpu)
+        self._rows = None
         self.model = None
         self.optimizer = None
         self.loss = None
@@ -333,6 +370,10 @@ class Engine:
             in_channels=input_shape[-1], generator=generator,
             dtype=self.compute_dtype)
         self.model = model.to(self.device).eval()
+        if self.group is not None:
+            # every rank starts from rank 0's weights
+            self.group.broadcast_([t.detach() for t in itertools.chain(
+                self.model.parameters(), self.model.buffers())])
         n_params = sum(p.numel() for p in self.model.parameters())
         logger.info('Initialized %s: %d params on %s', self.model_name,
                     n_params, self.device)
@@ -371,8 +412,17 @@ class Engine:
         '''Write ``ckpt-<step>/params.npz`` in the flat flax-keyed form, and
         ``opt_state.npz`` when the engine has an optimizer; the directory
         appears whole (written under another name, then renamed). Keeps the
-        newest ``max_checkpoints_to_keep`` checkpoints.'''
+        newest ``max_checkpoints_to_keep`` checkpoints. In a process group
+        rank 0 writes and every rank of the Engine's group returns once it
+        has.'''
         path = os.path.join(base_path, f'ckpt-{step}')
+        if multihost.is_primary():
+            self._write_ckpt(base_path, path, step)
+        if self.group is not None:
+            self.group.barrier(self.device)
+        return path
+
+    def _write_ckpt(self, base_path, path, step):
         tmp = path + '.tmp'
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -384,7 +434,6 @@ class Engine:
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         self._prune_ckpts(base_path)
-        return path
 
     def _prune_ckpts(self, base_path):
         if not self.max_checkpoints_to_keep:
@@ -463,8 +512,12 @@ class Engine:
             self.optimizer, self.schedule = optimizers_lib.solve_optimizer(
                 deploy.get('optimizer', 'adam'), self.model.parameters(),
                 self.schedule)
+        if self.group is not None:
+            self._rows = (*self.group.shard_rows(dataset.batch_size),
+                          dataset.batch_size)
         self._augment = augment_mod.build_augment_fn(
-            dataset.augment_methods, warp_bank=self._warp_bank(dataset))
+            dataset.augment_methods, warp_bank=self._warp_bank(dataset),
+            rows=self._rows)
         self._slice_types = dataset.slice_types
 
     def _solve_loss(self):
@@ -519,6 +572,10 @@ class Engine:
                     bank = augment_mod.build_warp_bank(
                         gen, self.warp_bank_size, crop_o['output_size'],
                         **warp_o)
+                    if self.group is not None:
+                        # one bank for every rank: the spline solve's last
+                        # bits may differ between processes
+                        self.group.broadcast_([bank['flows']])
             self._bank_cache[key] = bank
         return self._bank_cache[key]
 
@@ -565,25 +622,57 @@ class Engine:
         '''One optimizer step on a uint8 batch [B, h, w, C] on the device,
         with the augmentation drawn from ``gen``; returns the loss (a
         device scalar), and with ``outputs`` also the step's probabilities
-        and labels [B, h, w] (for the train metrics).'''
+        and labels [B, h, w] (for the train metrics). In a data-parallel
+        run ``raw`` is this rank's rows of the global batch, and the loss,
+        the gradients and the outputs are the global batch's.'''
         for group in self.optimizer.param_groups:
             group['lr'] = self.schedule(step)
         self.optimizer.zero_grad(set_to_none=True)
-        with self.scope(training=True):
-            images = self._augment(raw.float() / 255.0, gen)
-            x, y = augment_mod.to_feature_label(images, self._slice_types)
-            logits = self.model(x, return_logits=True)
-        with checks_lib.collect(self.debug_asserts) as found:
-            loss = self.loss(y, logits)
+        shard = None
+        if self.group is not None:
+            lo, hi, b = self._rows
+            shard = mesh_lib.Shard(self.group, hi - lo, b)
+        with mesh_lib.active(shard):
+            with self.scope(training=True):
+                images = self._augment(raw.float() / 255.0, gen)
+                x, y = augment_mod.to_feature_label(images,
+                                                    self._slice_types)
+                logits = self.model(x, return_logits=True)
+            with checks_lib.collect(self.debug_asserts) as found:
+                loss = self.loss(y, logits)
         if found:
             self._check_log.append((step + 1, [m for m, _ in found],
                                     torch.cat([v for _, v in found])))
-        reg = self.regularization()
+        if shard is None:
+            reg = self.regularization()
+        else:
+            # this rank's share of the global mean; the regularizer once
+            loss = loss * (shard.valid / shard.total)
+            reg = self.regularization() if self.group.rank == 0 else None
         (loss if reg is None else loss + reg).backward()
+        if shard is not None:
+            loss = self._sum_gradients(loss)
         self.optimizer.step()
-        if outputs:
-            return loss.detach(), torch.sigmoid(logits.detach()[..., 0]), y
-        return loss.detach()
+        if not outputs:
+            return loss.detach()
+        probs = torch.sigmoid(logits.detach()[..., 0])
+        if shard is not None:
+            probs, y = (self.group.gather(t, self._rows[0], shard.total)
+                        for t in (probs, y))
+        return loss.detach(), probs, y
+
+    def _sum_gradients(self, loss):
+        '''Sum every parameter's gradient and ``loss`` over the ranks in one
+        all_reduce of a flat buffer; returns the summed loss. (Every rank
+        runs the same graph, so the same parameters have gradients.)'''
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        flat = self.group.all_reduce_sum(torch.cat(
+            [g.reshape(-1) for g in grads] + [loss.detach().reshape(1)]))
+        summed = flat[:-1].split([g.numel() for g in grads])
+        torch._foreach_copy_(grads, [s.view_as(g)
+                                     for s, g in zip(summed, grads)])
+        return flat[-1]
 
     def train(self, dataset, val_data=None, save_path=None, save_freq=100,
               max_steps=None, early_stop_steps=None, visualization=None,
@@ -610,8 +699,9 @@ class Engine:
         results = TrainResults(
             self.model_name,
             dict(save_freq=save_freq, max_steps=max_steps, seed=self.seed))
+        group, primary = self.group, multihost.is_primary()
         writer, viz_callbacks = None, []
-        if save_path:
+        if save_path and primary:
             tb_dir = os.path.join(save_path, 'tfevents')
             writer = tboard.SummaryWriter(os.path.join(tb_dir, 'train'))
             viz_callbacks = [viz_lib.Visualizer(tag, viz_ds, save_freq, tb_dir)
@@ -626,19 +716,26 @@ class Engine:
         window = None   # (profiler, its first step) while it records
         # preemption: SIGTERM lets the chunk in flight finish, then stops
         # at a checkpoint (a handler can only be installed from the main
-        # thread; elsewhere save_freq alone bounds the loss)
+        # thread; elsewhere save_freq alone bounds the loss); in a group
+        # every rank stops after the chunk at whose end any rank had it
         preempted = []
+        stopping = preempted if group is None else []
         on_main = threading.current_thread() is threading.main_thread()
         if on_main:
             old_handler = signal.getsignal(signal.SIGTERM)
             signal.signal(signal.SIGTERM, lambda *_: preempted.append(True))
         # host streaming: each train call starts the stream from the seed
-        stream = None if resident is not None or step >= max_steps else \
-            _Prefetcher(dataset.raw_batches(seed=self.seed), self.device)
+        # (in a group every rank reads the global batch and keeps its rows)
+        stream = None
+        if resident is None and step < max_steps:
+            stream = _Prefetcher(
+                dataset.raw_batches(seed=self.seed), self.device,
+                to_host=((lambda batch: batch) if self._rows is None else
+                         (lambda batch: batch[self._rows[0]:self._rows[1]])))
         t_start = time.perf_counter()
         try:
-            while step < max_steps and not preempted:
-                if profile and save_path and not profiled and \
+            while step < max_steps and not stopping:
+                if profile and save_path and primary and not profiled and \
                         step >= start_step + PROFILE_START:
                     window, profiled = (self._start_profiler(), step), True
                 boundary = min(max_steps, (step // save_freq + 1) * save_freq)
@@ -653,13 +750,23 @@ class Engine:
                             _stream_seed(self.seed, _SAMPLE, s))
                         raw = self.sample_batch(resident, dataset.batch_size,
                                                 sample_gen)
+                        if self._rows is not None:   # this rank's rows
+                            raw = raw[self._rows[0]:self._rows[1]]
                     chunk.append(self.train_step(
                         raw, s, aug_gen, outputs=bool(train_metrics)))
                 outs = chunk if train_metrics else [(c,) for c in chunk]
-                # the chunk's one host read: its losses and its checks
+                # the chunk's one host read: its losses and its checks (in a
+                # group the global batch's, and whether any rank was
+                # preempted, last)
+                checks = [v for _, _, v in self._check_log]
+                if group is not None:
+                    checks = [checks_lib.span_ranks(
+                        group, torch.cat(checks) if checks else torch.zeros(
+                            0, device=self.device), [bool(preempted)])]
                 values = torch.cat([torch.stack([o[0] for o in outs])] +
-                                   [v for _, _, v in self._check_log]
-                                   ).tolist()
+                                   checks).tolist()
+                if group is not None and values.pop():
+                    stopping.append(True)
                 losses = values[:len(outs)]
                 checks_lib.raise_failed(
                     [(at, names) for at, names, _ in self._check_log],
@@ -671,7 +778,7 @@ class Engine:
                 for out, loss in zip(outs, losses):
                     step += 1
                     logs = {'loss': loss, 'lr': self.schedule(step - 1)}
-                    for metric in train_metrics:
+                    for metric in train_metrics if primary else ():
                         metric.reset_state()
                         metric.update_state(out[2], out[1])
                         value = metric.result()
@@ -731,7 +838,7 @@ class Engine:
                 writer.close()
             for callback in viz_callbacks:
                 callback.close()
-        if preempted and ckpt_dir and saved_at != step:
+        if stopping and ckpt_dir and saved_at != step:
             logger.warning('Preempted (SIGTERM) at step %d: saving a '
                            'checkpoint', step)
             self.save_ckpt(ckpt_dir, step)
@@ -775,8 +882,11 @@ class Engine:
         array or tensor) ->
         (per-slice loss [B], probabilities [B, H, W, 1], labels [B, H, W]),
         on the device. The batch is not padded, so a short last batch gives
-        the per-slice losses of the JAX step, which pads and masks it.'''
-        model, device = self.model, self.device
+        the per-slice losses of the JAX step, which pads and masks it. In a
+        data-parallel run the batch is padded to a multiple of the ranks,
+        each rank runs its rows (the loss's positive rate over the real
+        rows of all), and every rank gets the whole batch's outputs.'''
+        model, device, group = self.model, self.device, self.group
         slice_types = tuple(slice_types)
         loss = self._solve_loss()
 
@@ -784,11 +894,21 @@ class Engine:
         def step(raw_batch):
             images = raw_batch if torch.is_tensor(raw_batch) else \
                 torch.from_numpy(np.asarray(raw_batch))
+            n, shard = images.shape[0], None
+            if group is not None:
+                images, valid = group.shard_batch(images)
+                shard = mesh_lib.Shard(group, valid, n)
             images = images.to(device).to(torch.float32) / 255.0
             x, y = augment_mod.to_feature_label(images, slice_types)
             with self.scope():
                 logits = model(x, return_logits=True)
-            return loss.per_sample(y, logits), torch.sigmoid(logits), y
+            with mesh_lib.active(shard):
+                out = (loss.per_sample(y, logits), torch.sigmoid(logits), y)
+            if group is None:
+                return out
+            per = y.shape[0]
+            return tuple(group.gather(t, group.rank * per,
+                                      per * group.world)[:n] for t in out)
 
         return step
 
@@ -798,6 +918,9 @@ class Engine:
         copies it to the device while this one computes; the short last
         batch stays as it is.'''
         losses = []
+        # in a group every rank gets the whole batch's outputs, and rank 0
+        # alone runs the metrics
+        metrics = metrics if multihost.is_primary() else []
         batches = _Prefetcher(dataset.batches(), self.device,
                               to_host=lambda batch: batch['slices'])
         try:
@@ -836,6 +959,10 @@ class Engine:
             if not avoid_overwrite:
                 raise ValueError(f'tag: {tag} already exists.')
             tag += '_'
+        primary = multihost.is_primary()
+        if self.group is not None:
+            # every rank has chosen the tag before rank 0 writes under it
+            self.group.barrier(self.device)
         if step_range is None:
             step_range = (0, float('inf'))
         elif len(step_range) != 2 or not 0 <= step_range[0] <= step_range[1]:
@@ -843,7 +970,7 @@ class Engine:
         eval_step = self._make_eval_step(dataset.slice_types)
         viz_callback = None
         casewise = [] if export_csv else None
-        if viz_ds is not None:
+        if viz_ds is not None and primary:
             viz_callback = viz_lib.Visualizer(
                 tag, viz_ds, 1, save_dir=export_path, ignore_test=False,
                 export_images=export_images, export_csv=export_csv,
@@ -876,7 +1003,7 @@ class Engine:
         finally:
             if viz_callback is not None:
                 viz_callback.close()
-        if export_csv:
+        if export_csv and primary:
             out_dir = os.path.join(export_path, tag)
             _write_frame(os.path.join(out_dir, 'results.csv'), 'step',
                          result_rows)

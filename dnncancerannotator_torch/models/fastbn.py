@@ -26,11 +26,23 @@
   statistics, the apply and the backward run in f32 from the rounded
   values, the output and dx are rounded back to x's dtype, and dscale and
   dbias stay f32 (fastbn.py:40-48, :68-88). Under f32 the casts are
-  no-ops.
+  no-ops;
+- inside a data-parallel step (parallel/mesh.py) the statistics are the
+  global batch's, as GSPMD computes them over the JAX package's sharded
+  batch: each rank's mean and ``E[x^2]``, weighted by its share of the
+  rows, are summed over the ranks in f32 (one all_reduce), so the running
+  statistics move alike on every rank; the backward sums ``sum(g)`` and
+  ``sum(g * xhat)`` over the ranks for dx (one all_reduce), while dscale
+  and dbias stay the rank's own, summed with every other gradient. At one
+  rank the shares are 1 and the sums the rank's own: the one-device
+  arithmetic. ``nn.SyncBatchNorm`` is not used: its variance convention
+  differs and it needs ``all_gather``, which gloo lacks on CUDA tensors.
 '''
 
 import torch
 from torch import nn
+
+from ..parallel import mesh as mesh_lib
 
 
 def wide(x):
@@ -54,6 +66,8 @@ class _BNTrainFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, mean, var, eps):
         ctx.eps = eps
+        # the backward may run on another thread: it keeps the step's shard
+        ctx.shard = mesh_lib.current()
         ctx.save_for_backward(x, scale, mean, var)
         return _apply(x, scale, bias, mean, var, eps)
 
@@ -67,8 +81,15 @@ class _BNTrainFn(torch.autograd.Function):
         xhat = (wide(x) - mean) * r
         dbeta = gf.sum(red)
         dgamma = (gf * xhat).sum(red)
+        sum_beta, sum_gamma = dbeta, dgamma
+        if ctx.shard is not None:
+            # dx reads the global batch's sums and count; dscale and dbias
+            # stay this rank's, summed over ranks with the other gradients
+            sums = ctx.shard.group.all_reduce_sum(torch.cat([dbeta, dgamma]))
+            sum_beta, sum_gamma = sums.split(dbeta.shape[0])
+            count = count // x.shape[0] * ctx.shard.total
         gscale = r if scale is None else r * scale
-        dx = gscale * (gf - dbeta / count - xhat * (dgamma / count))
+        dx = gscale * (gf - sum_beta / count - xhat * (sum_gamma / count))
         return (dx.to(x.dtype), None if scale is None else dgamma, dbeta,
                 None, None, None)
 
@@ -100,7 +121,14 @@ class BatchNormFast(nn.Module):
         with torch.no_grad():
             xf = wide(x)
             mean = xf.mean(red)
-            var = (xf * xf).mean(red) - mean * mean
+            mean_sq = (xf * xf).mean(red)
+            shard = mesh_lib.current()
+            if shard is not None:
+                share = x.shape[0] / shard.total   # 1.0 at one rank
+                moments = shard.group.all_reduce_sum(
+                    torch.cat([mean * share, mean_sq * share]))
+                mean, mean_sq = moments.split(mean.shape[0])
+            var = mean_sq - mean * mean
             self.mean.copy_(self.momentum * self.mean
                             + (1 - self.momentum) * mean)
             self.var.copy_(self.momentum * self.var

@@ -1,10 +1,12 @@
 '''The evaluate run (counterpart of dnncancerannotator_tpu.runs.evaluate):
-every checkpoint of a training run, with the options it recorded.'''
+every checkpoint of a training run, with the options it recorded;
+data-parallel as ``train`` (rank 0 runs the metrics and writes).'''
 
 import os
 
 from .. import data as data_lib
 from .. import engine as engine_lib
+from ..parallel import multihost
 from ..utils import config as config_lib
 
 
@@ -27,7 +29,8 @@ def evaluate(
 ):
     '''
     Evaluate every checkpoint of a finished (or running) training job,
-    reusing the options.yaml recorded at train time.
+    reusing the options.yaml recorded at train time; on every visible
+    card with deploy_options.enable_multigpu, as train.
 
     Args:
         save_path: training output directory holding checkpoints and
@@ -57,12 +60,24 @@ def evaluate(
         os.path.join(save_path, 'options.yaml'))['config']
     if config:
         saved = config_lib.apply_config(saved, config_lib.load_config(config))
+    if step_range is not None:
+        step_range = tuple(map(int, step_range))
+    return multihost.launch(
+        _evaluate, (saved, save_path, data_path, tag, avoid_overwrite,
+                    export_path, export_images, export_csv,
+                    visualize_sensitivity, min_interval, step_range, overlay,
+                    skip_visualization, export_casewise_metrics, device),
+        saved['deploy_options'].get('enable_multigpu', True), device)
+
+
+def _evaluate(saved, save_path, data_path, tag, avoid_overwrite, export_path,
+              export_images, export_csv, visualize_sensitivity, min_interval,
+              step_range, overlay, skip_visualization,
+              export_casewise_metrics, device):
     eval_options = saved['data_options']['eval']
     ds = data_lib.eval_ds(data_path, **eval_options)
     viz_ds = None if skip_visualization else data_lib.eval_ds(
         data_path, **eval_options, include_meta=True)
-    if step_range is not None:
-        step_range = tuple(map(int, step_range))
     model = engine_lib.Engine(saved, device=device)
     return model.eval(
         ds, viz_ds=viz_ds, tag=tag, save_path=save_path,

@@ -1,5 +1,7 @@
 '''The predict run (counterpart of dnncancerannotator_tpu.runs.predict):
-load the latest checkpoint and write one probability map per slice.'''
+load the latest checkpoint and write one probability map per slice;
+data-parallel as ``train`` (each batch's rows over the ranks, rank 0
+writing the maps).'''
 
 import logging
 import os
@@ -8,6 +10,7 @@ import numpy as np
 
 from .. import data as data_lib
 from .. import engine as engine_lib
+from ..parallel import multihost
 from ..utils import config as config_lib
 from ..utils import tboard
 
@@ -25,7 +28,8 @@ def predict(
     device='cuda',
 ):
     '''
-    Predict segmentation maps with the latest checkpoint.
+    Predict segmentation maps with the latest checkpoint; on every visible
+    card with deploy_options.enable_multigpu, as train.
 
     Args:
         save_path: where to find weights/configs
@@ -48,7 +52,14 @@ def predict(
     if config:
         add_config = config_lib.load_config(config)
         saved_config = config_lib.apply_config(saved_config, add_config)
+    return multihost.launch(
+        _predict, (saved_config, save_path, data_path, output_path,
+                   threshold, batch_size, output_format, device),
+        saved_config['deploy_options'].get('enable_multigpu', True), device)
 
+
+def _predict(saved_config, save_path, data_path, output_path, threshold,
+             batch_size, output_format, device):
     ds = data_lib.predict_ds(
         data_path,
         slice_types=saved_config['data_options']['eval'].get(
@@ -67,13 +78,16 @@ def predict(
     logger.info('Predicting with checkpoint step %d on %s', latest,
                 model.device)
 
-    os.makedirs(output_path, exist_ok=True)
+    # every rank runs its rows of each batch; rank 0 writes the maps
+    primary = multihost.is_primary()
+    if primary:
+        os.makedirs(output_path, exist_ok=True)
     count = 0
     eval_step = model._make_eval_step(ds.slice_types)
     ext = 'npy' if output_format == 'npy' else 'png'
     for batch in ds.batches():
         probs = eval_step(batch['slices'])[1].cpu().numpy()
-        for i, meta in enumerate(batch['meta']):
+        for i, meta in enumerate(batch['meta'] if primary else ()):
             pred = probs[i, :, :, 0]
             if threshold is not None:
                 pred = (pred > threshold).astype(np.float32)

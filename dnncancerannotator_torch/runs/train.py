@@ -1,10 +1,13 @@
 '''The train run (counterpart of dnncancerannotator_tpu.runs.train): record
-the resolved options, train, and write the results pickle.'''
+the resolved options, train, and write the results pickle; data-parallel
+over every visible card with ``deploy_options.enable_multigpu``
+(parallel/multihost.py: ``launch``), rank 0 writing.'''
 
 import os
 
 from .. import data as data_lib
 from .. import engine as engine_lib
+from ..parallel import multihost
 from ..utils import config as config_lib
 from ..utils import dump as dump_lib
 
@@ -26,7 +29,11 @@ def train(
     '''
     Run a training job: record the resolved options under save_path,
     fit the model, and write the final results pickle. A save_path that
-    holds checkpoints resumes from the newest one.
+    holds checkpoints resumes from the newest one. With
+    deploy_options.enable_multigpu (default true) and more than one
+    visible card it trains data-parallel on every card, one process a
+    card (NCCL); with DNNCA_MULTIHOST=1 (torchrun's environment) it joins
+    the launcher's group.
 
     Args:
         config (list[str]): one or more YAML/JSON config files; the first
@@ -57,13 +64,24 @@ def train(
             'cuda:N', or 'cpu'
     '''
     config = config_lib.load_config(config)
-    dump_lib.dump_options(
-        os.path.join(save_path, 'options.yaml'),
-        avoid_overwrite=True,
-        config=config,
-        save_path=save_path,
-        data_path=data_path,
-    )
+    return multihost.launch(
+        _train, (config, save_path, data_path, max_steps, early_stop_steps,
+                 save_freq, validate, val_data_path, visualize, profile,
+                 seed, device),
+        config['deploy_options'].get('enable_multigpu', True), device)
+
+
+def _train(config, save_path, data_path, max_steps, early_stop_steps,
+           save_freq, validate, val_data_path, visualize, profile, seed,
+           device):
+    if multihost.is_primary():
+        dump_lib.dump_options(
+            os.path.join(save_path, 'options.yaml'),
+            avoid_overwrite=True,
+            config=config,
+            save_path=save_path,
+            data_path=data_path,
+        )
     ds = data_lib.train_ds(data_path, **config['data_options']['train'])
     eval_options = config['data_options']['eval']
     val_ds = None
@@ -84,6 +102,8 @@ def train(
                           early_stop_steps=early_stop_steps,
                           save_freq=save_freq, visualization=visualization,
                           profile=profile)
-    dump_lib.dump_train_results(
-        os.path.join(save_path, 'results.pkl'), results, format_='pickle')
+    if multihost.is_primary():
+        dump_lib.dump_train_results(
+            os.path.join(save_path, 'results.pkl'), results,
+            format_='pickle')
     return results

@@ -11,11 +11,19 @@ Label smoothing blurs the label mask with a Gaussian
 train step and the validation loss. With ``deploy_options.debug_asserts``
 the train step checks the labels, the positive rate and the weight
 (``utils/checks.py``).
+
+Inside a data-parallel step (parallel/mesh.py) "the whole batch" is the
+global batch: the positive pixels of every rank's real rows are summed over
+the ranks before the rate is taken, so a rank whose rows hold no positive
+pixel gets the global weight, as one device running the whole batch (and
+the JAX package's sharded step) gives it; in evaluation the padded rows
+do not count (JAX train/losses.py: ``n_valid``).
 '''
 
 import torch
 
 from ..ops.filters import gaussian_filter2d
+from ..parallel import mesh as mesh_lib
 from ..utils import checks
 
 
@@ -34,8 +42,13 @@ def sigmoid_bce_from_logits(labels, logits):
 
 
 def positive_rate(labels):
-    '''Fraction of positive pixels over the whole label tensor.'''
-    return labels.sum() / labels.numel()
+    '''Fraction of positive pixels over the whole label tensor; inside a
+    data-parallel step, over the real rows of every rank's.'''
+    shard = mesh_lib.current()
+    if shard is None:
+        return labels.sum() / labels.numel()
+    positive = shard.group.all_reduce_sum(labels[:shard.valid].sum())
+    return positive / (shard.total * labels[0].numel())
 
 
 def weighted_crossentropy(labels, logits, weight=None, weight_add=0.0,

@@ -8,7 +8,9 @@ non-negative, the reference's ``tf.debugging`` asserts). They cost nothing
 unless a ``collect()`` block is active: then each check records a device
 vector ``[failed, min, max]`` and reads nothing back, so the engine can
 read every step's checks with the chunk's one host read and ``raise_failed``
-names the first check that failed and its step.
+names the first check that failed and its step. In a data-parallel run
+(parallel/mesh.py) ``span_ranks`` makes each vector the global batch's
+before that read.
 '''
 
 import contextlib
@@ -59,6 +61,21 @@ def check_non_negative(x, name, device=None):
         if not torch.is_tensor(x):
             x = torch.full((), float(x), device=device)
         _record(x, 0, None, f'{name} is negative (min={{}}, max={{}})')
+
+
+def span_ranks(group, values, flags=()):
+    '''Every rank's check vectors ``values`` ([failed, min, max] each,
+    concatenated, on the device) as the global batch's: failed where any
+    rank's failed, the least min, the largest max; after them, each number
+    of ``flags`` as its largest over the ranks. One all_reduce MAX; returns
+    one device vector, the checks first, for the caller's one host read.'''
+    signs = torch.tensor([1.0, -1.0, 1.0], device=values.device)
+    packed = torch.cat([(values.view(-1, 3) * signs).view(-1),
+                        torch.tensor([float(f) for f in flags],
+                                     device=values.device)])
+    packed = group.all_reduce_max(packed)
+    n = values.numel()
+    return torch.cat([(packed[:n].view(-1, 3) * signs).view(-1), packed[n:]])
 
 
 def raise_failed(steps, values):

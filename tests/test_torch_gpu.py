@@ -1262,3 +1262,78 @@ def test_exported_program_on_the_card(cuda, tmp_path, options, deploy):
         got = on_card(x)
         assert got.device == cuda and got.dtype == torch.float32
         torch.testing.assert_close(got.cpu(), on_host(x), rtol=0, atol=1e-5)
+
+
+# -- data parallelism: two ranks on the one card -----------------------------------------
+def _dp_config(**train):
+    from dnncancerannotator_torch.utils import config as config_lib
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = config_lib.load_config([os.path.join(repo, 'configs', name) for
+                                     name in ('unet.yaml',
+                                              'additionals/deploy_options.yaml',
+                                              'additionals/data_options.yaml')])
+    config['data_options']['train'].update(output_size=[32, 32], **train)
+    config['deploy_options'].update(warp_bank_size=8, enable_multigpu=True)
+    return config
+
+
+def _test_module(name):
+    '''A module of tests/ by its path: on a machine whose packages hold a
+    ``tests`` package of their own, ``tests.<name>`` would not be ours.'''
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), f'{name}.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _dp_records(root):
+    from dnncancerannotator_torch.data.records import generate_tfrecords
+    util_synth = _test_module('util_synth')
+    tree = util_synth.make_exam_tree(os.path.join(root, 'tree'), size=64)
+    paths = []
+    for category in ('cancer', 'healthy'):
+        paths.append(os.path.join(root, f'{category}.tfrecords'))
+        generate_tfrecords(tree, paths[-1], category=category,
+                           output_size=(64, 64))
+    return paths
+
+
+@pytest.mark.parametrize('batch', [8, 7])
+def test_two_ranks_on_one_card_match_one_rank(cuda, tmp_path, batch):
+    '''Two ranks on the one card, in a gloo group (NCCL refuses two ranks on
+    one card): the unet.yaml step through the kernels at B = 8 (4 a rank)
+    and B = 7 (3 and 4), three Adam steps. Every rank's parameters the same
+    bits, the losses within 1e-5 relative and every parameter within 1e-6
+    of one rank on the card (tests/test_torch_train.py's limits), and each
+    rank's launches of the seven kernels of the step above 0.'''
+    import numpy as np
+    from dnncancerannotator_torch import convert, engine
+    from dnncancerannotator_torch.data import pipeline
+    dp = _test_module('util_torch_dp')
+
+    records = _dp_records(str(tmp_path))
+    config = _dp_config(batch_size=batch)
+    out = str(tmp_path / 'dp')
+    dp.wait(dp.ranks(2, [dict(kind='train', config=config, records=records,
+                              max_steps=3, device='cuda', out=out)],
+                     str(tmp_path), 'dp'), str(tmp_path), 'dp')
+    eng = engine.Engine(config, device='cuda')
+    res = eng.train(pipeline.train_ds(records,
+                                      **config['data_options']['train']),
+                    max_steps=3, save_freq=1 << 30)
+    want = convert.flax_from_torch_state(eng.model.state_dict())
+    got = [dict(np.load(f'{out}.rank{rank}.npz')) for rank in (0, 1)]
+    for key, value in got[0].items():
+        np.testing.assert_array_equal(got[1][key], value, err_msg=key)
+    np.testing.assert_allclose(got[0]['losses'], res.history['loss'],
+                               rtol=1e-5)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[0][key], value, rtol=0, atol=1e-6,
+                                   err_msg=key)
+    for rank in (0, 1):
+        for name in ('conv_chain', 'conv_chain_bwd', 'tconv2x2',
+                     'tconv2x2_bwd', 'stencil_conv', 'stencil_conv_bwd',
+                     'warp_twopass'):
+            assert got[rank][f'launches/{name}'] > 0, (rank, name)

@@ -23,6 +23,7 @@ from dnncancerannotator_torch.models import (blocks, fastbn, fastconv,
                                              multiresunet, unet)
 from dnncancerannotator_torch.ops import (cca, functions, gates, image,
                                           morphology, pooling, warp)
+from dnncancerannotator_torch.parallel import mesh, multihost
 from dnncancerannotator_torch.ops.kernels import (
     _build, conv_chain, conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd,
     stencil_conv, stencil_conv_bwd, stencil_conv_nhwc, tconv2x2_bwd,
@@ -72,6 +73,7 @@ leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                        'orbax', 'dnncancerannotator_tpu'))
 assert not leaked, leaked
+assert mesh.group() is None and multihost.is_primary()
 print('isolated')
 '''
 

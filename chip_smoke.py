@@ -291,6 +291,24 @@ Phases (each raises on failure, so the process exits non-zero):
    not run. Then the unet.yaml step with and without a world-1 NCCL group
    in this process (phase 5's differential calls, in turns), and in phase
    9 the grouped step's profile with its NCCL kernels' device time.
+18. extract_all: a seeded tree of 4 cancer and 4 healthy exams of 8
+   clinical collages (1080 x 1600, tests/test_extract.py's grid offset by
+   a few px; the cancer label panes a coloured ring, ellipse outline or
+   blob, half of them with a 1-px ruler across it), written with the
+   port's ``imwrite``, extracted by ``python -m dnncancerannotator_torch
+   extract_all --path TREE --debug`` on the card with the default pool.
+   Checks (a) every pane file bit-equal to the generator's pane and the
+   card's boxes equal to the drawn grid; (b) the card's corner responses
+   on 4 collages bit-equal to the CPU path's, on 2 to
+   ``scipy.signal.convolve2d``; (c) every file of the tree decoding to the
+   bytes of ``extract_all(device='cpu', num_workers=0)`` on a copy; (d)
+   each label within EX_IOU of the generator's filled annotation; (e) no
+   healthy label directory, and a healthy exam with a coloured pane
+   raising; (f) the tree through ``generate_tfrecords``, 5 ``train``
+   steps of unet.yaml and one ``evaluate``. Prints extract_all's seconds
+   and collages/s, ``detect_internals`` ms a collage on the card against
+   the CPU path (in turns; also batched 8 a call) and ``extract_label``
+   ms a pane.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -5531,6 +5549,412 @@ def dp_slice(device, data_paths, train_paths, train_run, smi):
     nccl_world1_cost(device, train_paths, train_run, smi)
 
 
+# -- phase 18 -----------------------------------------------------------------
+# extract_all: a seeded tree of EX_EXAMS (cancer, healthy) exams of EX_SLICES
+# clinical collages each, in tests/test_extract.py's grid (1080 x 1600, 2 x 3
+# panes of EX_PANE px behind 1-px bright lines), extracted by the CLI on the
+# card, then packed, trained on and evaluated
+EX_SHAPE = (1080, 1600)
+EX_PANE = 520
+EX_START = 20
+EX_EXAMS = (4, 4)
+EX_SLICES = 8
+EX_SHIFT = 6            # the grid's seeded offset, at most this many px
+EX_IOU = 0.85           # a label against the generator's filled annotation
+EX_TRAIN_STEPS = 5
+EX_TIMED = 10           # detection times: the median of this many, in turns
+# annotation and ruler colours (BGR): blue stays under the detector's
+# separator value (100), so the grid alone binarises
+EX_COLOURS = ((0, 0, 255), (0, 255, 0), (0, 255, 255), (60, 20, 230))
+
+
+def _disc(h, w, cy, cx, r):
+    yy, xx = np.mgrid[:h, :w]
+    return (yy - cy) ** 2 + (xx - cx) ** 2 <= r * r
+
+
+def _ellipse(h, w, cy, cx, a, b, angle):
+    yy, xx = np.mgrid[:h, :w]
+    u = (xx - cx) * np.cos(angle) + (yy - cy) * np.sin(angle)
+    v = -(xx - cx) * np.sin(angle) + (yy - cy) * np.cos(angle)
+    return (u / a) ** 2 + (v / b) ** 2 <= 1
+
+
+def annotation(rng, size, ruler=False):
+    """A seeded hand annotation of a size x size label pane: (outline mask,
+    filled mask), a ring, an ellipse outline or a filled blob within the
+    extractor's central disc; with ``ruler`` a ring or a blob (see
+    screenshot). A blob stays under 100 px across: the extractor's Hough
+    step takes any straight run of 100 px for a ruler."""
+    c = size // 2
+    cy, cx = c + rng.integers(-30, 31, 2)
+    kinds = ('ring', 'blob') if ruler else ('ring', 'ellipse', 'blob')
+    kind = kinds[rng.integers(len(kinds))]
+    width = int(rng.integers(2, 4))
+    if kind == 'ring':
+        r = int(rng.integers(40, 81))
+        filled = _disc(size, size, cy, cx, r)
+        outline = filled & ~_disc(size, size, cy, cx, r - width)
+    elif kind == 'ellipse':
+        a, b = int(rng.integers(45, 86)), int(rng.integers(30, 60))
+        angle = rng.uniform(0, np.pi)
+        filled = _ellipse(size, size, cy, cx, a, b, angle)
+        outline = filled & ~_ellipse(size, size, cy, cx, a - width,
+                                     b - width, angle)
+    else:
+        filled = np.zeros((size, size), bool)
+        for _ in range(3):
+            dy, dx = rng.integers(-15, 16, 2)
+            filled |= _disc(size, size, cy + dy, cx + dx,
+                            int(rng.integers(15, 31)))
+        outline = filled
+    return outline, filled, (cy, cx)
+
+
+def screenshot(seed, annotate=False, ruler=False):
+    """A seeded clinical collage: (BGR uint8 [1080, 1600, 3], the six
+    boxes (startx, starty, endx, endy) the detector reads off its grid, the
+    label pane's filled annotation or None). The grid sits EX_SHIFT px
+    around EX_START, each pane a smooth monochrome image under 100 (the
+    detector's separator); a cancer label pane carries a coloured ring,
+    ellipse outline or blob, with ``ruler`` a ring or blob and a 1-px
+    coloured line of 150-300 px from its centre out across it."""
+    from dnncancerannotator_torch.ops import raster
+
+    rng = np.random.default_rng(seed)
+    h, w = EX_SHAPE
+    p = EX_PANE
+    y0, x0 = (EX_START + rng.integers(-EX_SHIFT, EX_SHIFT + 1, 2)).tolist()
+    img = np.full((h, w, 3), 40, np.uint8)
+    yy, xx = np.mgrid[:p - 2, :p - 2]
+    for r in range(2):
+        for c in range(3):
+            fy, fx = rng.uniform(0.005, 0.03, 2)
+            pane = (50 + 8 * (r * 3 + c) + 20 * np.sin(fy * yy) * np.cos(
+                fx * xx) + rng.integers(0, 4, (p - 2, p - 2)))
+            img[y0 + r * p + 2:y0 + (r + 1) * p,
+                x0 + c * p + 2:x0 + (c + 1) * p] = pane.astype(
+                    np.uint8)[..., None]
+    for y in (y0, y0 + p, y0 + 2 * p):
+        img[y, :, :] = 255
+    for x in (x0, x0 + p, x0 + 2 * p, min(x0 + 3 * p, w - 1)):
+        img[:, x, :] = 255
+    # the detector's boxes: one past each pane's far line
+    size = p + 1
+    boxes = [(y0 + r * size, x0 + c * size, y0 + (r + 1) * size,
+              x0 + (c + 1) * size) for r in range(2) for c in range(3)]
+    filled = None
+    if annotate:
+        sy, sx, ey, ex = boxes[0]
+        pane = img[sy:ey, sx:ex]
+        outline, filled, (cy, cx) = annotation(rng, size, ruler)
+        pane[outline] = EX_COLOURS[rng.integers(len(EX_COLOURS))]
+        if ruler:
+            # from the annotation's centre along an axis: it crosses a
+            # ring where the ring runs across it, a gap the extractor's
+            # square closing bridges again (a slanted one it does not, in
+            # the JAX package too: the label is then the outline alone)
+            length = int(rng.integers(150, 301))
+            dy, dx = ((0, 1), (1, 0), (0, -1), (-1, 0))[rng.integers(4)]
+            colour = EX_COLOURS[rng.integers(len(EX_COLOURS))]
+            ruled = np.zeros((size, size), np.uint8)
+            raster.draw_line(ruled, (cx, cy), (cx + dx * length,
+                                               cy + dy * length), 1)
+            pane[ruled > 0] = colour
+    return img, boxes, filled
+
+
+def write_collage_tree(root, n_exams=EX_EXAMS, n_slices=EX_SLICES):
+    """root/{cancer,healthy}/<pid>/1/<s>.png of seeded screenshots (the
+    cancer ones annotated, every second one with a ruler), written with the
+    port's imwrite by 8 threads. Returns {path: (image, boxes, filled,
+    ruler)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dnncancerannotator_torch.ops import raster
+
+    jobs = []
+    for category, n in zip(('cancer', 'healthy'), n_exams):
+        for pid in range(1, n + 1):
+            exam = os.path.join(root, category, str(pid), '1')
+            os.makedirs(exam)
+            for s in range(1, n_slices + 1):
+                seed = (SEED + 18) * 10000 + (category == 'cancer') * 1000 \
+                    + pid * 100 + s
+                jobs.append((os.path.join(exam, f'{s:02d}.png'), seed,
+                             category == 'cancer', s % 2 == 0))
+
+    def write(job):
+        path, seed, annotate, ruler = job
+        shot = screenshot(seed, annotate, ruler)
+        raster.imwrite(path, shot[0])
+        return path, shot + (ruler,)
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(write, jobs))
+
+
+def _png(path):
+    """A PNG's decoded array, as stored."""
+    from PIL import Image
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
+def _tree_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _scipy_responses(binary):
+    """scipy.signal.convolve2d of one binary collage with the two corner
+    filters, as the JAX package's host path computes them."""
+    from scipy import signal
+    from dnncancerannotator_torch.runs import extract as ex
+
+    filt = ex.get_orthogonal_detector(25)
+    return [signal.convolve2d(binary, np.flip(f), 'valid')
+            for f in (filt, np.flip(filt))]
+
+
+def _cpu_extract(tree):
+    """extract_all on the CPU path, serially: its seconds."""
+    from dnncancerannotator_torch.runs import extract as ex
+
+    start = time.perf_counter()
+    ex.extract_all(tree, debug=True, num_workers=0, device='cpu')
+    return time.perf_counter() - start
+
+
+def ruler_erased(p, pane, filled, label):
+    """(d) on a ruled label pane: the Hough step finds a line on it, and
+    no ruler pixel outside the annotation survives in the label. Without
+    a line found, every such pixel in the extractor's central disc would
+    (the closing keeps what it closes); returns their count."""
+    from dnncancerannotator_torch.ops import raster
+    from dnncancerannotator_torch.runs import extract as ex
+
+    colour = ~ex._monochrome_mask(pane)
+    lines = raster.hough_lines_p(colour[..., None].astype(np.uint8) * 255,
+                                 0.5, np.pi / 1800, 50, min_line_length=100,
+                                 max_line_gap=2)
+    stray = colour & ~filled & (ex._center_mask(filled.shape) > 0)
+    if not len(lines) or not stray.any():
+        raise AssertionError(f'{p}: {len(lines)} Hough lines, '
+                             f'{stray.sum()} ruler px in the disc')
+    if (label & stray).any():
+        raise AssertionError(f'{p}: {(label & stray).sum()} of the ruler\'s '
+                             f'{stray.sum()} px outside the annotation '
+                             'survive in the label')
+    return int(stray.sum())
+
+
+def extract_checks(device, shots, tree, cpu_tree):
+    """(a) the panes and boxes, (c) the tree against the CPU run's, (d)
+    each label's IoU with its annotation and the rulers erased, (e) no
+    healthy label."""
+    from dnncancerannotator_torch.runs import extract as ex
+
+    kinds = {'DCEE': 1, 'DCEL': 2, 'DWI': 3, 'ADC': 4, 'TRA': 5}
+    paths = sorted(shots)
+    for p in paths:                                            # (a)
+        boxes = [tuple(map(int, b)) for b in ex.detect_internals(
+            shots[p][0], device=device)]
+        if boxes != shots[p][1]:
+            raise AssertionError(f'{p}: boxes {boxes}, the grid '
+                                 f'{shots[p][1]}')
+    ious, erased = [], []
+    for p in paths:
+        img, boxes, filled, ruler = shots[p]
+        exam, name = os.path.split(p)
+        for kind, i in kinds.items():
+            sx, sy, ex_, ey = boxes[i]
+            got = ex.raster.imread_bgr(os.path.join(exam, kind, name))
+            if not np.array_equal(got, img[sx:ex_, sy:ey]):
+                raise AssertionError(f'{p}: the {kind} pane differs from '
+                                     'the generator\'s')
+        label_dir = os.path.join(exam, 'label')
+        if filled is None:                                     # (e)
+            if os.path.exists(label_dir):
+                raise AssertionError(f'{exam}: a healthy exam with labels')
+            continue
+        label = _png(os.path.join(label_dir, name)) > 0        # (d)
+        iou = (label & filled).sum() / (label | filled).sum()
+        ious.append(float(iou))
+        if not iou >= EX_IOU:
+            raise AssertionError(f'{p}: label IoU {iou:.4f} < {EX_IOU}')
+        if ruler:
+            sx, sy, ex_, ey = boxes[0]
+            erased.append(ruler_erased(p, img[sx:ex_, sy:ey], filled,
+                                       label))
+    files = _tree_files(tree)                                  # (c)
+    if files != _tree_files(cpu_tree):
+        raise AssertionError('the card\'s tree and the CPU run\'s hold '
+                             'other files')
+    for rel in files:
+        if not np.array_equal(_png(os.path.join(tree, rel)),
+                              _png(os.path.join(cpu_tree, rel))):
+            raise AssertionError(f'{rel}: the card\'s run and the CPU '
+                                 'run\'s differ')
+    n_written = sum(1 for f in files if os.path.dirname(f).split(
+        os.sep)[-1] in (*kinds, 'label', 'label_comparison'))
+    log(f'extract_all: {n_written} files equal to the CPU run\'s, every '
+        f'pane the generator\'s, label IoU min {min(ious):.4f} median '
+        f'{statistics.median(ious):.4f} over {len(ious)} (limit {EX_IOU}); '
+        f'{len(erased)} rulers found by Hough, none of their '
+        f'{min(erased)}-{max(erased)} px outside the annotation in the '
+        'label')
+
+
+def extract_responses(device, shots, scipy_jobs):
+    """(b) The card's corner responses on 4 collages against the CPU path,
+    and on 2 of them (computed in ``scipy_jobs``) against scipy."""
+    from dnncancerannotator_torch.runs import extract as ex
+
+    filt = ex.get_orthogonal_detector(25)
+    paths = sorted(shots)[:4]
+    for i, p in enumerate(paths):
+        binary = (ex._gray(shots[p][0]) >= 100).astype(np.uint8)
+        for f in (filt, np.flip(filt)):
+            card = ex.corner_response(binary, f, device).cpu().numpy()
+            cpu = ex.corner_response(binary, f, 'cpu').numpy()
+            if not np.array_equal(card, cpu):
+                raise AssertionError(f'{p}: the card\'s corner response '
+                                     'differs from the CPU path\'s')
+        if i < len(scipy_jobs):
+            want = scipy_jobs[i].result()
+            got = [ex.corner_response(binary, f, device).cpu().numpy()
+                   for f in (filt, np.flip(filt))]
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f'{p}: the card\'s corner response '
+                                     'differs from scipy\'s')
+    log(f'corner responses: {len(paths)} collages bit-equal to the CPU '
+        f'path, {len(scipy_jobs)} to scipy.signal.convolve2d')
+
+
+def extract_times(device, shots, smi):
+    """Detection ms a collage, the card against the CPU path (in turns,
+    the median of EX_TIMED), and extract_label ms a pane."""
+    from dnncancerannotator_torch.runs import extract as ex
+
+    img = shots[sorted(shots)[0]][0]
+    times = {'card': [], 'cpu': []}
+    for dev in (device, 'cpu'):                    # warm-up
+        ex.detect_internals(img, device=dev)
+    for _ in range(EX_TIMED):
+        for key, dev in (('card', device), ('cpu', 'cpu')):
+            start = time.perf_counter()
+            ex.detect_internals(img, device=dev)
+            times[key].append(time.perf_counter() - start)
+    panes = [shot[0][shot[1][0][0]:shot[1][0][2], shot[1][0][1]:shot[1][0][3]]
+             for shot in shots.values() if shot[2] is not None]
+    label_s = []
+    for pane in panes:
+        start = time.perf_counter()
+        ex.extract_label(pane, kernel_size=5, iterations=7)
+        label_s.append(time.perf_counter() - start)
+    ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+    log(f'detect_internals ms a 1080x1600 collage (median of {EX_TIMED}, '
+        f'in turns, host clock): card {ms["card"]:.3f}, CPU path '
+        f'{ms["cpu"]:.3f} [{smi}]')
+    log(f'extract_label ms a {EX_PANE + 1}^2 pane (host): median '
+        f'{1e3 * statistics.median(label_s):.1f}, max '
+        f'{1e3 * max(label_s):.1f} over {len(panes)} [{smi}]')
+
+
+def extract_chain(device, tree, work):
+    """(f) The extracted tree through generate_tfrecords (512^2 crops),
+    EX_TRAIN_STEPS train steps of the unet.yaml stack and one evaluate."""
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+
+    records = os.path.join(work, 'extracted.tfrecords')
+    n, seconds = _timed(lambda: cli(argv=[
+        'generate_tfrecords', '--path', tree, '--output', records,
+        '--output_size', '512', '512']))
+    if n != sum(EX_EXAMS):
+        raise AssertionError(f'generate_tfrecords wrote {n} exams')
+    save_path = os.path.join(work, 'run')
+    res, train_s = _timed(lambda: cli(argv=[
+        'train', '--config', *[os.path.join(REPO, c) for c in CONFIGS],
+        '--save_path', save_path, '--data_path', records, '--max_steps',
+        str(EX_TRAIN_STEPS), '--save_freq', str(EX_TRAIN_STEPS), '--seed',
+        str(SEED), '--device', device.type]))
+    if res.epoch != list(range(1, EX_TRAIN_STEPS + 1)) or \
+            not np.isfinite(res.history['loss']).all():
+        raise AssertionError(f'train on the extracted tree: {res.epoch}, '
+                             f'{res.history["loss"]}')
+    _, eval_s = _timed(lambda: cli(argv=[
+        'evaluate', '--save_path', save_path, '--data_path', records,
+        '--tag', 'extracted', '--export_csv', '--skip_visualization',
+        '--device', device.type]))
+    table = _read_csv(os.path.join(save_path, 'tfevents', 'extracted',
+                                   'results.csv'))
+    loss = table[1][table[0].index('loss')]
+    if len(table) != 2 or not np.isfinite(float(loss)):
+        raise AssertionError(f'evaluate on the extracted tree: {table}')
+    log(f'extracted tree: generate_tfrecords {n} exams in {seconds:.2f} s, '
+        f'train {EX_TRAIN_STEPS} steps in {train_s:.2f} s (loss '
+        f'{res.history["loss"][0]:.4f} -> {res.history["loss"][-1]:.4f}), '
+        f'evaluate in {eval_s:.2f} s (loss {loss})')
+
+
+def extract_slice(device, smi):
+    """Phase 18: extract_all on the card through the CLI, (a)-(f)."""
+    import multiprocessing
+    import re
+    from concurrent.futures import ProcessPoolExecutor
+    from dnncancerannotator_torch.runs import extract as ex
+
+    work = os.path.join(WORK, 'extract')
+    tree, cpu_tree = os.path.join(work, 'tree'), os.path.join(work, 'cpu')
+    shots, seconds = _timed(lambda: write_collage_tree(tree))
+    shutil.copytree(tree, cpu_tree)
+    log(f'collage tree: {len(shots)} screenshots of {EX_SHAPE[0]}x'
+        f'{EX_SHAPE[1]} in {seconds:.2f} s')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'dnncancerannotator_torch', 'extract_all',
+         '--path', tree, '--debug', '--device', device.type], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f'extract_all CLI: rc {proc.returncode}\n'
+                             f'{proc.stderr[-4000:]}')
+    found = re.search(r'Extracted (\d+) slices in ([0-9.]+) s', proc.stderr)
+    if not found or int(found.group(1)) != len(shots):
+        raise AssertionError(f'extract_all CLI: {proc.stderr[-2000:]}')
+    inner = float(found.group(2))
+    log(f'extract_all CLI on the card ({os.cpu_count()} workers): '
+        f'{len(shots)} collages in {inner:.2f} s inside extract_all, '
+        f'{len(shots) / inner:.2f} collages/s; the process {wall:.2f} s '
+        f'[{smi}]')
+    # the CPU reference run and scipy's host correlation of 2 collages in
+    # spawned processes, beside (f) on the card
+    binaries = [(ex._gray(shots[p][0]) >= 100).astype(np.float32)
+                for p in sorted(shots)[:2]]
+    with ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+            'spawn')) as pool:
+        cpu_job = pool.submit(_cpu_extract, cpu_tree)
+        scipy_jobs = [pool.submit(_scipy_responses, b) for b in binaries]
+        extract_chain(device, tree, work)
+        extract_responses(device, shots, scipy_jobs)
+        log(f'extract_all on the CPU path, serial (in a process of its '
+            f'own, beside (f)): {cpu_job.result():.2f} s')
+    extract_checks(device, shots, tree, cpu_tree)
+    bad = os.path.join(work, 'bad')                            # (e)
+    os.makedirs(os.path.join(bad, 'cancer'))
+    os.makedirs(os.path.join(bad, 'healthy', '9', '1'))
+    ex.raster.imwrite(os.path.join(bad, 'healthy', '9', '1', '01.png'),
+                      screenshot(SEED + 19, annotate=True)[0])
+    try:
+        ex.extract_all(bad, num_workers=0, device=device)
+    except AssertionError as exc:
+        log(f'a healthy exam with a coloured pane raises: {exc}')
+    else:
+        raise AssertionError('a healthy exam with a label did not raise')
+    extract_times(device, shots, smi)
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -5602,6 +6026,8 @@ def main():
             export_serve_slice(device, data_paths, train_run, smi)
         with phase('17 data parallel'):
             dp_slice(device, data_paths, train_paths, train_run, smi)
+        with phase('18 extract_all'):
+            extract_slice(device, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()

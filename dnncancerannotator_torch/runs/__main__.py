@@ -1,6 +1,6 @@
-'''CLI dispatcher: subcommands generated from function docstrings.
-``train``, ``evaluate``, ``predict``, ``export_model``, ``serve`` and
-``generate_tfrecords`` are ported so far.'''
+'''CLI dispatcher: subcommands generated from function docstrings, the
+seven of the JAX package's CLI: ``train``, ``evaluate``, ``predict``,
+``export_model``, ``serve``, ``extract_all`` and ``generate_tfrecords``.'''
 
 import argparse
 import logging
@@ -12,6 +12,7 @@ def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     logging.basicConfig(level=logging.INFO)
     from . import evaluate, predict, train
     from . import export as export_mod
+    from . import extract
     from . import serve as serve_mod
     from ..data.records import generate_tfrecords
 
@@ -22,6 +23,7 @@ def main(prog='python3 -m dnncancerannotator_torch', argv=None):
     dscli.add_command(subparsers, predict.predict)
     dscli.add_command(subparsers, export_mod.export_model)
     dscli.add_command(subparsers, serve_mod.serve)
+    dscli.add_command(subparsers, extract.extract_all)
     dscli.add_command(subparsers, generate_tfrecords)
     return dscli.run(parser, argv)
 

@@ -1337,3 +1337,29 @@ def test_two_ranks_on_one_card_match_one_rank(cuda, tmp_path, batch):
                      'tconv2x2_bwd', 'stencil_conv', 'stencil_conv_bwd',
                      'warp_twopass'):
             assert got[rank][f'launches/{name}'] > 0, (rank, name)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_corner_response_on_the_card(cuda, seed):
+    '''The extractor's corner correlation on the card: int32, bit-equal to
+    the CPU path and to scipy's convolution on a seeded 1080 x 1600
+    collage.'''
+    import numpy as np
+    from scipy import signal
+    from chip_smoke import screenshot
+    from dnncancerannotator_torch.runs import extract as ex
+
+    img, boxes, _ = screenshot(seed, annotate=True, ruler=True)
+    binary = (ex._gray(img) >= 100).astype(np.uint8)
+    filt = ex.get_orthogonal_detector(25)
+    for f in (filt, np.flip(filt)):
+        card = ex.corner_response(binary, f, cuda)
+        assert card.is_cuda and card.dtype == torch.int32
+        card = card.cpu().numpy()
+        np.testing.assert_array_equal(
+            card, ex.corner_response(binary, f, 'cpu').numpy())
+        np.testing.assert_array_equal(
+            card, signal.convolve2d(binary.astype(np.float32), np.flip(f),
+                                    'valid'))
+    assert [tuple(map(int, b)) for b in ex.detect_internals(
+        img, device=cuda)] == boxes

@@ -1,7 +1,7 @@
-'''The port stands alone: it never imports JAX or the JAX package, its host
-library builds from its own sources into build/torch_host/ and nothing of
-the root native/ directory is loaded, and it never picks the CPU when a GPU
-was asked for and none is visible.'''
+'''The port stands alone: it never imports JAX, OpenCV or the JAX package,
+its host library builds from its own sources into build/torch_host/ and
+nothing of the root native/ directory is loaded, and it never picks the
+CPU when a GPU was asked for and none is visible.'''
 
 import os
 import subprocess
@@ -22,20 +22,21 @@ from dnncancerannotator_torch.metrics import pixel, region
 from dnncancerannotator_torch.models import (blocks, fastbn, fastconv,
                                              multiresunet, unet)
 from dnncancerannotator_torch.ops import (cca, functions, gates, image,
-                                          morphology, pooling, warp)
+                                          morphology, pooling, raster, warp)
 from dnncancerannotator_torch.parallel import mesh, multihost
 from dnncancerannotator_torch.ops.kernels import (
     _build, conv_chain, conv_chain_bwd, pool2x2_nhwc, pool2x2_nhwc_bwd,
     stencil_conv, stencil_conv_bwd, stencil_conv_nhwc, tconv2x2_bwd,
     tconv2x2_nhwc, tconv2x2_nhwc_bwd, warp_twopass)
-from dnncancerannotator_torch.runs import (evaluate, export, predict, serve,
-                                           train)
+from dnncancerannotator_torch.runs import (evaluate, export, extract,
+                                           predict, serve, train)
 from dnncancerannotator_torch.runs.__main__ import main
 from dnncancerannotator_torch.train import losses, optimizers, schedules
 from dnncancerannotator_torch.utils import dump, hostmem, tboard, viz
 for command, flag in (('predict', '--device'), ('train', '--device'),
                       ('evaluate', '--device'),
                       ('export_model', '--batch_size'), ('serve', '--device'),
+                      ('extract_all', '--num_workers'),
                       ('generate_tfrecords', '--output_size')):
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -71,7 +72,8 @@ for name, opts in (('UNetAnnotator', {'f32_head': True}),
     model(torch.rand(1, 16, 16, 2), return_logits=True).sum().backward()
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
-                                       'orbax', 'dnncancerannotator_tpu'))
+                                       'orbax', 'dnncancerannotator_tpu',
+                                       'cv2'))
 assert not leaked, leaked
 assert mesh.group() is None and multihost.is_primary()
 print('isolated')
@@ -135,6 +137,30 @@ def test_bf16_precision_raises():
         assert _build.form(entry, torch.bfloat16) == (entry + '_bf16',
                                                       torch.bfloat16)
         assert entry + '_bf16' in _build._SIGNATURES
+
+
+@pytest.mark.parametrize('num_workers', [0, 2])
+def test_extract_on_cuda_without_gpu_raises(monkeypatch, tmp_path,
+                                            num_workers):
+    '''The extractor's corner detector asks for the card by default, and
+    without one raises before any collage is read, serially and with the
+    pool.'''
+    import numpy as np
+    import torch
+    from dnncancerannotator_torch.ops import raster
+    from dnncancerannotator_torch.runs import extract
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    exam = tmp_path / 'cancer' / '1' / '1'
+    exam.mkdir(parents=True)
+    (tmp_path / 'healthy').mkdir()
+    for s in (1, 2):
+        raster.imwrite(str(exam / f'0{s}.png'), np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        extract.extract_all(str(tmp_path), num_workers=num_workers)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        extract.detect_internals(np.zeros((700, 900, 3), np.uint8))
+    assert sorted(p.name for p in exam.iterdir()) == ['01.png', '02.png']
 
 
 @pytest.mark.parametrize('option,value,item', [

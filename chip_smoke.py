@@ -291,6 +291,24 @@ Phases (each raises on failure, so the process exits non-zero):
    not run. Then the unet.yaml step with and without a world-1 NCCL group
    in this process (phase 5's differential calls, in turns), and in phase
    9 the grouped step's profile with its NCCL kernels' device time.
+19. spatial partition (``deploy_options.spatial_partition: 2``, after
+   phase 17, whose seeded steps and one-rank references it reuses; its
+   files beside phase 17's): (a) two gloo ranks on the card at (data 1,
+   model 2), each running its 128 of the 256 rows plus its halo: the
+   seeded unet.yaml, unet_big f32 + pallas_decoder and unet_big bf16
+   steps against the one-rank kernel step by phase 17's rules, both ranks
+   the same bits after 3 more steps, each kernel of the step launched on
+   each rank (the wrappers' counts and the library's own), and each
+   kernel call's route or launch geometry printed a rank (``_route_log``);
+   (b) through the CLI at N = 2: ``evaluate`` of phase 5's run whose
+   results.csv equals phase 6's (region metrics exactly), ``predict``
+   maps within MAP_TOL and a 4-step ``train --validate`` within LOSS_TOL
+   of one rank; (c) four gloo ranks at (data 2, model 2): the unet.yaml
+   step and one more against one rank; (d) a rank's peak device memory
+   over 3 train steps (B=8, 256 x 256) and one eval step (B=8, 512 x 512)
+   and the train step's ms (differential calls) at N = 1 and N = 2; (e)
+   with an even count of cards above one, the CLI's own NCCL spawn,
+   else it prints that it did not run.
 18. extract_all: a seeded tree of 4 cancer and 4 healthy exams of 8
    clinical collages (1080 x 1600, tests/test_extract.py's grid offset by
    a few px; the cancer label panes a coloured ring, ellipse outline or
@@ -5087,8 +5105,8 @@ def rank_jobs(spec_path):
     '''One rank of a phase 17 torchrun launch: join the launcher's group
     (DNNCA_MULTIHOST=1: NCCL on the card, or the spec's backend), run the
     spec's jobs in order (``cli``: the port's CLI; ``step``:
-    ``_rank_step``), write this rank's group and results beside the spec,
-    leave the group.'''
+    ``_rank_step``; ``cost``: ``_rank_cost``), write this rank's group and
+    results beside the spec, leave the group.'''
     import torch.distributed as dist
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.parallel import multihost
@@ -5104,7 +5122,8 @@ def rank_jobs(spec_path):
             if job['kind'] == 'cli':
                 cli(argv=job['argv'])
             else:
-                torch.save(_rank_step(job, spec['device']),
+                run = _rank_cost if job['kind'] == 'cost' else _rank_step
+                torch.save(run(job, spec['device']),
                            f"{job['out']}.rank{rank}.pt")
         with open(f'{spec_path}.rank{rank}.json', 'w') as fh:
             json.dump(dict(backend=str(dist.get_backend()),
@@ -5118,8 +5137,9 @@ def _rank_step(job, device):
     draws of ``big_check_state``, or of phase 5's check on its trained
     checkpoint), through ``Engine.train_step``: the global loss, the summed
     gradients, the updated statistics, the rank's rows, the bank's digest,
-    the kernels' launches; then three ``Engine.train`` steps and the
-    parameters.'''
+    the kernels' launches and the route of each kernel call
+    (``_route_log``); then ``more`` (default 3) ``Engine.train`` steps and
+    the parameters.'''
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.data import augment, pipeline
     from dnncancerannotator_torch.ops import kernels
@@ -5141,9 +5161,11 @@ def _rank_step(job, device):
     eng._augment = lambda images, _gen: augment.apply_chain(
         ds.augment_methods, images, draws, bank)
     kernels.reset_launches()
-    with _deterministic_cudnn():
+    library = _library_count(eng.device)
+    with _deterministic_cudnn(), _route_log() as routes:
         loss = float(eng.train_step(raw, 0, None))
     out = dict(loss=loss, raw=raw.cpu(), launches=kernels.launch_counts(),
+               routes=routes, library=_library_count(eng.device) - library,
                bank=hashlib.sha256(bank['flows'].cpu().numpy().tobytes()
                                    ).hexdigest() if bank else None,
                grads={n: p.grad.to('cpu', copy=True)
@@ -5151,7 +5173,7 @@ def _rank_step(job, device):
                stats={n: t.to('cpu', copy=True)
                       for n, t in eng.model.named_buffers()})
     eng._augment = augment_fn
-    eng.train(ds, max_steps=3, save_freq=1 << 30)
+    eng.train(ds, max_steps=job.get('more', 3), save_freq=1 << 30)
     out['params'] = {n: p.detach().cpu()
                      for n, p in eng.model.named_parameters()}
     return out
@@ -5196,21 +5218,25 @@ def _dp_references(device, train_paths, train_run, specs):
     return refs
 
 
-def _dp_step_check(label, out, ref, device):
-    '''(b): the 2-rank step against the one-rank kernel step on the same
-    batch and draws. Every rank drew its rows of the one-rank batch and
-    the one bank, holds the same summed gradients and, after three more
-    steps, the same parameters (bits), and launched each kernel of its
-    path; the step by phase 5's rule (``_compare_step``: the loss to
-    LOSS_TOL, each gradient to STEP_TOL, each statistic to STATS_TOL of its
-    scale, else F64_RATIO of the one-rank step's distance from f64); in
-    bf16 by phase 12's (``_reading``) and each statistic by phase 7's.'''
+def _dp_step_check(label, out, ref, device, world=DP_WORLD, spatial=1):
+    '''(b): the step on ``world`` ranks (in data groups of ``spatial``, which
+    split the image rows) against the one-rank kernel step on the same
+    batch and draws. Every rank drew its data group's rows of the one-rank
+    batch and the one bank, holds the same summed gradients and, after the
+    job's further steps, the same parameters (bits), and launched each
+    kernel of its path; the step by phase 5's rule (``_compare_step``: the
+    loss to LOSS_TOL, each gradient to STEP_TOL, each statistic to
+    STATS_TOL of its scale, else F64_RATIO of the one-rank step's distance
+    from f64); in bf16 by phase 12's (``_reading``) and each statistic by
+    phase 7's. Returns the ranks' results.'''
     one, exact, raw, bank = ref
-    outs = [torch.load(f'{out}.rank{r}.pt') for r in range(DP_WORLD)]
+    outs = [torch.load(f'{out}.rank{r}.pt') for r in range(world)]
     digest = hashlib.sha256(bank['flows'].cpu().numpy().tobytes()
                             ).hexdigest() if bank else None
+    parts = world // spatial
     for r, o in enumerate(outs):
-        lo, hi = r * TRAIN_BATCH // DP_WORLD, (r + 1) * TRAIN_BATCH // DP_WORLD
+        part = r // spatial
+        lo, hi = part * TRAIN_BATCH // parts, (part + 1) * TRAIN_BATCH // parts
         if not torch.equal(o['raw'], raw[lo:hi].cpu()) or o['bank'] != digest:
             raise AssertionError(f'{label}: rank {r} drew other rows or '
                                  'another bank than one rank')
@@ -5222,24 +5248,25 @@ def _dp_step_check(label, out, ref, device):
         missing = [k for k in DP_STEP_KERNELS[label] if not o['launches'][k]]
         if missing:
             raise AssertionError(f'{label}: rank {r} launched no {missing}')
-    log(f'{label}: {DP_WORLD} ranks drew their rows of the one-rank batch '
-        f'(B={TRAIN_BATCH}, {TRAIN_BATCH // DP_WORLD} a rank) and one bank; '
-        'gradients, statistics and the parameters after 3 more steps the '
-        'same bits on every rank; launches a rank: ' + json.dumps(
+    log(f'{label}: {world} ranks ({parts} data group(s) of {spatial}) drew '
+        f'their rows of the one-rank batch (B={TRAIN_BATCH}, '
+        f'{TRAIN_BATCH // parts} a data group) and one bank; gradients, '
+        'statistics and the parameters after the further steps the same '
+        'bits on every rank; launches a rank: ' + json.dumps(
             {k: outs[0]['launches'][k] for k in DP_STEP_KERNELS[label]}))
     got = (outs[0]['loss'],
            {n: g.to(device) for n, g in outs[0]['grads'].items()},
            {n: s.to(device) for n, s in outs[0]['stats'].items()})
     if label == 'unet.yaml':
-        _compare_step(got, one, exact, label=f'{label} 2-rank ("kernels") '
-                      'against 1-rank ("plain")')
-        return
+        _compare_step(got, one, exact, label=f'{label} {world}-rank '
+                      '("kernels") against 1-rank ("plain")')
+        return outs
     if label == 'unet_big f32':
         _compare_deep_step(label, got, one, exact())
-        return
-    if not _reading(f'{label} on {DP_WORLD} ranks', got, exact):
-        raise AssertionError(f'{label}: the 2-rank step is further from the '
-                             'f64 step than phase 12\'s limits')
+        return outs
+    if not _reading(f'{label} on {world} ranks', got, exact):
+        raise AssertionError(f'{label}: the {world}-rank step is further from '
+                             'the f64 step than phase 12\'s limits')
     _reading(f'{label} on 1 rank', one, exact)
     for name, e in _step_errors(got, one, lambda: exact).items():
         if e['kind'] == 'stat' and not e['err'] <= e['tol'] * e['scale'] \
@@ -5247,6 +5274,7 @@ def _dp_step_check(label, out, ref, device):
             raise AssertionError(f'{label}: statistic {name} {e}')
     log(f'{label}: every updated statistic within STATS_TOL of the 1-rank '
         'step, or F64_RATIO of its distance from f64')
+    return outs
 
 
 def _rms_share(ours, ref):
@@ -5268,7 +5296,7 @@ def _compare_deep_step(label, got, one, exact):
     model sit up to ~1e-3 of their scale from f64.'''
     errors = _step_errors(got, one, lambda: exact)
     loss = errors.pop('loss')
-    log(f'one {label} train step: loss {loss["got"]:.7f} on 2 ranks, '
+    log(f'one {label} train step: loss {loss["got"]:.7f} on the ranks, '
         f'{loss["plain"]:.7f} on 1')
     if not loss['err'] <= LOSS_TOL * loss['scale']:
         raise AssertionError(f'{label}: loss {loss}')
@@ -5281,7 +5309,7 @@ def _compare_deep_step(label, got, one, exact):
             one[index], exact[index])
         log(f'  {kind}: worst {worst:.3e} of scale from 1 rank, '
             f'{len(past)} past {errors[past[0]]["tol"] if past else "-"}; '
-            f'rms from f64: 2 ranks {two:.3e}, 1 rank {ref:.3e}')
+            f'rms from f64: the ranks {two:.3e}, 1 rank {ref:.3e}')
         if past and not two <= F64_RATIO * ref:
             raise AssertionError(f'{label}: {kind} {past} past the 1-rank '
                                  f'step, and {two} from f64 against {ref}')
@@ -5547,6 +5575,306 @@ def dp_slice(device, data_paths, train_paths, train_run, smi):
 
     # the cost of the group at world size 1
     nccl_world1_cost(device, train_paths, train_run, smi)
+    return steps, refs
+
+
+# -- phase 19 -----------------------------------------------------------------
+SPATIAL = 2            # spatial_partition of phase 19's launches
+SP_WORLD = 4           # (c): ranks of the (data 2, model 2) launch
+SP_TRAIN_STEPS = 4     # (b): the train CLI's steps, at N = 2 and N = 1
+SP_COST_STEPS = (4, 12)   # (d): the differential Engine.train calls
+SP_EVAL = (8, 512)     # (d): the eval step whose peak memory is read (B, H=W)
+
+
+def _library_count(device):
+    '''The kernel library's own launch count (``_build.library_launches``)
+    on a CUDA device, else 0.'''
+    if device.type != 'cuda':
+        return 0
+    from dnncancerannotator_torch.ops.kernels import _build
+    torch.cuda.synchronize(device)
+    return _build.library_launches()
+
+
+def _kernel_module(name):
+    import importlib
+    return importlib.import_module(
+        f'dnncancerannotator_torch.ops.kernels.{name}')
+
+
+def _route_rules():
+    '''{kernel module name: the route or launch geometry its wrapper takes
+    for its arguments} (the functions the wrappers consult: ``plan`` where
+    a TUNED table may override the rule, else ``route``).'''
+    K = {n: _kernel_module(n) for n in (
+        'conv_chain', 'conv_chain_bwd', 'stencil_conv', 'stencil_conv_bwd',
+        'tconv2x2_bwd', 'warp_twopass', 'stencil_conv_nhwc')}
+    pads = K['stencil_conv']._pads
+    return {
+        'conv_chain': lambda x, w1, b1, w2, b2, *a, **k: K['conv_chain'].plan(
+            x.shape[0], w1.shape[1], w1.shape[0], w2.shape[0], x.shape[2],
+            x.shape[3], w1.shape[-1]),
+        'conv_chain_bwd': lambda x, c1, c2, g, w1, w2, need_dx=True: K[
+            'conv_chain_bwd'].plan(x.shape[0], w1.shape[1], w1.shape[0],
+                                   w2.shape[0], x.shape[2], x.shape[3],
+                                   w1.shape[-1], need_dx),
+        'stencil_conv': lambda x, w, b, p, relu=False: K[
+            'stencil_conv'].route(w.shape[1], w.shape[0], w.shape[2],
+                                  w.shape[3], pads(p), x.shape[2],
+                                  x.shape[3]),
+        'stencil_conv_bwd': lambda x, g, w, p, need_dx=True: K[
+            'stencil_conv_bwd'].route(x.shape[0], w.shape[1], w.shape[0],
+                                      x.shape[2], x.shape[3], w.shape[2],
+                                      w.shape[3], pads(p)),
+        'tconv2x2_bwd': lambda x, g, w, need_dx=True: K['tconv2x2_bwd'].plan(
+            x.shape[0], w.shape[0], w.shape[1], x.shape[2], x.shape[3],
+            need_dx),
+        'warp_twopass': lambda image, flow, max_displacement=8: K[
+            'warp_twopass'].route(*image.shape, int(max_displacement)),
+        'stencil_conv_nhwc': lambda x, w, b, p, relu=False: K[
+            'stencil_conv_nhwc'].route(x.shape[0], x.shape[1], x.shape[2],
+                                       w.shape[1], w.shape[0], w.shape[2],
+                                       w.shape[3], pads(p),
+                                       x.element_size())}
+
+
+@contextlib.contextmanager
+def _route_log():
+    '''Within the block each kernel wrapper records its calls: the block
+    yields a list of 'kernel [input shape] route' lines, one a distinct
+    call, in call order.'''
+    rules = _route_rules()
+    names = ('conv_chain', 'conv_chain_bwd', 'stencil_conv',
+             'stencil_conv_bwd', 'tconv2x2', 'tconv2x2_bwd', 'pool2x2_nhwc',
+             'pool2x2_nhwc_bwd', 'tconv2x2_nhwc', 'tconv2x2_nhwc_bwd',
+             'warp_twopass', 'stencil_conv_nhwc')
+    lines, saved = [], []
+    for name in names:
+        module = _kernel_module(name)
+        real = getattr(module, name)
+
+        def logged(*args, _real=real, _name=name, **kwargs):
+            rule = rules.get(_name)
+            route = rule(*args, **kwargs) if rule else 'one route'
+            line = f'{_name} {list(args[0].shape)} {route}'
+            if line not in lines:
+                lines.append(line)
+            return _real(*args, **kwargs)
+        saved.append((module, name, real))
+        setattr(module, name, logged)
+    try:
+        yield lines
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def _rank_cost(job, device):
+    '''(d): this rank's peak device memory over 3 train steps (after 2
+    warm-up steps) and over one eval step of a seeded uint8 batch of
+    SP_EVAL, each beside the memory allocated before it, and the train
+    step's time from the differential ``Engine.train`` calls of
+    SP_COST_STEPS (host clock, synchronized).'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+
+    config = job['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    ds = pipeline.train_ds(job['data_paths'],
+                           **config['data_options']['train'])
+    eng.train(ds, max_steps=2, save_freq=1 << 30)
+    out = {}
+    cuda = eng.device.type == 'cuda'   # else a CPU rehearsal
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(eng.device)
+
+    def peak(key, call):
+        if not cuda:   # not measured
+            call()
+            out[key] = (0, 0)
+            return
+        sync()
+        torch.cuda.reset_peak_memory_stats(eng.device)
+        before = torch.cuda.memory_allocated(eng.device)
+        call()
+        sync()
+        out[key] = (torch.cuda.max_memory_allocated(eng.device), before)
+
+    peak('train', lambda: eng.train(ds, max_steps=eng.current_step + 3,
+                                    save_freq=1 << 30))
+    seconds = {}
+    for n in SP_COST_STEPS:
+        sync()
+        start = time.perf_counter()
+        eng.train(ds, max_steps=eng.current_step + n, save_freq=1 << 30)
+        sync()
+        seconds[n] = time.perf_counter() - start
+    short, long = SP_COST_STEPS
+    out['step_ms'] = (seconds[long] - seconds[short]) / (long - short) * 1e3
+    b, size = SP_EVAL
+    gen = torch.Generator(device=eng.device).manual_seed(SEED + 19)
+    raw = torch.randint(0, 256, (b, size, size, 6), generator=gen,
+                        device=eng.device, dtype=torch.uint8)
+    raw[..., -1] = torch.where(raw[..., -1] > 200, 255, 0)
+    step = eng._make_eval_step(ds.slice_types)
+    step(raw)
+    peak('eval', lambda: step(raw))
+    return out
+
+
+def _spatial_config(config, spatial=SPATIAL):
+    config = copy.deepcopy(config)
+    config['deploy_options'].update(enable_multigpu=True,
+                                    spatial_partition=spatial)
+    return config
+
+
+def _mib(n):
+    return f'{n / 2 ** 20:.1f} MiB'
+
+
+def spatial_slice(device, data_paths, train_paths, train_run, dp_steps, refs,
+                  smi):
+    '''Phase 19; see the module docstring.'''
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    work = _dp('spatial')   # beside phase 17's launches
+    os.makedirs(work)
+    one_card = f'{device.type}:0' if device.type == 'cuda' else device.type
+    overlay = os.path.join(work, 'spatial.json')
+    with open(overlay, 'w') as fh:
+        json.dump({'deploy_options.metrics': _config(
+            CONFIGS + (METRICS_CONFIG,))['deploy_options']['metrics'],
+            'deploy_options.enable_multigpu': True,
+            'deploy_options.spatial_partition': SPATIAL}, fh)
+    configs = [os.path.join(REPO, c) for c in CONFIGS] + [
+        os.path.join(WORK, 'steps_per_call.json')]
+
+    def train_argv(save, on=device.type, spatial=True):
+        return ['train', '--config', *configs,
+                *([overlay] if spatial else []), '--save_path', save,
+                '--data_path', *train_paths, '--save_freq',
+                str(SP_TRAIN_STEPS // 2), '--validate', '--val_data_path',
+                *data_paths, '--seed', str(SEED), '--device', on,
+                '--max_steps', str(SP_TRAIN_STEPS)]
+
+    def predict_argv(out, on=device.type, spatial=True):
+        return ['predict', '--save_path', train_run, '--data_path',
+                *data_paths, '--output_path', out, '--output_format', 'npy',
+                '--batch_size', str(BATCH),
+                *(['--config', overlay] if spatial else []), '--device', on]
+
+    w = lambda *p: os.path.join(work, *p)   # noqa: E731
+    steps = [dict(spec, config=_spatial_config(spec['config']),
+                  out=w(spec['label'].replace(' ', '_'))) for spec in dp_steps]
+    unet = config_lib.load_config(
+        os.path.join(train_run, 'options.yaml'))['config']
+    cost = dict(kind='cost', config=_spatial_config(unet),
+                data_paths=train_paths, out=w('cost'))
+    spec2 = _write_spec(os.path.join('spatial', 'two'), steps + [
+        cost,
+        dict(kind='cli', argv=['evaluate', '--save_path', train_run,
+                               '--data_path', *data_paths, '--tag', 'spatial',
+                               '--config', overlay, '--export_csv',
+                               '--skip_visualization', '--device',
+                               device.type]),
+        dict(kind='cli', argv=predict_argv(w('maps_two'))),
+        dict(kind='cli', argv=train_argv(w('train_two')))], device, 'gloo')
+    spec4 = _write_spec(os.path.join('spatial', 'four'), [
+        dict(steps[0], out=w('unet_four'), more=1)], device, 'gloo')
+    launches = {'2 ranks': _torchrun(SPATIAL, spec2),
+                f'{SP_WORLD} ranks': _torchrun(SP_WORLD, spec4)}
+    try:
+        # meanwhile in this process, one rank (no group): the cost, the maps
+        # and the train CLI run
+        start = time.perf_counter()
+        one_cost = _rank_cost(dict(cost, config=unet), device)
+        cli(argv=predict_argv(w('maps_one'), one_card, spatial=False))
+        one_train = cli(argv=train_argv(w('train_one'), one_card,
+                                        spatial=False))
+        log(f'one-rank references: {time.perf_counter() - start:.2f} s')
+    finally:
+        for label, launch in launches.items():
+            _finish(f'phase 19 {label}', launch)
+    for path, world in [(f'{spec2}.rank{r}.json', SPATIAL)
+                        for r in range(SPATIAL)] + [
+            (f'{spec4}.rank{r}.json', SP_WORLD) for r in range(SP_WORLD)]:
+        with open(path) as fh:
+            info = json.load(fh)
+        if info != dict(backend='gloo', world=world):
+            raise AssertionError(f'phase 19 group {path}: {info}')
+
+    # (a) the seeded steps at (data 1, model 2), each rank's routes
+    for spec in steps:
+        outs = _dp_step_check(spec['label'], spec['out'], refs[spec['label']],
+                              device, world=SPATIAL, spatial=SPATIAL)
+        for r, o in enumerate(outs):
+            if device.type == 'cuda' and not o['library'] > 0:
+                raise AssertionError(f'{spec["label"]}: rank {r} launched '
+                                     'nothing by the library\'s count')
+            log(f'  {spec["label"]} rank {r}: {o["library"]} launches by the '
+                'library\'s count; each kernel call\'s route:')
+            for line in o['routes']:
+                log(f'    {line}')
+    # (b) evaluate, predict and train through the CLI at N = 2
+    _compare_results('(19) evaluate at spatial_partition 2 against phase 6\'s'
+                     ' 1 rank', os.path.join(train_run, 'tfevents', 'spatial',
+                                             'results.csv'),
+                     os.path.join(train_run, 'tfevents', EVAL_TAG,
+                                  'results.csv'))
+    maps = [sorted(os.path.relpath(os.path.join(d, f), w(m))
+                   for d, _, fs in os.walk(w(m)) for f in fs)
+            for m in ('maps_two', 'maps_one')]
+    if maps[0] != maps[1] or not maps[0]:
+        raise AssertionError(f'(19) predict wrote {len(maps[0])} maps at N = '
+                             f'2 and {len(maps[1])} at N = 1')
+    worst = max(float(np.abs(np.load(w('maps_two', p)) -
+                             np.load(w('maps_one', p))).max())
+                for p in maps[0])
+    if not worst <= MAP_TOL:
+        raise AssertionError(f'(19) predict maps at N = 2 {worst} from N = 1')
+    two_train = _results_losses(w('train_two'))
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(
+        two_train, one_train.history['loss']))
+    if len(two_train) != SP_TRAIN_STEPS or not worst_loss <= LOSS_TOL:
+        raise AssertionError(f'(19) train at N = 2 {two_train} against N = 1 '
+                             f'{one_train.history["loss"]}')
+    log(f'(19) predict: {len(maps[0])} maps within {worst:.3e} of one rank; '
+        f'train --validate {SP_TRAIN_STEPS} steps: losses within '
+        f'{worst_loss:.3e} relative of one rank')
+    # (c) (data 2, model 2): the seeded step and one more
+    _dp_step_check('unet.yaml', w('unet_four'), refs['unet.yaml'], device,
+                   world=SP_WORLD, spatial=SPATIAL)
+    # (d) a rank's peak memory and the step time
+    costs = {'N = 1': [one_cost], f'N = {SPATIAL}': [
+        torch.load(f'{cost["out"]}.rank{r}.pt') for r in range(SPATIAL)]}
+    for label, ranks in costs.items():
+        for r, c in enumerate(ranks):
+            log(f'(19) {label} rank {r}: unet.yaml train step '
+                f'{c["step_ms"]:.3f} ms (B={TRAIN_BATCH}, {SIZE}^2); peak '
+                f'{_mib(c["train"][0])} over 3 train steps '
+                f'({_mib(c["train"][0] - c["train"][1])} above the '
+                f'{_mib(c["train"][1])} before); eval step B={SP_EVAL[0]} at '
+                f'{SP_EVAL[1]}^2 peak {_mib(c["eval"][0])} '
+                f'({_mib(c["eval"][0] - c["eval"][1])} above '
+                f'{_mib(c["eval"][1])}); {smi}')
+    # (e) every visible card through the CLI's own spawn
+    cards = torch.cuda.device_count() if device.type == 'cuda' else 1
+    if cards < 2 or cards % SPATIAL:
+        log(f'spatial multi-card: {cards} card(s) visible, not run')
+    else:
+        res = cli(argv=train_argv(w('train_multi')))
+        worst = max(abs(a - b) / abs(b) for a, b in zip(
+            res.history['loss'], one_train.history['loss']))
+        if res.epoch != list(range(1, SP_TRAIN_STEPS + 1)) or \
+                not worst <= LOSS_TOL:
+            raise AssertionError(f'(19) {cards} cards: {res.history}')
+        log(f'spatial multi-card: {cards} cards through the CLI\'s spawn '
+            f'(NCCL, {cards // SPATIAL} data groups of {SPATIAL}), losses '
+            f'within {worst:.3e} relative of one card')
 
 
 # -- phase 18 -----------------------------------------------------------------
@@ -6025,7 +6353,11 @@ def main():
         with phase('16 export and serve'):
             export_serve_slice(device, data_paths, train_run, smi)
         with phase('17 data parallel'):
-            dp_slice(device, data_paths, train_paths, train_run, smi)
+            dp_steps, dp_refs = dp_slice(device, data_paths, train_paths,
+                                         train_run, smi)
+        with phase('19 spatial partition'):
+            spatial_slice(device, data_paths, train_paths, train_run,
+                          dp_steps, dp_refs, smi)
         with phase('18 extract_all'):
             extract_slice(device, smi)
         with phase('9 profiler windows'):

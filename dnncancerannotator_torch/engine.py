@@ -50,7 +50,7 @@ crop-fused chain; else the warp bank, solved once per Engine, or the
 per-step spline solve). The sampler and the augmentation draw from device
 generators reseeded at every step from (seed, step), so a resumed run draws
 what an unbroken one would (the streamed batches excepted: a resumed call
-starts the stream again). Not ported yet (it raises): ``spatial_partition``.
+starts the stream again).
 
 Data parallelism (``deploy_options.enable_multigpu``, default True, as in
 the JAX package): in a process group (parallel/multihost.py: one process a
@@ -80,6 +80,25 @@ At one rank the arithmetic is the one-device arithmetic: the shares are 1.0
 and each sum over the ranks is the rank's own value. Without a process
 group (or with ``enable_multigpu: false``) there is no Group.
 
+Spatial partitioning (``deploy_options.spatial_partition: N``, the JAX
+engine's ``(data, model)`` mesh): the world's ranks form data groups of N
+(parallel/mesh.py), each data group takes its rows of every batch as above,
+and its N ranks split the image rows in blocks of the model's
+``row_block`` (``mesh.split_rows``); a world that N does not divide, a
+layout that cannot be split, N > 1 with ``enable_multigpu: false`` or with
+no process group raise ValueError:
+- augmentation runs on the data group's whole images on every rank of it,
+  with the same draws, and the label blur of label smoothing on whole
+  planes (``loss.prepare``); then each rank takes its image rows;
+- every SAME conv and conv chain of the model exchanges its halo rows
+  (models/fastconv.py, blocks.py); the loss is a rank's pixels' share of
+  the global mean, and the gradient sum, the positive rate, BatchNorm, the
+  checks and the preempted flag span every rank;
+- evaluation, prediction, validation, the train metrics and the
+  Visualizer (every rank runs its passes, rank 0 writes) gather each
+  model group's rows into whole planes before anything reads them;
+- checkpoints hold whole parameters: a run resumes under another N.
+
 Evaluation (``eval``) runs the metrics and the Visualizer over a dataset for
 every checkpoint of a run, and writes ``results.csv`` and
 ``casewise_results.csv``; its batches are decoded and copied to the device
@@ -99,6 +118,7 @@ package's Orbax checkpoints is not ported yet.
 
 import contextlib
 import copy
+import functools
 import itertools
 import logging
 import math
@@ -330,10 +350,7 @@ class Engine:
             'bfloat16', 'bf16') else None)
         self.debug_asserts = bool(deploy.get('debug_asserts', False))
         self.enable_multigpu = bool(deploy.get('enable_multigpu', True))
-        if int(deploy.get('spatial_partition', 1)) > 1:
-            raise NotImplementedError(
-                'spatial_partition is not ported yet (ROADMAP.md queue 1 '
-                'item 8)')
+        self.spatial = int(deploy.get('spatial_partition', 1))
         self.schedule = schedules_lib.solve_schedule(
             deploy.get('LearningRateScheduler'))
         self.steps_per_call = int(deploy.get('steps_per_call', 1))
@@ -345,11 +362,12 @@ class Engine:
             self.model_config['model_options'].get('kernel_regularizer'))
         self.model_name = model_config['model']
         self.device = resolve_device(device)
-        # the data-parallel group (None: one rank, no collectives), and
-        # this rank's rows (lo, hi) of a training batch of B rows, (lo, hi,
-        # B) (set by _setup_training)
-        self.group = mesh_lib.group(self.enable_multigpu)
-        self._rows = None
+        # the group (None: one rank, no collectives; raises for a
+        # spatial_partition it cannot run), this data group's rows (lo, hi)
+        # of a training batch of B rows, (lo, hi, B), and the split of its
+        # image rows over the model group (set by _setup_training)
+        self.group = mesh_lib.group(self.enable_multigpu, self.spatial)
+        self._rows = self._bounds = None
         self.model = None
         self.optimizer = None
         self.loss = None
@@ -515,10 +533,23 @@ class Engine:
         if self.group is not None:
             self._rows = (*self.group.shard_rows(dataset.batch_size),
                           dataset.batch_size)
+            self._bounds = self._split(dataset.feature_shape[1])
         self._augment = augment_mod.build_augment_fn(
             dataset.augment_methods, warp_bank=self._warp_bank(dataset),
             rows=self._rows)
         self._slice_types = dataset.slice_types
+
+    def _split(self, h):
+        '''The boundaries of ``h`` image rows over this rank's model group
+        (``mesh.split_rows`` by the model's block), or None at N = 1.'''
+        if self.spatial == 1:
+            return None
+        return mesh_lib.split_rows(h, self.model.row_block, self.spatial)
+
+    def _shard(self, valid, total, h):
+        '''The Shard of a step on ``valid`` real of this data group's
+        batch rows, of ``total``, with planes of ``h`` rows.'''
+        return mesh_lib.Shard(self.group, valid, total, self._split(h))
 
     def _solve_loss(self):
         if self.loss is None:
@@ -623,23 +654,28 @@ class Engine:
         with the augmentation drawn from ``gen``; returns the loss (a
         device scalar), and with ``outputs`` also the step's probabilities
         and labels [B, h, w] (for the train metrics). In a data-parallel
-        run ``raw`` is this rank's rows of the global batch, and the loss,
-        the gradients and the outputs are the global batch's.'''
+        run ``raw`` is this data group's rows of the global batch, and the
+        loss, the gradients and the outputs are the global batch's; under
+        ``spatial_partition`` the rank augments the whole images and runs
+        its image rows.'''
         for group in self.optimizer.param_groups:
             group['lr'] = self.schedule(step)
         self.optimizer.zero_grad(set_to_none=True)
         shard = None
         if self.group is not None:
             lo, hi, b = self._rows
-            shard = mesh_lib.Shard(self.group, hi - lo, b)
+            shard = mesh_lib.Shard(self.group, hi - lo, b, self._bounds)
+        take = shard.take if shard is not None else (lambda t: t)
         with mesh_lib.active(shard):
             with self.scope(training=True):
                 images = self._augment(raw.float() / 255.0, gen)
                 x, y = augment_mod.to_feature_label(images,
                                                     self._slice_types)
-                logits = self.model(x, return_logits=True)
+                logits = self.model(take(x), return_logits=True)
             with checks_lib.collect(self.debug_asserts) as found:
-                loss = self.loss(y, logits)
+                # the label blur on whole planes, then this rank's rows
+                loss = self.loss(take(self.loss.prepare(y)), logits,
+                                 prepared=True)
         if found:
             self._check_log.append((step + 1, [m for m, _ in found],
                                     torch.cat([v for _, v in found])))
@@ -647,7 +683,7 @@ class Engine:
             reg = self.regularization()
         else:
             # this rank's share of the global mean; the regularizer once
-            loss = loss * (shard.valid / shard.total)
+            loss = loss * shard.share()
             reg = self.regularization() if self.group.rank == 0 else None
         (loss if reg is None else loss + reg).backward()
         if shard is not None:
@@ -657,14 +693,17 @@ class Engine:
             return loss.detach()
         probs = torch.sigmoid(logits.detach()[..., 0])
         if shard is not None:
-            probs, y = (self.group.gather(t, self._rows[0], shard.total)
+            y = take(y)
+            image = shard.rows if shard.spatial else None
+            probs, y = (self.group.gather(t, lo, b, image)
                         for t in (probs, y))
         return loss.detach(), probs, y
 
     def _sum_gradients(self, loss):
-        '''Sum every parameter's gradient and ``loss`` over the ranks in one
-        all_reduce of a flat buffer; returns the summed loss. (Every rank
-        runs the same graph, so the same parameters have gradients.)'''
+        '''Sum every parameter's gradient and ``loss`` over every rank (the
+        data groups' and, within each, the model group's) in one all_reduce
+        of a flat buffer; returns the summed loss. (Every rank runs the
+        same graph, so the same parameters have gradients.)'''
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
         flat = self.group.all_reduce_sum(torch.cat(
@@ -701,10 +740,13 @@ class Engine:
             dict(save_freq=save_freq, max_steps=max_steps, seed=self.seed))
         group, primary = self.group, multihost.is_primary()
         writer, viz_callbacks = None, []
+        tb_dir = os.path.join(save_path, 'tfevents') if save_path else None
         if save_path and primary:
-            tb_dir = os.path.join(save_path, 'tfevents')
             writer = tboard.SummaryWriter(os.path.join(tb_dir, 'train'))
-            viz_callbacks = [viz_lib.Visualizer(tag, viz_ds, save_freq, tb_dir)
+        if save_path and (primary or self.spatial > 1):
+            # under spatial_partition every rank runs the passes' forwards
+            viz_callbacks = [viz_lib.Visualizer(tag, viz_ds, save_freq, tb_dir,
+                                                follower=not primary)
                              for tag, viz_ds in (visualization or {}).items()]
         sample_gen = torch.Generator(device=self.device)
         aug_gen = torch.Generator(device=self.device)
@@ -883,9 +925,12 @@ class Engine:
         (per-slice loss [B], probabilities [B, H, W, 1], labels [B, H, W]),
         on the device. The batch is not padded, so a short last batch gives
         the per-slice losses of the JAX step, which pads and masks it. In a
-        data-parallel run the batch is padded to a multiple of the ranks,
-        each rank runs its rows (the loss's positive rate over the real
-        rows of all), and every rank gets the whole batch's outputs.'''
+        data-parallel run the batch is padded to a multiple of the data
+        groups, each rank runs its rows (the loss's positive rate over the
+        real rows of all), and every rank gets the whole batch's outputs;
+        under ``spatial_partition`` a rank runs its image rows of them, and
+        the outputs come back as whole planes (the per-slice loss the sum
+        of the ranks' shares).'''
         model, device, group = self.model, self.device, self.group
         slice_types = tuple(slice_types)
         loss = self._solve_loss()
@@ -897,20 +942,60 @@ class Engine:
             n, shard = images.shape[0], None
             if group is not None:
                 images, valid = group.shard_batch(images)
-                shard = mesh_lib.Shard(group, valid, n)
+                shard = self._shard(valid, n, images.shape[1])
             images = images.to(device).to(torch.float32) / 255.0
             x, y = augment_mod.to_feature_label(images, slice_types)
-            with self.scope():
-                logits = model(x, return_logits=True)
+            if shard is None:
+                with self.scope():
+                    logits = model(x, return_logits=True)
+                return (loss.per_sample(y, logits), torch.sigmoid(logits), y)
             with mesh_lib.active(shard):
-                out = (loss.per_sample(y, logits), torch.sigmoid(logits), y)
-            if group is None:
-                return out
-            per = y.shape[0]
-            return tuple(group.gather(t, group.rank * per,
-                                      per * group.world)[:n] for t in out)
+                with self.scope():
+                    logits = model(shard.take(x), return_logits=True)
+                per_sample = loss.per_sample(shard.take(loss.prepare(y)),
+                                             logits, prepared=True)
+            per, image = y.shape[0], None
+            if shard.spatial:
+                lo, hi, h = image = shard.rows
+                per_sample = per_sample * ((hi - lo) / h)
+            return tuple(group.gather(t, group.part * per, per * group.parts,
+                                      i)[:n]
+                         for t, i in ((per_sample, None),
+                                      (torch.sigmoid(logits), image),
+                                      (shard.take(y), image)))
 
         return step
+
+    def visual_batch(self, raw, slice_types, sensitivity=False):
+        '''(features, labels, probabilities [B, H, W, 1], per-channel
+        sensitivity [B, C] or zeros) of a uint8 batch, on the device, in
+        eval mode: the Visualizer's forward. Under ``spatial_partition``
+        each rank of a model group runs its image rows of the whole batch
+        (every rank must call this), and the probabilities and the input
+        gradient come back as whole planes before the sensitivity's
+        sums.'''
+        images = torch.from_numpy(np.asarray(raw)).to(self.device)
+        x, y = augment_mod.to_feature_label(images.float() / 255.0,
+                                            slice_types)
+        shard = None
+        if self.spatial > 1:
+            shard = self._shard(x.shape[0], x.shape[0], x.shape[1])
+        take = shard.take if shard is not None else (lambda t: t)
+        with mesh_lib.active(shard), self.scope():
+            if sensitivity:
+                probs, grad = viz_lib.input_gradient(self.model, take(x))
+            else:
+                with torch.no_grad():
+                    probs = self.model(take(x))
+        if shard is not None:
+            gather = functools.partial(self.group.gather, start=0,
+                                       total=x.shape[0], image=shard.rows,
+                                       group=self.group.model_group)
+            probs = gather(probs)
+            grad = gather(grad) if sensitivity else None
+        sens = viz_lib.sensitivity(grad) if sensitivity else torch.zeros(
+            x.shape[0], x.shape[-1])
+        return x, y, probs, sens
 
     def _eval_dataset(self, eval_step, dataset, metrics):
         '''One pass over an EvalDataset: {'loss': mean per-slice loss,
@@ -970,7 +1055,7 @@ class Engine:
         eval_step = self._make_eval_step(dataset.slice_types)
         viz_callback = None
         casewise = [] if export_csv else None
-        if viz_ds is not None and primary:
+        if viz_ds is not None and (primary or self.spatial > 1):
             viz_callback = viz_lib.Visualizer(
                 tag, viz_ds, 1, save_dir=export_path, ignore_test=False,
                 export_images=export_images, export_csv=export_csv,
@@ -978,7 +1063,7 @@ class Engine:
                 # as in the JAX package, casewise rows are computed when
                 # export_csv consumes them or when asked for
                 export_casewise_metrics=export_casewise_metrics or export_csv,
-                casewise_metrics_container=casewise)
+                casewise_metrics_container=casewise, follower=not primary)
         result_rows = {}
         previous_step = None
         try:

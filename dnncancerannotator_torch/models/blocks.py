@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import functions, gates, pooling
+from ..parallel import mesh
 from . import fastbn, fastconv
 
 
@@ -95,7 +96,15 @@ class ConvChain(nn.Module):
     when ``bn``. A relu chain of two stride-1 SAME convs without BN in NCHW
     runs whole as one conv_chain kernel where ``fastconv.chain_ok`` takes
     it in the dtype it runs in, outside ``gates.library_only()``; otherwise
-    each conv runs on its own. The parameters are the same either way.'''
+    each conv runs on its own. The parameters are the same either way.
+
+    Under ``spatial_partition`` the whole chain runs unchanged on its
+    rank's rows plus 2r rows of each neighbour (r = K // 2) and keeps its
+    rows: every kept row reads c1 rows that read only real x rows, and the
+    cotangent is zero on the halo rows, so the chain's backward gives the
+    slab's exact dx and the rank's share of dw and db. A chain run conv by
+    conv (BatchNorm between, whose statistics see only real rows) takes
+    one exchange a conv.'''
 
     def __init__(self, in_channels, filters, kernel_size, conv_stride, bn,
                  n_conv=2, padding='VALID', activation='relu',
@@ -133,9 +142,13 @@ class ConvChain(nn.Module):
         if self._fused.get(dtype, self._fused[torch.float32]) \
                 and not gates.forced_off():
             c0, c1 = self.conv_0, self.conv_1
-            return functions.conv_chain(
-                x.to(dtype), c0.weight.to(dtype), c0.bias.to(dtype),
-                c1.weight.to(dtype), c1.bias.to(dtype))
+            weights = (c0.weight.to(dtype), c0.bias.to(dtype),
+                       c1.weight.to(dtype), c1.bias.to(dtype))
+            # under spatial_partition: on the slab of both convs' halo
+            r = 2 * (c0.weight.shape[-2] // 2)
+            return mesh.on_slab(
+                lambda slab: functions.conv_chain(slab, *weights),
+                (x.to(dtype),), r, r, 2)
         for i in range(self.n_conv):
             x = getattr(self, f'conv_{i}')(x)
             if self.act is not None:

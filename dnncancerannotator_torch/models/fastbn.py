@@ -30,7 +30,9 @@
 - inside a data-parallel step (parallel/mesh.py) the statistics are the
   global batch's, as GSPMD computes them over the JAX package's sharded
   batch: each rank's mean and ``E[x^2]``, weighted by its share of the
-  rows, are summed over the ranks in f32 (one all_reduce), so the running
+  pixels (its batch rows, and under ``spatial_partition`` its image rows
+  of the [B, H, W, C] input), are summed over every rank in f32 (one
+  all_reduce), so the running
   statistics move alike on every rank; the backward sums ``sum(g)`` and
   ``sum(g * xhat)`` over the ranks for dx (one all_reduce), while dscale
   and dbias stay the rank's own, summed with every other gradient. At one
@@ -87,7 +89,8 @@ class _BNTrainFn(torch.autograd.Function):
             # stay this rank's, summed over ranks with the other gradients
             sums = ctx.shard.group.all_reduce_sum(torch.cat([dbeta, dgamma]))
             sum_beta, sum_gamma = sums.split(dbeta.shape[0])
-            count = count // x.shape[0] * ctx.shard.total
+            count = (count // x.shape[0] * ctx.shard.total
+                     // x.shape[1] * ctx.shard.plane(x.shape[1]))
         gscale = r if scale is None else r * scale
         dx = gscale * (gf - sum_beta / count - xhat * (sum_gamma / count))
         return (dx.to(x.dtype), None if scale is None else dgamma, dbeta,
@@ -125,6 +128,8 @@ class BatchNormFast(nn.Module):
             shard = mesh_lib.current()
             if shard is not None:
                 share = x.shape[0] / shard.total   # 1.0 at one rank
+                if shard.spatial:   # its image rows' share of the plane's
+                    share = share * x.shape[1] / shard.plane(x.shape[1])
                 moments = shard.group.all_reduce_sum(
                     torch.cat([mean * share, mean_sq * share]))
                 mean, mean_sq = moments.split(mean.shape[0])

@@ -19,6 +19,13 @@ ops/functions.py):
 Inside ``gates.library_only()`` none of these routes is taken: every conv
 and transposed conv is the library call below.
 
+Under ``deploy_options.spatial_partition`` (parallel/mesh.py) a SAME conv
+with a kernel taller than one row runs, on whichever route, on its rank's
+slab: its rows plus (kh - 1) // 2 rows of the rank above and kh - 1 - (kh
+- 1) // 2 of the rank below, exchanged, and keeps its own rows; a 1x1 conv
+and a transposed conv (2x2, stride 2, on whole blocks) stay on the rank's
+rows.
+
 Wider convs and transposed convs are plain ``F.conv2d`` /
 ``F.conv_transpose2d``, as the JAX package leaves them to XLA
 (``lax.conv_general_dilated``, ``lax.conv_transpose``); an NHWC tensor goes
@@ -57,6 +64,7 @@ from ..ops.kernels import stencil_conv as stencil_mod
 from ..ops.kernels import stencil_conv_nhwc as stencil_nhwc_mod
 from ..ops.kernels import tconv2x2 as tconv_mod
 from ..ops.kernels import tconv2x2_nhwc as tconv_nhwc_mod
+from ..parallel import mesh
 
 _NOT_PORTED = ('not ported yet (ROADMAP.md queue 1 item 4: strided convs and '
                'the valid-padding centre crop)')
@@ -155,11 +163,20 @@ class Conv2DFast(nn.Module):
             raise NotImplementedError(
                 f'Conv2DFast stride {self.strides}: ' + _NOT_PORTED)
         pads = same_or_valid_pads(kh, kw, self.padding)
-        nhwc = self.data_format == 'NHWC'
+        if kh > 1 and self.padding.upper() != 'SAME':
+            mesh.check_whole(f'a {self.padding} {kh}x{kw} conv')
         parts = tuple(x) if isinstance(x, (tuple, list)) else (x,)
         dtype = self.dtype or parts[0].dtype
         parts = tuple(part.to(dtype) for part in parts)
-        w, b = self.weight.to(dtype), self.bias.to(dtype)
+        # under spatial_partition: on this rank's slab of the SAME pads
+        return mesh.on_slab(lambda *slabs: self._conv(slabs, pads),
+                            parts, *pads[0],
+                            1 if self.data_format == 'NHWC' else 2)
+
+    def _conv(self, parts, pads):
+        co, ci, kh, kw = self.weight.shape
+        nhwc = self.data_format == 'NHWC'
+        w, b = self.weight.to(parts[0].dtype), self.bias.to(parts[0].dtype)
         kernel = not gates.forced_off()
         if kernel and not nhwc and stencil_mod.eligible(ci, co, kh, kw):
             return functions.stencil_conv(parts[0], w, b, pads, self.relu)

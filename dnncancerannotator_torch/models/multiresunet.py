@@ -30,6 +30,11 @@ flax's ``dtype`` there: a conv casts its input and weight, a transposed
 conv its bias too, added in bf16 after the output's rounding; the
 parameters stay f32 and the logits come back in f32
 (multiresunet.py:189). It has no f32_head / f32_level0 policy.
+
+Under ``deploy_options.spatial_partition`` (parallel/mesh.py) a rank runs
+its image rows, whole blocks of 16 (``row_block``): each 3x3 ``Conv`` on
+its slab of one row of each neighbour, the 1x1 convs, the pools and
+``UpTconv`` on its own rows, BatchNorm on every rank's statistics.
 '''
 
 import torch
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import pooling
+from ..parallel import mesh
 from . import fastbn
 from .fastconv import (_glorot_uniform_, _nchw, _nhwc, plain_tconv,
                        resolve_dtype)
@@ -66,8 +72,11 @@ class Conv(nn.Module):
     def forward(self, x):
         pad = self.weight.shape[-1] // 2
         dtype = self.dtype or x.dtype
-        return _nhwc(F.conv2d(_nchw(x.to(dtype)), self.weight.to(dtype),
-                              padding=pad))
+        w = self.weight.to(dtype)
+        # under spatial_partition: on this rank's slab of ``pad`` rows
+        return mesh.on_slab(
+            lambda slab: _nhwc(F.conv2d(_nchw(slab), w, padding=pad)),
+            (x.to(dtype),), pad, pad, 1)
 
 
 class ConvBN(nn.Module):
@@ -177,6 +186,9 @@ class MultiResUnet(nn.Module):
                  base_filters=32, dtype=None, generator=None):
         super().__init__()
         del height, width, n_channels
+        # four 2x2 pools: a rank's rows under spatial_partition are whole
+        # blocks of 16
+        self.row_block = 16
         dt = resolve_dtype(dtype)
         u = base_filters
         ci = in_channels
@@ -203,6 +215,7 @@ class MultiResUnet(nn.Module):
         self.head_bn = fastbn.BatchNormFast(1, use_scale=False, dtype=dt)
 
     def forward(self, x, return_logits=False):
+        mesh.check_aligned(x.shape[1], self.row_block)
         skips = []
         for i in range(1, 5):
             m = getattr(self, f'mres{i}')(x)

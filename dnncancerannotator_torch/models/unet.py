@@ -21,11 +21,18 @@ f32 and runs the 1x1 head in f32 (unet.py:154-161); ``f32_level0`` runs
 ``x[..., i:i + 1]``, a view of the batch), the bottlenecks concatenated on
 the channel axis, one Decoder fed the skips of ``encoders[reference_index]``
 alone, and the 1x1 head.
+
+Under ``deploy_options.spatial_partition`` (parallel/mesh.py) both take a
+rank's image rows, whole blocks of ``row_block`` = rate ** n_downsample
+rows (checked at the input): the SAME convs and chains exchange their halos
+(models/fastconv.py, blocks.py), the pools, transposed convs, skip joins
+and the 1x1 head stay on the rank's rows.
 '''
 
 import torch
 from torch import nn
 
+from ..parallel import mesh
 from . import blocks, fastbn, fastconv
 
 
@@ -87,6 +94,9 @@ class UNetAnnotator(nn.Module):
             raise ValueError('BatchNorm models run NHWC (BatchNorm normalizes '
                              'the last axis)')
         self.data_format = data_format
+        # under spatial_partition a rank's rows are whole blocks of this
+        # many rows, so every pool and transposed conv stays on its rank
+        self.row_block = int(rate) ** int(n_downsample)
         self.unet = UNet(in_channels, n_filters_first, n_downsample, rate,
                          kernel_size, conv_stride, bn=bn, padding=padding,
                          activation=activation, data_format=data_format,
@@ -97,6 +107,7 @@ class UNetAnnotator(nn.Module):
             data_format=data_format, dtype=head_dtype, generator=generator)
 
     def forward(self, x, return_logits=False):
+        mesh.check_aligned(x.shape[1], self.row_block)
         if self.data_format == 'NHWC':
             body = self.unet(x)
         else:
@@ -164,6 +175,7 @@ class MulmoUNetAnnotator(nn.Module):
             raise ValueError(f'MulmoUNetAnnotator runs NHWC, got '
                              f'data_format {data_format!r}')
         self.data_format = 'NHWC'
+        self.row_block = int(rate) ** int(n_downsample)
         self.mulmo_unet = MulmoUNet(
             in_channels, n_filters_first, n_downsample, rate, kernel_size,
             conv_stride, bn=bn, padding=padding, activation=activation,
@@ -174,6 +186,7 @@ class MulmoUNetAnnotator(nn.Module):
             data_format='NHWC', dtype=head_dtype, generator=generator)
 
     def forward(self, x, return_logits=False):
+        mesh.check_aligned(x.shape[1], self.row_block)
         logits = fastbn.wide(self.last_conv(self.mulmo_unet(x)))
         if return_logits:
             return logits

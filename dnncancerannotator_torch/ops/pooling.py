@@ -17,6 +17,7 @@ JAX package leaves it to XLA.
 
 import torch
 
+from ..parallel import mesh
 from . import functions
 from .kernels import pool2x2_nhwc as pool_mod
 
@@ -26,6 +27,8 @@ def max_pool2d(x, rate, data_format='NCHW'):
     by ``rate`` with window == stride; trailing rows/cols beyond a window
     multiple are dropped (VALID) and get zero gradient.'''
     rate = int(rate)
+    # under spatial_partition each rank pools its own rows
+    mesh.check_even(x.shape[1 if data_format == 'NHWC' else 2], rate)
     if pool_mod.eligible(x.shape, rate, data_format, x.dtype):
         return functions.pool2x2_nhwc(x.contiguous())
     ay, ax = (2, 3) if data_format == 'NCHW' else (1, 2)

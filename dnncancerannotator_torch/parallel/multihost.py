@@ -12,6 +12,11 @@ of dnncancerannotator_tpu.parallel.multihost).
   device;
 - ``is_primary``: the process that writes files (rank 0).
 
+With ``deploy_options.spatial_partition`` N > 1, ``launch`` checks that the
+world it runs in (the launcher's, the group's, or one process a card)
+is a multiple of N (parallel/mesh.py: ``check_layout``) before any rank
+starts work; one process with no group raises, as N ranks are needed.
+
 The backend is an argument: NCCL for the card (the default), gloo for the
 CPU. Nothing switches it by itself: NCCL refuses two ranks on one card, and
 that raises here, while a caller that asks for gloo may put several ranks
@@ -26,6 +31,8 @@ import tempfile
 
 import torch
 import torch.distributed as dist
+
+from . import mesh
 
 logger = logging.getLogger(__name__)
 
@@ -102,7 +109,7 @@ def _spawned(rank, world_size, port, fn, args, out):
         dist.destroy_process_group()
 
 
-def launch(fn, args, enable_multigpu=True, device='cuda'):
+def launch(fn, args, enable_multigpu=True, device='cuda', spatial=1):
     '''``fn(*args)`` on the cards that the configuration and the machine
     give, returning rank 0's result:
     - under ``DNNCA_MULTIHOST=1``: in this process, joined to the
@@ -112,13 +119,18 @@ def launch(fn, args, enable_multigpu=True, device='cuda'):
       one visible card: in one spawned process a card, an NCCL group of
       them; a worker's failure raises here (nothing falls back to one card
       or to the CPU);
-    - else in this process, on one device, with no group.'''
+    - else in this process, on one device, with no group.
+    ``spatial`` (``spatial_partition``) must divide the world so chosen:
+    else ValueError, naming both.'''
+    spatial = int(spatial)
     maybe_initialize(device)
     dev = torch.device(device)
     count = torch.cuda.device_count() if dev.type == 'cuda' else 0
     if (dist.is_initialized() or not enable_multigpu or dev.index is not None
             or count < 2):
+        mesh.check_spatial(enable_multigpu, spatial)
         return fn(*args)
+    mesh.check_layout(count, spatial)
     import torch.multiprocessing as mp
     logger.info('Data parallel over %d cards: one process a card (NCCL)',
                 count)

@@ -1,6 +1,7 @@
 '''The evaluate run (counterpart of dnncancerannotator_tpu.runs.evaluate):
 every checkpoint of a training run, with the options it recorded;
-data-parallel as ``train`` (rank 0 runs the metrics and writes).'''
+data-parallel and spatially partitioned as ``train`` (rank 0 runs the
+metrics and writes).'''
 
 import os
 
@@ -67,7 +68,8 @@ def evaluate(
                     export_path, export_images, export_csv,
                     visualize_sensitivity, min_interval, step_range, overlay,
                     skip_visualization, export_casewise_metrics, device),
-        saved['deploy_options'].get('enable_multigpu', True), device)
+        saved['deploy_options'].get('enable_multigpu', True), device,
+        saved['deploy_options'].get('spatial_partition', 1))
 
 
 def _evaluate(saved, save_path, data_path, tag, avoid_overwrite, export_path,

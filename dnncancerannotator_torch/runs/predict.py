@@ -1,7 +1,8 @@
 '''The predict run (counterpart of dnncancerannotator_tpu.runs.predict):
 load the latest checkpoint and write one probability map per slice;
-data-parallel as ``train`` (each batch's rows over the ranks, rank 0
-writing the maps).'''
+data-parallel and spatially partitioned as ``train`` (each batch's rows
+over the data groups, its image rows over a model group, rank 0 writing
+the maps).'''
 
 import logging
 import os
@@ -55,7 +56,8 @@ def predict(
     return multihost.launch(
         _predict, (saved_config, save_path, data_path, output_path,
                    threshold, batch_size, output_format, device),
-        saved_config['deploy_options'].get('enable_multigpu', True), device)
+        saved_config['deploy_options'].get('enable_multigpu', True), device,
+        saved_config['deploy_options'].get('spatial_partition', 1))
 
 
 def _predict(saved_config, save_path, data_path, output_path, threshold,

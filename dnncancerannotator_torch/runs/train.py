@@ -1,7 +1,8 @@
 '''The train run (counterpart of dnncancerannotator_tpu.runs.train): record
 the resolved options, train, and write the results pickle; data-parallel
 over every visible card with ``deploy_options.enable_multigpu``
-(parallel/multihost.py: ``launch``), rank 0 writing.'''
+(parallel/multihost.py: ``launch``), each plane's rows split over model
+groups of ``deploy_options.spatial_partition`` ranks, rank 0 writing.'''
 
 import os
 
@@ -68,7 +69,8 @@ def train(
         _train, (config, save_path, data_path, max_steps, early_stop_steps,
                  save_freq, validate, val_data_path, visualize, profile,
                  seed, device),
-        config['deploy_options'].get('enable_multigpu', True), device)
+        config['deploy_options'].get('enable_multigpu', True), device,
+        config['deploy_options'].get('spatial_partition', 1))
 
 
 def _train(config, save_path, data_path, max_steps, early_stop_steps,

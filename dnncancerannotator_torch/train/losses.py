@@ -17,7 +17,10 @@ global batch: the positive pixels of every rank's real rows are summed over
 the ranks before the rate is taken, so a rank whose rows hold no positive
 pixel gets the global weight, as one device running the whole batch (and
 the JAX package's sharded step) gives it; in evaluation the padded rows
-do not count (JAX train/losses.py: ``n_valid``).
+do not count (JAX train/losses.py: ``n_valid``). Under
+``spatial_partition`` a rank holds some image rows of its batch rows; the
+rate counts the whole planes' pixels, and the engine blurs the labels
+(``prepare``) before it takes a rank's rows.
 '''
 
 import torch
@@ -43,12 +46,15 @@ def sigmoid_bce_from_logits(labels, logits):
 
 def positive_rate(labels):
     '''Fraction of positive pixels over the whole label tensor; inside a
-    data-parallel step, over the real rows of every rank's.'''
+    data-parallel step, over the real rows of every rank's (of whole
+    planes: under ``spatial_partition`` a rank holds [B, h, W] of them).'''
     shard = mesh_lib.current()
     if shard is None:
         return labels.sum() / labels.numel()
     positive = shard.group.all_reduce_sum(labels[:shard.valid].sum())
-    return positive / (shard.total * labels[0].numel())
+    h = labels.shape[1]
+    return positive / (shard.total * (labels[0].numel() // h
+                                      * shard.plane(h)))
 
 
 def weighted_crossentropy(labels, logits, weight=None, weight_add=0.0,
@@ -90,23 +96,33 @@ class WeightedCrossentropy:
         self.label_smoothing_filter_size = label_smoothing_filter_size
         self.label_smoothing_sigma = label_smoothing_sigma
 
-    def per_sample(self, labels, logits):
-        if self.label_smoothing:
-            # the labels' check reads them before the blur: the blur of a
-            # region of ones is 1 + an ulp, which the JAX package's check,
-            # after it, rejects
-            checks.check_range(labels, 0.0, 1.0, 'labels')
-            labels = gaussian_filter2d(
-                labels[..., None],
-                filter_shape=self.label_smoothing_filter_size,
-                sigma=self.label_smoothing_sigma)[..., 0]
+    def prepare(self, labels):
+        '''The labels [B, H, W] the loss reads: under label smoothing
+        checked and blurred (reflect padding: whole planes only), else as
+        they are.'''
+        if not self.label_smoothing:
+            return labels
+        # the labels' check reads them before the blur: the blur of a
+        # region of ones is 1 + an ulp, which the JAX package's check,
+        # after it, rejects
+        checks.check_range(labels, 0.0, 1.0, 'labels')
+        return gaussian_filter2d(
+            labels[..., None], filter_shape=self.label_smoothing_filter_size,
+            sigma=self.label_smoothing_sigma)[..., 0]
+
+    def per_sample(self, labels, logits, prepared=False):
+        '''The per-sample loss [B]; ``prepared``: ``labels`` came through
+        ``prepare`` already (the engine prepares whole planes and then
+        takes a rank's image rows under ``spatial_partition``).'''
+        if not prepared:
+            labels = self.prepare(labels)
         return weighted_crossentropy(
             labels, logits, weight=self.weight, weight_add=self.weight_add,
             weight_mul=self.weight_mul,
             check_labels=not self.label_smoothing)
 
-    def __call__(self, labels, logits):
-        return self.per_sample(labels, logits).mean()
+    def __call__(self, labels, logits, prepared=False):
+        return self.per_sample(labels, logits, prepared).mean()
 
 
 _LOSSES = {

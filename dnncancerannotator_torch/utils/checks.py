@@ -10,7 +10,8 @@ vector ``[failed, min, max]`` and reads nothing back, so the engine can
 read every step's checks with the chunk's one host read and ``raise_failed``
 names the first check that failed and its step. In a data-parallel run
 (parallel/mesh.py) ``span_ranks`` makes each vector the global batch's
-before that read.
+before that read, a MAX over every rank (under ``spatial_partition`` each
+rank checks its image rows).
 '''
 
 import contextlib

@@ -15,6 +15,11 @@ dnncancerannotator_tpu.utils.viz).
   (matplotlib, imported only then) and a CSV;
 - casewise rows of per-slice region counts, into a shared container and as
   per-slice CSVs.
+The forwards go through the engine (``Engine.visual_batch``): under
+``spatial_partition`` every rank runs its image rows of them (the other
+ranks' Visualizers as ``follower``s, which write nothing) and the
+probabilities and the input gradient come back as whole planes before the
+sums.
 
 CSV files are written with the standard library in pandas' layout.
 '''
@@ -25,7 +30,6 @@ import os
 import numpy as np
 import torch
 
-from ..data import augment as augment_mod
 from ..metrics import pixel as pixel_metrics
 from ..metrics import region as region_metrics
 from . import tboard
@@ -36,19 +40,30 @@ PR_IOU_THRESHOLD = 0.30
 EXPORT_PATH_DEPTH = 3   # trailing parts of an exam's path kept in exports
 
 
-def input_sensitivity(model, x):
-    '''Probabilities [B, H, W, 1] of ``model`` at NHWC features x, and the
-    per-slice normalized sum over pixels of |d(sum of probs)/dx| [B, C].
-    Through a bf16 model the gradient comes back in x's f32 through the
-    first conv's cast, as jax.grad gives it (utils/viz.py:118), and the
-    sums are f32.'''
+def input_gradient(model, x):
+    '''Probabilities [B, H, W, 1] of ``model`` at NHWC features x, and
+    d(sum of probs)/dx. Through a bf16 model the gradient comes back in x's
+    f32 through the first conv's cast, as jax.grad gives it
+    (utils/viz.py:118).'''
     x = x.detach().requires_grad_()
     with torch.enable_grad():
         probs = model(x)
         (grad,) = torch.autograd.grad(probs.sum(), x)
+    return probs.detach(), grad
+
+
+def sensitivity(grad):
+    '''The per-slice normalized sum over pixels of |grad| [B, C], in f32
+    for an f32 gradient.'''
     summed = grad.abs().sum(dim=(1, 2))
-    return probs.detach(), summed / summed.sum(dim=1, keepdim=True).clamp(
-        min=1e-12)
+    return summed / summed.sum(dim=1, keepdim=True).clamp(min=1e-12)
+
+
+def input_sensitivity(model, x):
+    '''Probabilities [B, H, W, 1] of ``model`` at NHWC features x, and the
+    per-slice normalized sum over pixels of |d(sum of probs)/dx| [B, C].'''
+    probs, grad = input_gradient(model, x)
+    return probs, sensitivity(grad)
 
 
 def write_csv(path, rows):
@@ -72,6 +87,7 @@ class Visualizer:
         overlay=False,
         export_casewise_metrics=False,
         casewise_metrics_container=None,
+        follower=False,
     ):
         self.tag = tag
         self.data = data
@@ -85,6 +101,9 @@ class Visualizer:
         self.export_casewise_metrics = export_casewise_metrics
         self.casewise_metrics_container = casewise_metrics_container
         self.ignore_test = ignore_test
+        # a rank other than 0 under spatial_partition: it runs its image
+        # rows of every pass's forwards with rank 0 and writes nothing
+        self.follower = follower
         self._writer = None
 
     @property
@@ -97,18 +116,10 @@ class Visualizer:
         return self._writer
 
     def _viz_batch(self, engine, raw):
-        '''(x, y, probs, sensitivity) of a uint8 batch, on the device.'''
-        images = torch.from_numpy(np.asarray(raw)).to(engine.device)
-        x, y = augment_mod.to_feature_label(images.float() / 255.0,
-                                            self.data.slice_types)
-        with engine.scope():
-            if self.show_sensitivity:
-                probs, sens = input_sensitivity(engine.model, x)
-            else:
-                with torch.no_grad():
-                    probs = engine.model(x)
-                sens = torch.zeros(x.shape[0], x.shape[-1])
-        return x, y, probs, sens
+        '''(x, y, probs, sensitivity) of a uint8 batch, on the device
+        (``Engine.visual_batch``).'''
+        return engine.visual_batch(raw, self.data.slice_types,
+                                   self.show_sensitivity)
 
     def on_step(self, engine, step):
         '''The pass at a training step, on the ``freq`` cadence.'''
@@ -134,6 +145,10 @@ class Visualizer:
         region_cm = region_metrics.RegionBasedConfusionMatrix(
             PR_THRESHOLDS, PR_IOU_THRESHOLD, resize_factor=self.ratio)
 
+        if self.follower:
+            for batch in self.data.batches():
+                self._viz_batch(engine, batch['slices'])
+            return
         for batch in self.data.batches():
             n = len(batch['meta'])
             x, y, probs, sens = self._viz_batch(engine, batch['slices'])

@@ -1339,6 +1339,48 @@ def test_two_ranks_on_one_card_match_one_rank(cuda, tmp_path, batch):
             assert got[rank][f'launches/{name}'] > 0, (rank, name)
 
 
+@pytest.mark.parametrize('batch', [4, 3])
+def test_spatial_partition_on_one_card_matches_one_rank(cuda, tmp_path,
+                                                        batch):
+    '''Two ranks on the one card (gloo) splitting the image rows
+    (``spatial_partition: 2``): the unet.yaml step through the kernels on
+    each rank's slab of a 32 x 32 batch (16 rows a rank) at B = 4 and 3,
+    three Adam steps. Every rank's parameters the same bits, the losses within
+    1e-5 relative and every parameter within 1e-6 of one rank on the card,
+    and each rank's launches of the seven kernels of the step above 0.'''
+    import numpy as np
+    from dnncancerannotator_torch import convert, engine
+    from dnncancerannotator_torch.data import pipeline
+    dp = _test_module('util_torch_dp')
+
+    records = _dp_records(str(tmp_path))
+    config = _dp_config(batch_size=batch)
+    one = engine.Engine(config, device='cuda')
+    config['deploy_options']['spatial_partition'] = 2
+    out = str(tmp_path / 'spatial')
+    dp.wait(dp.ranks(2, [dict(kind='train', config=config, records=records,
+                              max_steps=3, device='cuda', out=out)],
+                     str(tmp_path), 'spatial'), str(tmp_path), 'spatial')
+    res = one.train(pipeline.train_ds(records,
+                                      **config['data_options']['train']),
+                    max_steps=3, save_freq=1 << 30)
+    want = convert.flax_from_torch_state(one.model.state_dict())
+    got = [dict(np.load(f'{out}.rank{rank}.npz')) for rank in (0, 1)]
+    for key, value in got[0].items():
+        if not key.startswith('launches/'):
+            np.testing.assert_array_equal(got[1][key], value, err_msg=key)
+    np.testing.assert_allclose(got[0]['losses'], res.history['loss'],
+                               rtol=1e-5)
+    for key, value in want.items():
+        np.testing.assert_allclose(got[0][key], value, rtol=0, atol=1e-6,
+                                   err_msg=key)
+    for rank in (0, 1):
+        for name in ('conv_chain', 'conv_chain_bwd', 'tconv2x2',
+                     'tconv2x2_bwd', 'stencil_conv', 'stencil_conv_bwd',
+                     'warp_twopass'):
+            assert got[rank][f'launches/{name}'] > 0, (rank, name)
+
+
 @pytest.mark.parametrize('seed', [0, 1])
 def test_corner_response_on_the_card(cuda, seed):
     '''The extractor's corner correlation on the card: int32, bit-equal to

@@ -161,20 +161,3 @@ def test_extract_on_cuda_without_gpu_raises(monkeypatch, tmp_path,
     with pytest.raises(RuntimeError, match='no CUDA device'):
         extract.detect_internals(np.zeros((700, 900, 3), np.uint8))
     assert sorted(p.name for p in exam.iterdir()) == ['01.png', '02.png']
-
-
-@pytest.mark.parametrize('option,value,item', [
-    ('spatial_partition', 2, 'queue 1 item 8'),
-])
-def test_unported_deploy_options_raise(option, value, item):
-    '''A deploy option the port does not run raises, naming the ROADMAP
-    item that ports it, instead of being dropped; its off value is
-    accepted.'''
-    from dnncancerannotator_torch import engine
-
-    config = {'model': 'UNetAnnotator', 'model_options': {},
-              'deploy_options': {option: value}}
-    with pytest.raises(NotImplementedError, match=f'{option}.*{item}'):
-        engine.Engine(config, device='cpu')
-    config['deploy_options'][option] = False if value is True else 1
-    engine.Engine(config, device='cpu')

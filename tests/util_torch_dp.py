@@ -12,7 +12,12 @@ SPEC holds ``jobs``, run in order, each writing this rank's results to
   'local_rate' BatchNorm's statistics or the loss's positive rate are the
   rank's own (a broken step, which the test must catch);
 - ``train``: ``Engine.train`` on records for ``max_steps`` steps (the
-  losses, the state and the last step's gradients);
+  losses, the state and the last step's gradients); with ``control``
+  'zero_halo' the spatial_partition exchange gives zero rows (a broken
+  step, which tests/test_torch_spatial.py must catch); with ``f64`` the
+  model, its inputs and its loss in float64 (the augmentation in f32, then
+  cast, as tests/test_torch_spatial.py's f64 reference takes it; the
+  gradients and statistics saved in f64 by torch name);
 - ``cli``: the port's CLI with ``argv``; with ``guard`` a rank other than
   0 records every file it opens for writing, makes, moves or removes under
   that directory;
@@ -40,7 +45,7 @@ from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch.data import augment, pipeline
 from dnncancerannotator_torch.models import fastbn
 from dnncancerannotator_torch.ops import kernels
-from dnncancerannotator_torch.parallel import multihost
+from dnncancerannotator_torch.parallel import mesh, multihost
 from dnncancerannotator_torch.runs.__main__ import main as cli
 from dnncancerannotator_torch.train import losses
 
@@ -152,6 +157,30 @@ def _steps(job, rank):
     _save(job, rank, losses=np.asarray(got), **_state(eng))
 
 
+def _zero_halo(buf, xt, *args):
+    '''``mesh.unpack`` with the neighbours' rows replaced by zeros.'''
+    return tuple(torch.zeros_like(t) for t in _unpack(buf, xt, *args))
+
+
+_unpack = mesh.unpack
+
+
+class _F64Augment:
+    '''``data.augment`` for the engine, its features and labels in
+    float64.'''
+
+    def __getattr__(self, name):
+        return getattr(augment, name)
+
+    @staticmethod
+    def to_feature_label(images, slice_types):
+        return tuple(t.double() for t in augment.to_feature_label(
+            images, slice_types))
+
+
+_F64_AUGMENT = _F64Augment()
+
+
 def train(job, rank):
     '''``Engine.train`` for ``max_steps`` steps on ``records``.'''
     config = job['config']
@@ -159,8 +188,26 @@ def train(job, rank):
                         device=job.get('device', 'cpu'))
     ds = pipeline.train_ds(job['records'], **config['data_options']['train'])
     kernels.reset_launches()
-    res = eng.train(ds, max_steps=job['max_steps'], save_freq=1 << 30)
+    if job.get('f64'):
+        eng.build(ds.feature_shape)
+        eng.model.double()
+        engine.augment_mod = _F64_AUGMENT
+    if job.get('control') == 'zero_halo':
+        mesh.unpack = _zero_halo
+    try:
+        res = eng.train(ds, max_steps=job['max_steps'], save_freq=1 << 30)
+    finally:
+        mesh.unpack = _unpack
+        engine.augment_mod = augment
     launches = {f'launches/{k}': v for k, v in kernels.launch_counts().items()}
+    if job.get('f64'):   # by torch name, unrounded
+        _save(job, rank, losses=np.asarray(res.history['loss']), **{
+            f'{kind}/{name}': t.detach().double().numpy()
+            for kind, items in (('grad', ((n, p.grad) for n, p in
+                                          eng.model.named_parameters())),
+                                ('stat', eng.model.named_buffers()))
+            for name, t in items})
+        return
     _save(job, rank, losses=np.asarray(res.history['loss']), **_state(eng),
           **_grads(eng), **launches)
 

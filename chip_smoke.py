@@ -327,6 +327,23 @@ Phases (each raises on failure, so the process exits non-zero):
    and collages/s, ``detect_internals`` ms a collage on the card against
    the CPU path (in turns; also batched 8 a call) and ``extract_label``
    ms a pane.
+20. the JAX package's Orbax checkpoints (the committed fixtures of
+   tools/make_torch_orbax_fixture.py under tests/fixtures_torch/orbax/:
+   unet.yaml at full width and unet_big.yaml with 4 first filters, each a
+   JAX save_path): (a) the host library with the zstd decoder builds, and
+   every array ``ckpt.orbax`` reads from both is the same bits as its
+   ``expected.npz``; (b) ``predict`` (npy) of phase 4's records from the
+   unet.yaml JAX run writes the bytes of ``predict`` from its npz twin
+   (written here from expected.npz in the port's layout); (c) ``evaluate``
+   with metrics.yaml: results.csv (the loss and the region metrics) and
+   casewise_results.csv the same bytes as the twin's; (d) ``train`` resumes
+   each fixture for ORBAX_STEPS steps on phase 5's exams (ORBAX_OVERLAY: a
+   16-field bank), cuDNN deterministic: steps ``step + 1`` on, the losses
+   and every tensor of the model the same bits as a resume from the twin,
+   the unet.yaml step's kernels launched; (e) each fixture's load ms (Orbax
+   and npz, in turns) and the decoder's MB/s, median of ORBAX_TIMED. Every
+   count is set to 0 before each predict, evaluate and train call and read
+   after it.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -6283,6 +6300,231 @@ def extract_slice(device, smi):
     extract_times(device, shots, smi)
 
 
+# -- phase 20 -----------------------------------------------------------------
+# the JAX package's Orbax checkpoints: the committed fixtures of
+# tools/make_torch_orbax_fixture.py (unet.yaml at full width, unet_big with 4
+# first filters), each run directory beside the flat arrays the JAX engine
+# saved (``<name>.expected.npz``)
+ORBAX_FIXTURES = os.path.join(REPO, 'tests', 'fixtures_torch', 'orbax')
+ORBAX_NAMES = ('unet', 'bn')
+ORBAX_STEPS = 3          # train steps of each resume
+ORBAX_TIMED = 10         # load timings a fixture and format, in turns
+# phase 20's train overlay: the bank and the chunk of a 3-step resume
+ORBAX_OVERLAY = {'deploy_options.warp_bank_size': 16,
+                 'deploy_options.steps_per_call': ORBAX_STEPS}
+
+
+def _orbax_fixture(name):
+    '''(run directory, checkpoint directory, expected flat dict).'''
+    run = os.path.join(ORBAX_FIXTURES, name)
+    (ckpt,) = os.listdir(os.path.join(run, 'checkpoints'))
+    with np.load(os.path.join(ORBAX_FIXTURES, f'{name}.expected.npz')) as npz:
+        expected = {k: npz[k] for k in npz.files}
+    return run, os.path.join(run, 'checkpoints', ckpt), expected
+
+
+def _same_bits(label, got, want):
+    if sorted(got) != sorted(want):
+        raise AssertionError(f'{label}: keys {sorted(set(got) ^ set(want))}')
+    for key, value in want.items():
+        g = np.asarray(got[key])
+        if (g.dtype, g.shape) != (value.dtype, value.shape) or \
+                g.tobytes() != value.tobytes():
+            raise AssertionError(f'{label}: {key} differs')
+
+
+def _orbax_runs(work, name):
+    """A copy of fixture ``name``'s JAX run and its npz twin (options.yaml
+    with ORBAX_OVERLAY, ``params.npz`` and ``opt_state.npz`` written from
+    expected.npz in the port's layout); returns (jax run, twin, step)."""
+    import yaml
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    src, ckpt, expected = _orbax_fixture(name)
+    jax_run, twin = (os.path.join(work, n) for n in (name, f'{name}_twin'))
+    shutil.copytree(src, jax_run)
+    options_path = os.path.join(jax_run, 'options.yaml')
+    with open(options_path) as fh:
+        options = yaml.safe_load(fh)
+    options['config'] = config_lib.apply_config(options['config'],
+                                                dict(ORBAX_OVERLAY))
+    with open(options_path, 'w') as fh:
+        yaml.safe_dump(options, fh)
+    twin_ckpt = os.path.join(twin, 'checkpoints', os.path.basename(ckpt))
+    os.makedirs(twin_ckpt)
+    shutil.copy(options_path, twin)
+    model = {k: v for k, v in expected.items()
+             if k.split('/')[0] in ('params', 'batch_stats')}
+    np.savez(os.path.join(twin_ckpt, 'params.npz'), **model)
+    np.savez(os.path.join(twin_ckpt, 'opt_state.npz'),
+             **{k: v for k, v in expected.items()
+                if k not in model and k != 'count'})
+    return jax_run, twin, int(expected['step'])
+
+
+def _files_equal(label, a, b):
+    '''Every file under ``a`` has the bytes of the same file under ``b``;
+    returns their number.'''
+    names, other = (sorted(os.path.relpath(os.path.join(d, f), root)
+                           for d, _, files in os.walk(root) for f in files)
+                    for root in (a, b))
+    if names != other or not names:
+        raise AssertionError(f'{label}: {len(names)} and {len(other)} files')
+    for name in names:
+        with open(os.path.join(a, name), 'rb') as fa, \
+                open(os.path.join(b, name), 'rb') as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f'{label}: {name} differs')
+    return len(names)
+
+
+def _counted(label, fn, need=()):
+    '''fn() with every kernel count set to 0 before it; raises if a kernel
+    of ``need`` did not launch. Returns (its result, the counts).'''
+    from dnncancerannotator_torch.ops import kernels
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    missing = [k for k in need if not counts.get(k)]
+    if missing:
+        raise AssertionError(f'{label}: {missing} never launched ({counts})')
+    return out, counts
+
+
+def orbax_load_rates(smi):
+    '''(e) Each fixture's load (``engine.read_ckpt``: the Orbax reader, and
+    np.load of its npz twin, in turns) and the decoder's rate over its
+    chunks, median of ORBAX_TIMED, on the host of the card.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ckpt import ocdbt, zstd
+
+    for name in ORBAX_NAMES:
+        _, ckpt, _ = _orbax_fixture(name)
+        twin = os.path.join(WORK, 'orbax', f'{name}_twin', 'checkpoints',
+                            os.path.basename(ckpt))
+        times = {'orbax': [], 'npz': []}
+        for _ in range(ORBAX_TIMED):
+            for label, path in (('orbax', ckpt), ('npz', twin)):
+                start = time.perf_counter()
+                engine.read_ckpt(path)
+                times[label].append(time.perf_counter() - start)
+        store = ocdbt.OcdbtStore(ckpt)
+        frames = [store.read(k) for k in store.keys()
+                  if not k.endswith('/.zarray')]
+        sizes = [len(zstd.decompress(f)) for f in frames]
+        decode = []
+        for _ in range(ORBAX_TIMED):
+            start = time.perf_counter()
+            for frame, size in zip(frames, sizes):
+                zstd.decompress(frame, size)
+            decode.append(time.perf_counter() - start)
+        total = sum(sizes)
+        ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+        log(f'phase 20 load {name}: Orbax {ms["orbax"]:.3f} ms, npz twin '
+            f'{ms["npz"]:.3f} ms (engine.read_ckpt, median of '
+            f'{ORBAX_TIMED}, in turns); zstd {len(frames)} chunks, '
+            f'{sum(map(len, frames))} -> {total} bytes at '
+            f'{total / statistics.median(decode) / 1e6:.1f} MB/s (median of '
+            f'{ORBAX_TIMED}) [{smi}]')
+
+
+def orbax_slice(device, data_paths, train_paths, smi):
+    '''Phase 20; see the module docstring.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ckpt import orbax
+    from dnncancerannotator_torch.data import _native, pipeline
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    # (a) the host library and every array of both fixtures
+    _native.library()
+    for name in ORBAX_NAMES:
+        _, ckpt, expected = _orbax_fixture(name)
+        _same_bits(f'phase 20 {name}', orbax.read_checkpoint(ckpt), expected)
+        log(f'phase 20 read {name}: {len(expected)} arrays the same bits as '
+            f'{name}.expected.npz ({os.path.basename(ckpt)})')
+    work = os.path.join(WORK, 'orbax')
+    runs = {name: _orbax_runs(work, name) for name in ORBAX_NAMES}
+
+    # (b) predict on the unet.yaml JAX run and on its twin
+    jax_run, twin, step = runs['unet']
+    maps = {}
+    for label, save in (('jax_run', jax_run), ('twin', twin)):
+        out = os.path.join(work, f'maps_{label}')
+        n, counts = _counted(f'phase 20 predict {label}', lambda: cli(argv=[
+            'predict', '--save_path', save, '--data_path', *data_paths,
+            '--output_path', out, '--output_format', 'npy', '--device',
+            device.type]), ('conv_chain', 'tconv2x2', 'stencil_conv'))
+        maps[label] = out
+        log(f'phase 20 predict {label}: {n} maps, launches {counts}')
+    n = _files_equal('phase 20 predict', maps['jax_run'], maps['twin'])
+    log(f'phase 20 predict: {n} maps of the JAX run the same bytes as the '
+        'twin\'s')
+
+    # (c) evaluate both with metrics.yaml
+    metrics_config = os.path.join(REPO, METRICS_CONFIG)
+    for label, save in (('jax_run', jax_run), ('twin', twin)):
+        _, counts = _counted(f'phase 20 evaluate {label}', lambda: cli(argv=[
+            'evaluate', '--save_path', save, '--data_path', *data_paths,
+            '--tag', 'orbax', '--config', metrics_config, '--export_csv',
+            '--skip_visualization', '--device', device.type]),
+            ('conv_chain', 'cca'))
+        log(f'phase 20 evaluate {label}: launches {counts}')
+    tables = [os.path.join(s, 'tfevents', 'orbax', name)
+              for name in ('results.csv', 'casewise_results.csv')
+              for s in (jax_run, twin)]
+    for path, twin_path in zip(tables[::2], tables[1::2]):
+        with open(path, 'rb') as fa, open(twin_path, 'rb') as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f'phase 20 evaluate: {path} differs '
+                                     'from the twin\'s')
+    rows = _read_csv(tables[0])
+    log(f'phase 20 evaluate: results.csv {rows} and casewise_results.csv '
+        'the same bytes as the twin\'s')
+
+    # (d) train resumes from both fixtures and from their twins
+    need = {'unet': tuple(TRAIN_SITES), 'bn': ('warp_twopass',)}
+    for name, (jax_run, twin, step) in runs.items():
+        got = {}
+        for label, save in (('jax_run', jax_run), ('twin', twin)):
+            config = config_lib.load_config(
+                os.path.join(save, 'options.yaml'))['config']
+
+            def resume():
+                eng = engine.Engine(config, seed=SEED, device=device)
+                with _deterministic_cudnn():
+                    res = eng.train(pipeline.train_ds(
+                        train_paths, **config['data_options']['train']),
+                        save_path=save, max_steps=step + ORBAX_STEPS,
+                        save_freq=10 ** 6)
+                return res, eng.model.state_dict()
+
+            (res, params), counts = _counted(
+                f'phase 20 train {name} {label}', resume, need[name])
+            got[label] = (res.epoch, res.history['loss'], params)
+            log(f'phase 20 train {name} {label}: steps {res.epoch}, losses '
+                f'{res.history["loss"]}, launches {counts}')
+        (epoch, loss, params), (epoch_t, loss_t, params_t) = \
+            got['jax_run'], got['twin']
+        if epoch != epoch_t or epoch != list(range(step + 1, step + 1 +
+                                                   ORBAX_STEPS)):
+            raise AssertionError(f'phase 20 train {name}: steps {epoch}, '
+                                 f'{epoch_t} after step {step}')
+        if loss != loss_t or not np.isfinite(loss).all():
+            raise AssertionError(f'phase 20 train {name}: losses {loss}, '
+                                 f'twin {loss_t}')
+        moved = [k for k in params if not torch.equal(params[k], params_t[k])]
+        if moved:
+            raise AssertionError(f'phase 20 train {name}: {moved} differ')
+        log(f'phase 20 train {name}: {ORBAX_STEPS} steps from step {step}, '
+            f'losses and {len(params)} tensors the same bits as the twin\'s')
+
+    # (e) load and decode rates
+    orbax_load_rates(smi)
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -6360,6 +6602,8 @@ def main():
                           dp_steps, dp_refs, smi)
         with phase('18 extract_all'):
             extract_slice(device, smi)
+        with phase('20 Orbax checkpoints'):
+            orbax_slice(device, data_paths, train_paths, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()

@@ -1,11 +1,14 @@
-'''Build the host data layer's C++ library with g++ and bind it with ctypes.
+'''Build the port's C++ host library with g++ and bind it with ctypes.
 
-The sources are ``csrc/host/tfrecord_io.cc`` (CRC32C, slicing-by-8) and
-``csrc/host/exam_decoder.cc`` (the one-pass exam decode and channel gather).
-They compile into one shared library at first use:
+The sources are ``csrc/host/tfrecord_io.cc`` (CRC32C, slicing-by-8),
+``csrc/host/exam_decoder.cc`` (the one-pass exam decode and channel gather)
+and ``csrc/host/zstd_decode.cc`` (the Zstandard decoder that the reader of
+the JAX package's Orbax checkpoints, ckpt/, runs on every OCDBT file and
+zarr chunk). They compile into one shared library at first use:
 
     g++ -O3 -shared -fPIC -std=c++17 -Wall -o build/torch_host/<lib>.so \\
-        csrc/host/tfrecord_io.cc csrc/host/exam_decoder.cc
+        csrc/host/tfrecord_io.cc csrc/host/exam_decoder.cc \\
+        csrc/host/zstd_decode.cc
 
 The library goes under ``build/torch_host/`` beside the package and is named
 by a hash of the sources and flags, so a changed source builds anew. A build
@@ -28,7 +31,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOST_SRC_DIR = os.path.join(_PKG_DIR, 'csrc', 'host')
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), 'build', 'torch_host')
-SOURCES = ('tfrecord_io.cc', 'exam_decoder.cc')
+SOURCES = ('tfrecord_io.cc', 'exam_decoder.cc', 'zstd_decode.cc')
 CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-Wall')
 
 _I64 = ctypes.c_int64
@@ -47,6 +50,11 @@ _SIGNATURES = {
         ctypes.c_char_p, _I64,          # category
         ctypes.c_char_p, _I64,          # comma-joined slice types
     ], _I64),
+    'zstd_decompress': ([
+        ctypes.c_void_p, _I64,          # frames, their length
+        ctypes.c_void_p, _I64,          # out (NULL: count only), its size
+        ctypes.c_char_p, _I64,          # error message, its capacity
+    ], _I64),
 }
 
 _lock = threading.Lock()
@@ -57,7 +65,7 @@ build_seconds = None  # wall time of the last build in this process
 def _cxx():
     path = shutil.which(os.environ.get('CXX', 'g++'))
     if path is None:
-        raise RuntimeError('g++ not found on PATH; the host data library '
+        raise RuntimeError('g++ not found on PATH; the host library '
                            f'({", ".join(SOURCES)}) cannot be built')
     return path
 
@@ -92,7 +100,7 @@ def build():
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(
-                f'g++ failed building the host data library '
+                f'g++ failed building the host library '
                 f'({proc.returncode}):\n{(proc.stdout + proc.stderr)[-4000:]}')
         os.replace(tmp, target)
     finally:

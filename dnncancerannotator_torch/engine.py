@@ -112,8 +112,13 @@ optimizer's state under optax's names by flax parameter path
 ``trace/<path>`` for SGD momentum, ``nu`` and ``trace`` (and ``mu`` when
 centered) for RMSprop, ``sum_of_squares`` for Adagrad, ``e_g`` and ``e_x``
 for Adadelta, ``mu`` for Lion; train/optimizers.py) in the same layout,
-and ``step``. numpy reads both without JAX; reading the JAX
-package's Orbax checkpoints is not ported yet.
+and ``step``. numpy reads both without JAX. ``load`` (and so ``evaluate``,
+``predict``, ``export_model`` and ``train``'s resume) also reads the JAX
+package's checkpoints as its engine saves them, without orbax or
+tensorstore (``read_ckpt``, ckpt/): Orbax's OCDBT store of zarr v2 arrays,
+zstd-compressed, with the optimizer's state in the param-tree layout or the
+flat interim one; the optimizer then steps on from the chain's ``count``.
+Saving stays in the port's npz form.
 '''
 
 import contextlib
@@ -137,6 +142,7 @@ import torch
 from . import convert
 from . import metrics as metrics_lib
 from . import models as models_lib
+from .ckpt import orbax as orbax_lib
 from .data import augment as augment_mod
 from .ops import gates as gates_lib
 from .parallel import mesh as mesh_lib
@@ -332,6 +338,28 @@ class TrainResults:
             self.history.setdefault(k, []).append(float(v))
 
 
+def read_ckpt(path, opt_state=True):
+    '''The checkpoint directory ``path`` as one flat dict of numpy arrays
+    (the flax-keyed params, and with ``opt_state`` the optimizer's entries
+    and ``step``): the port's ``params.npz`` and ``opt_state.npz``, or the
+    JAX package's Orbax checkpoint (ckpt/orbax.py).'''
+    params_path = os.path.join(path, PARAMS_FILE)
+    if os.path.isfile(params_path):
+        with np.load(params_path) as npz:
+            flat = {key: npz[key] for key in npz.files}
+        opt_path = os.path.join(path, OPT_STATE_FILE)
+        if opt_state and os.path.isfile(opt_path):
+            with np.load(opt_path) as npz:
+                flat.update((key, npz[key]) for key in npz.files)
+        return flat
+    if orbax_lib.is_checkpoint(path):
+        return orbax_lib.read_checkpoint(path, opt_state=opt_state)
+    raise ValueError(
+        f'{path} holds neither checkpoint format: the port\'s '
+        f'({PARAMS_FILE}) or the JAX package\'s Orbax checkpoint '
+        f'({orbax_lib.METADATA} and {orbax_lib.ocdbt.MANIFEST})')
+
+
 class Engine:
     '''A model plus its training and prediction machinery on one device.'''
 
@@ -476,12 +504,13 @@ class Engine:
                 flat[f'{optax_name}/{path}'] = value
         return flat
 
-    def _load_opt_state(self, path):
+    def _load_opt_state(self, flat):
+        '''Set the optimizer's state from a checkpoint's flat dict: its
+        ``<optax name>/params/...`` moments, at ``count`` (an Orbax
+        checkpoint's update count) or else ``step``.'''
         params = dict(self.model.named_parameters())
         expected = {name: p.detach() for name, p in params.items()}
-        with np.load(path) as npz:
-            flat = {key: npz[key] for key in npz.files}
-        step = float(flat.pop('step'))
+        step = float(flat['count'] if 'count' in flat else flat['step'])
         for key, optax_name in optimizers_lib.state_names(
                 self.optimizer).items():
             group = {k.split('/', 1)[1]: v for k, v in flat.items()
@@ -495,19 +524,20 @@ class Engine:
                 entry['step'] = torch.tensor(step)
 
     def load(self, path):
-        '''Load a checkpoint directory into the built model, and its
-        optimizer state when it has one and the engine is set up to
-        train.'''
+        '''Load a checkpoint directory (the port's or the JAX package's,
+        ``read_ckpt``) into the built model, and its optimizer state when it
+        has one and the engine is set up to train.'''
         if self.model is None:
             raise RuntimeError('call build() before load()')
-        with np.load(os.path.join(path, PARAMS_FILE)) as npz:
-            flat = {key: npz[key] for key in npz.files}
+        flat = read_ckpt(path, opt_state=self.optimizer is not None)
+        model_flat = {k: v for k, v in flat.items()
+                      if k.split('/', 1)[0] in ('params', 'batch_stats')}
         state = convert.torch_state_from_flax(
-            flat, expected=self.model.state_dict())
+            model_flat, expected=self.model.state_dict())
         self.model.load_state_dict(state)
-        opt_path = os.path.join(path, OPT_STATE_FILE)
-        if self.optimizer is not None and os.path.exists(opt_path):
-            self._load_opt_state(opt_path)
+        opt_flat = {k: v for k, v in flat.items() if k not in model_flat}
+        if self.optimizer is not None and opt_flat:
+            self._load_opt_state(opt_flat)
         return self
 
     def _auto_resume(self, base_path):

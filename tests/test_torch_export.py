@@ -164,6 +164,20 @@ def test_artifact_matches_jax_artifact(runs, loaded, name, batch):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize('name', sorted(CASES))
+def test_export_reads_the_jax_run(runs, loaded, tmp_path, name):
+    '''export_model on the JAX save_path itself (its Orbax checkpoint,
+    read by the port's ckpt/) gives the artifact of its npz twin, to the
+    bit, and the JAX artifact's maps within 1e-5.'''
+    case = runs[name]
+    art = torch_export.export_model(case['jax'], str(tmp_path / 'art'))
+    x = _features(3, 11)
+    got = loaded(art)(x)
+    assert torch.equal(got, loaded(case['torch_art'])(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        loaded(case['jax_art'])(x)), rtol=0, atol=1e-5)
+
+
 def _graph(path):
     program = torch.export.load(path)
     return [(node.op, str(node.target)) for node in program.graph.nodes]

@@ -1405,3 +1405,52 @@ def test_corner_response_on_the_card(cuda, seed):
                                     'valid'))
     assert [tuple(map(int, b)) for b in ex.detect_internals(
         img, device=cuda)] == boxes
+
+
+@pytest.mark.parametrize('name', ['unet', 'bn'])
+def test_orbax_fixture_loads_onto_the_card(cuda, name):
+    '''A committed JAX package checkpoint (tests/fixtures_torch/orbax/, an
+    Orbax OCDBT store) loads into an Engine on the card: every parameter,
+    BatchNorm statistic and optimizer moment equals the fixture's
+    expected.npz, to the bit.'''
+    import numpy as np
+    from dnncancerannotator_torch import convert, engine
+    from dnncancerannotator_torch.train import optimizers
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'fixtures_torch', 'orbax')
+    run = os.path.join(root, name)
+    config = config_lib.load_config(
+        os.path.join(run, 'options.yaml'))['config']
+    eng = engine.Engine(config, device=cuda)
+    eng.build((1, 64, 64, 5))
+    eng.optimizer, eng.schedule = optimizers.solve_optimizer(
+        config['deploy_options'].get('optimizer', 'adam'),
+        eng.model.parameters(), eng.schedule)
+    ckpts = eng.get_ckpts(os.path.join(run, 'checkpoints'))
+    eng.load(ckpts[max(ckpts)])
+    with np.load(os.path.join(root, f'{name}.expected.npz')) as npz:
+        expected = {k: npz[k] for k in npz.files}
+    model = {k: v for k, v in expected.items()
+             if k.split('/')[0] in ('params', 'batch_stats')}
+    want = convert.torch_state_from_flax(model)
+    got = eng.model.state_dict()
+    assert sorted(got) == sorted(want)
+    for key, value in want.items():
+        assert got[key].device.type == 'cuda'
+        assert torch.equal(got[key].float().cpu(), value), key
+    names = {p: n for n, p in eng.model.named_parameters()}
+    state_names = optimizers.state_names(eng.optimizer)
+    moments = 0
+    for param, state in eng.optimizer.state.items():
+        for key, optax_name in state_names.items():
+            flat = convert.flax_from_torch_state(
+                {names[param]: state[key].cpu()})
+            for path, value in flat.items():
+                want_value = expected[f'{optax_name}/{path}']
+                assert state[key].device.type == 'cuda'
+                assert value.tobytes() == want_value.tobytes(), path
+                moments += 1
+        assert float(state['step']) == float(expected['count'])
+    assert moments == 2 * len(eng.optimizer.state)

@@ -1,5 +1,6 @@
-'''The port stands alone: it never imports JAX, OpenCV or the JAX package,
-its host library builds from its own sources into build/torch_host/ and
+'''The port stands alone: it never imports JAX, OpenCV, orbax, tensorstore,
+zstandard or the JAX package (and reads a JAX checkpoint without them), its
+host library builds from its own sources into build/torch_host/ and
 nothing of the root native/ directory is loaded, and it never picks the
 CPU when a GPU was asked for and none is visible.'''
 
@@ -15,6 +16,7 @@ _PROBE = '''
 import contextlib, io, os, sys
 import dnncancerannotator_torch
 from dnncancerannotator_torch import convert, engine
+from dnncancerannotator_torch.ckpt import ocdbt, orbax, zarr, zstd
 from dnncancerannotator_torch import metrics
 from dnncancerannotator_torch.data import (_native, augment, pipeline,
                                            records, tfrecord)
@@ -58,6 +60,13 @@ assert lib.startswith(os.path.join(repo, 'build', 'torch_host') + '/'), lib
 with open('/proc/self/maps') as fh:
     maps = fh.read()
 assert lib in maps, lib
+# a JAX package checkpoint, read with none of orbax, tensorstore, zstandard
+ckpts = os.path.join(repo, 'tests', 'fixtures_torch', 'orbax', 'unet',
+                     'checkpoints')
+(ckpt,) = os.listdir(ckpts)
+flat = orbax.read_checkpoint(os.path.join(ckpts, ckpt))
+assert ckpt == 'ckpt-%d' % int(flat['step'])
+assert 'mu/params/last_conv/bias' in flat
 assert os.path.join(repo, 'native') + '/' not in maps
 import torch
 from dnncancerannotator_torch import models
@@ -73,7 +82,7 @@ for name, opts in (('UNetAnnotator', {'f32_head': True}),
 leaked = sorted(m for m in sys.modules
                 if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                        'orbax', 'dnncancerannotator_tpu',
-                                       'cv2'))
+                                       'cv2', 'zstandard', 'tensorstore'))
 assert not leaked, leaked
 assert mesh.group() is None and multihost.is_primary()
 print('isolated')

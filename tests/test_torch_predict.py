@@ -92,6 +92,34 @@ def test_predict_cli_matches_jax(records, save_paths, tmp_path,
                                    err_msg=name)
 
 
+def test_predict_reads_the_jax_run(records, save_paths, tmp_path):
+    '''predict on the JAX save_path itself (its Orbax checkpoint, read by
+    the port's ckpt/) writes the maps of its npz twin, to the bit, and the
+    JAX package's within 1e-5.'''
+    from dnncancerannotator_tpu.runs.predict import predict as jax_predict
+    from dnncancerannotator_torch.runs.__main__ import main as torch_main
+
+    jax_save, torch_save = save_paths
+    maps = {}
+    for name, save in (('jax_run', jax_save), ('twin', torch_save)):
+        out = str(tmp_path / name)
+        torch_main(argv=[
+            'predict', '--save_path', save, '--data_path', *records,
+            '--output_path', out, '--batch_size', '5', '--output_format',
+            'npy', '--device', 'cpu'])
+        maps[name] = _maps(out, 'npy')
+    jax_out = str(tmp_path / 'jax_out')
+    jax_predict(jax_save, records, jax_out, batch_size=5,
+                output_format='npy')
+    want = _maps(jax_out, 'npy')
+    assert sorted(maps['jax_run']) == sorted(maps['twin']) == sorted(want)
+    for name in want:
+        got = maps['jax_run'][name]
+        assert got.tobytes() == maps['twin'][name].tobytes(), name
+        np.testing.assert_allclose(got, want[name], rtol=0, atol=1e-5,
+                                   err_msg=name)
+
+
 def test_eval_dataset_matches_jax(records):
     from dnncancerannotator_tpu.data import pipeline as jax_pipeline
     from dnncancerannotator_torch.data import pipeline as torch_pipeline

@@ -344,6 +344,34 @@ Phases (each raises on failure, so the process exits non-zero):
    and npz, in turns) and the decoder's MB/s, median of ORBAX_TIMED. Every
    count is set to 0 before each predict, evaluate and train call and read
    after it.
+21. model geometries (after phase 20): (a) unet.yaml at upsampling rate 3
+   (GEO_OVERLAY: 243 x 243 train and eval crops, 3 ** 3 dividing them;
+   B=8, the banked warp and phase 5's steps_per_call) through the CLI:
+   ``train`` GEO_STEPS steps (every loss finite, ckpt-25 and ckpt-50, each
+   fused chain and the head conv and their backwards and the warp
+   launched every step, no 2x2 tconv, each kernel call's route printed
+   and the chains at 243, 81 and 27); the five chains forward (with c1)
+   and backward on a seeded forward's activations against their plain
+   versions as 3b holds them, and the warp at [8, 243, 243, 6] on a bank
+   flow exactly equal to its plain version, each at the library's
+   launches a call, with CUDA-event times beside the plain version and
+   its bound; the train throughput as phase 5 takes it, printed beside
+   phase 5's; ``evaluate`` with metrics.yaml (``model_eval``: every
+   region count equal to the plain CCA's, each CCA call's route
+   printed); ``predict`` within MAP_TOL of a plain forward; one seeded
+   step against the plain step (phase 13's rule); (b) rate 4 on the
+   shipped 256 x 256 crops: one seeded step likewise; (c) unet.yaml at
+   VALID (B=8, 256 x 256 in, VALID_OUT out): its nine 3x3 convs on the
+   stencil kernel with zero pads, forward and backward against their
+   plain versions (KERNEL_TOL; DX_TOL, DW_TOL, F64_RATIO), at the
+   library's launches a call, timed beside ``F.conv2d`` and
+   ``convolution_backward``; the model's forward within MAP_TOL of the
+   plain forward; ``predict`` raising a ValueError, as the JAX engine's
+   raises there; (d) conv_stride 2: UNetAnnotator (unet.yaml) and
+   MulmoUNetAnnotator (mulmo_unet.yaml, 2 levels) at 512 x 512 through the
+   kernels against the same forward under ``gates.library_only()``,
+   finite and of the side the geometry gives. Its times are CUDA events
+   alone (``_time_sites``: no profiler window).
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -354,7 +382,9 @@ Phases (each raises on failure, so the process exits non-zero):
    times summed over MulmoUNet's sites.
 
 Each phase's wall time is printed when it ends. The last three lines of
-stdout are a JSON object of per-kernel results for all fourteen kernels,
+stdout are a JSON object of per-kernel results for all fourteen kernels
+(with each one's launches in phase 21's rate-3 train call,
+``rate3_launches``),
 the NCHW stencil conv's tile route (``stencil_conv_tile``) and the six
 bf16 forms (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
@@ -936,6 +966,7 @@ def kernel_sites(model, device, results):
 # kernel and the partial sums' finish; the tconv backward's and the head
 # conv's backward's (the pointwise route): one
 CHAIN_BWD_LAUNCHES = 2
+CHAIN_BWD_SPLIT_LAUNCHES = 5   # a plan that is not fused: + csrc/wgrad.cu
 TCONV_BWD_LAUNCHES = 1
 STENCIL_BWD_LAUNCHES = 1
 # the two warp kernels' launches a call, on either route
@@ -1243,10 +1274,10 @@ def plain_forward(model, x):
 
 
 def _check_maps(model, data_paths, out_dir, n_slices, reference=None,
-                exact=None):
+                exact=None, size=SIZE):
     '''The predict CLI's maps: one file per slice, finite, in [0, 1], and
     within MAP_TOL of the plain forward of ``model`` on the card (or of
-    ``reference``, NHWC features -> probabilities).
+    ``reference``, NHWC features -> probabilities), at ``size`` x ``size``.
 
     With ``exact`` (the f64 forward, the same features -> probabilities),
     maps further than that from the plain f32 forward are held to it as
@@ -1259,7 +1290,7 @@ def _check_maps(model, data_paths, out_dir, n_slices, reference=None,
 
     reference = reference or (lambda x: plain_forward(model, x))
     device = next(model.parameters()).device
-    ds = pipeline.predict_ds(data_paths, output_size=(SIZE, SIZE),
+    ds = pipeline.predict_ds(data_paths, output_size=(size, size),
                              batch_size=BATCH)
     worst, n_files = 0.0, 0
     worst64 = plain64 = 0.0   # from the f64 forward: the maps, the plain
@@ -1273,7 +1304,7 @@ def _check_maps(model, data_paths, out_dir, n_slices, reference=None,
                 path = os.path.join(out_dir, *meta['path'].split('/')[-3:],
                                     f"{meta['sliceID']:02d}.npy")
                 got = np.load(path)
-                if got.shape != (SIZE, SIZE) or not np.isfinite(got).all() \
+                if got.shape != (size, size) or not np.isfinite(got).all() \
                         or got.min() < 0 or got.max() > 1:
                     raise AssertionError(f'bad map {path}: {got.shape}, '
                                          f'[{got.min()}, {got.max()}]')
@@ -1545,7 +1576,14 @@ def train_slice(device):
     _DEFERRED.append(lambda: _profile_steps(
         'unet.yaml train step', lambda: eng.train_step(raw, last, gen)))
 
-    # throughput: train calls that differ only in step count, min of three
+    RATES['unet.yaml (phase 5)'] = _train_rate(eng, ds, 'train')
+    return launches, save_path, data_paths
+
+
+def _train_rate(eng, ds, label):
+    '''Train throughput in slices/s from ``Engine.train`` calls that differ
+    only in step count (25 and 100), each the minimum of three, after a
+    warm-up call.'''
     short, long = 25, 100
     eng.train(ds, max_steps=eng.current_step + 10, save_freq=1 << 30)
     times = {}
@@ -1558,11 +1596,10 @@ def train_slice(device):
             times.setdefault(n, []).append(time.perf_counter() - start)
     rate = (long - short) * TRAIN_BATCH / (min(times[long]) -
                                            min(times[short]))
-    RATES['unet.yaml (phase 5)'] = rate
-    log(f'train throughput: {rate:.2f} slices/s ({short}-step calls '
+    log(f'{label} throughput: {rate:.2f} slices/s ({short}-step calls '
         f'{times[short]} s, {long}-step calls {times[long]} s; '
-        f'steps_per_call {STEPS_PER_CALL})')
-    return launches, save_path, data_paths
+        f'steps_per_call {eng.steps_per_call})')
+    return rate
 
 
 # -- phase 3c ----------------------------------------------------------------
@@ -3369,7 +3406,7 @@ def check_f64_step(eng, ds, raw, draws, modules, label):
                              f'{loss_share}, {worst}')
 
 
-def model_eval(device, val_paths, run, step, label):
+def model_eval(device, val_paths, run, step, label, size=SIZE):
     '''The evaluate CLI with metrics.yaml on ckpt-``step`` of ``run``
     (batch 64, the phase-4 records, the Visualizer with the casewise
     metrics): one results row with the loss and the 13 metrics, the CCA
@@ -3413,9 +3450,9 @@ def model_eval(device, val_paths, run, step, label):
     config = config_lib.load_config(os.path.join(run, 'options.yaml'))[
         'config']
     eng = engine.Engine(config, seed=SEED, device=device)
-    eng.build((BATCH, SIZE, SIZE, 5))
+    eng.build((BATCH, size, size, 5))
     eng.load(os.path.join(run, 'checkpoints', f'ckpt-{step}'))
-    x = torch.rand((4, SIZE, SIZE, 5), device=device)
+    x = torch.rand((4, size, size, 5), device=device)
     with eng.scope():
         _, sens = viz.input_sensitivity(eng.model, x)
     log(f'{label} input sensitivity of 4 slices: {sens.cpu().numpy()}')
@@ -5625,7 +5662,7 @@ def _route_rules():
     a TUNED table may override the rule, else ``route``).'''
     K = {n: _kernel_module(n) for n in (
         'conv_chain', 'conv_chain_bwd', 'stencil_conv', 'stencil_conv_bwd',
-        'tconv2x2_bwd', 'warp_twopass', 'stencil_conv_nhwc')}
+        'tconv2x2_bwd', 'warp_twopass', 'stencil_conv_nhwc', 'cca')}
     pads = K['stencil_conv']._pads
     return {
         'conv_chain': lambda x, w1, b1, w2, b2, *a, **k: K['conv_chain'].plan(
@@ -5652,7 +5689,8 @@ def _route_rules():
             'stencil_conv_nhwc'].route(x.shape[0], x.shape[1], x.shape[2],
                                        w.shape[1], w.shape[0], w.shape[2],
                                        w.shape[3], pads(p),
-                                       x.element_size())}
+                                       x.element_size()),
+        'cca': lambda masks: K['cca'].route(*masks.shape)}
 
 
 @contextlib.contextmanager
@@ -5664,13 +5702,15 @@ def _route_log():
     names = ('conv_chain', 'conv_chain_bwd', 'stencil_conv',
              'stencil_conv_bwd', 'tconv2x2', 'tconv2x2_bwd', 'pool2x2_nhwc',
              'pool2x2_nhwc_bwd', 'tconv2x2_nhwc', 'tconv2x2_nhwc_bwd',
-             'warp_twopass', 'stencil_conv_nhwc')
+             'warp_twopass', 'stencil_conv_nhwc', 'cca')
+    wrappers = {'cca': 'cca_raw_labels'}   # else the module's own name
     lines, saved = [], []
-    for name in names:
-        module = _kernel_module(name)
+    for module_name in names:
+        module = _kernel_module(module_name)
+        name = wrappers.get(module_name, module_name)
         real = getattr(module, name)
 
-        def logged(*args, _real=real, _name=name, **kwargs):
+        def logged(*args, _real=real, _name=module_name, **kwargs):
             rule = rules.get(_name)
             route = rule(*args, **kwargs) if rule else 'one route'
             line = f'{_name} {list(args[0].shape)} {route}'
@@ -6525,6 +6565,409 @@ def orbax_slice(device, data_paths, train_paths, smi):
     orbax_load_rates(smi)
 
 
+# -- phase 21 ----------------------------------------------------------------
+# the model geometries past unet.yaml's, at its widths: upsampling rate 3
+# through the CLI (3 ** 3 must divide the crop: 243 = 3 ** 5 is the full-
+# width size nearest the shipped 256), a seeded step at rate 4, a VALID
+# model's zero-pad stencil sites, and strided forwards
+GEO_RATE = 3
+GEO_SIZE = 243
+GEO_STEPS = 50                  # two chunks of STEPS_PER_CALL
+GEO_SIDES = (243, 81, 27)       # the chain planes at rate 3
+GEO_OVERLAY = {'model_options.rate': GEO_RATE,
+               'data_options.train.output_size': [GEO_SIZE, GEO_SIZE],
+               'data_options.eval.output_size': [GEO_SIZE, GEO_SIZE],
+               'deploy_options.steps_per_call': STEPS_PER_CALL}
+# unet.yaml at VALID: 256 in, 196 out (three levels of two 3x3 VALID convs)
+VALID_OUT = 196
+# strided forwards: the sizes whose pools leave no plane empty, and the
+# output side the geometry gives there
+STRIDE_CASES = (
+    ('unet.yaml', CONFIGS, {}, 512, 1),
+    ('mulmo_unet.yaml', MULMO_CONFIGS[:3], {'model_options.n_downsample': 2},
+     512, 2),
+)
+
+
+def _time_sites(fns):
+    '''``_time_fns`` of a site, logged: CUDA-event ms, median of
+    TIMED_RUNS, in turns. No profiler window: torch.profiler dropped the
+    records of most of these kernels, and the windows lengthen phase 9.'''
+    t = _time_fns(fns)
+    log('    ' + '  '.join(f'{key} ms {ms:.4f}' for key, ms in t.items()))
+    return t
+
+
+def _geometry_chain_sites(model, raw_x, device):
+    '''The rate-3 model's chains at B=8 on the activations of a seeded
+    forward: each forward (with c1, as training calls it) and backward
+    kernel against its plain version (phase 3b's rules), launches by the
+    library's count (a backward whose plan is not fused takes csrc/wgrad.cu
+    too: CHAIN_BWD_SPLIT_LAUNCHES), times beside the plain version, and
+    bounds.'''
+    from dnncancerannotator_torch.models import blocks
+    from dnncancerannotator_torch.ops.kernels import conv_chain as CC
+    from dnncancerannotator_torch.ops.kernels import conv_chain_bwd as CCB
+
+    chains = {path: m for path, m in model.named_modules()
+              if isinstance(m, blocks.ConvChain) and m.fused}
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, path=path: seen.__setitem__(path, args[0]))
+        for path, m in chains.items()]
+    with torch.no_grad():
+        model(raw_x)
+    for hook in hooks:
+        hook.remove()
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    for path, chain in chains.items():
+        x = seen[path].contiguous()
+        w1, b1 = chain.conv_0.weight.detach(), chain.conv_0.bias.detach()
+        w2, b2 = chain.conv_1.weight.detach(), chain.conv_1.bias.detach()
+        b, ci, h, w = x.shape
+        cm, co, k = w1.shape[0], w2.shape[0], w1.shape[-1]
+        name = (f'conv_chain B={b} {path} {ci}->{cm}->{co} @{h}x{w} '
+                f'{CC.plan(b, ci, cm, co, h, w, k)}')
+        with torch.no_grad():
+            c1, c2 = CC.conv_chain(x, w1, b1, w2, b2, need_c1=True)
+            p1, p2 = CC.plain(x, w1, b1, w2, b2)
+            _check_close(name + ' c2', c2, p2)
+            _check_close(name + ' c1', c1, p1)
+        _check_launches(name, lambda: CC.conv_chain(x, w1, b1, w2, b2,
+                                                    need_c1=True), 1)
+        _time_sites({'kernel': lambda: CC.conv_chain(x, w1, b1, w2, b2,
+                                                     need_c1=True),
+                     'plain': lambda: CC.plain(x, w1, b1, w2, b2)})
+        site = bound(nbytes(x, w1, b1, w2, b2, c1, c2),
+                     2 * b * h * w * k * k * (ci * cm + cm * co))
+        log(f'  {name} bound {site[0]:.4f} ms ({site[1]})')
+        g = torch.randn(c2.shape, generator=gen, device=device)
+        plan = CCB.plan(b, ci, cm, co, h, w, k, True)
+        name = f'conv_chain_bwd B={b} {path} @{h}x{w} {plan}'
+        got = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2)
+        want = CCB.plain(x, c1, c2, g, w1, w2)
+        want64 = CCB.plain(*_f64(x, c1, c2, g, w1, w2))
+        _check_grads(name, got, want, want64)
+        _check_launches(name, lambda: CCB.conv_chain_bwd(x, c1, c2, g, w1,
+                                                         w2),
+                        CHAIN_BWD_LAUNCHES if plan.fused
+                        else CHAIN_BWD_SPLIT_LAUNCHES)
+        _time_sites({'kernel': lambda: CCB.conv_chain_bwd(x, c1, c2, g, w1,
+                                                          w2),
+                     'plain': lambda: CCB.plain(x, c1, c2, g, w1, w2)})
+        site = bound(nbytes(x, c1, c2, g, w1, w2, *got),
+                     4 * b * h * w * k * k * (ci * cm + cm * co))
+        log(f'  {name} bound {site[0]:.4f} ms ({site[1]})')
+    return {tuple(t.shape[2:]) for t in seen.values()}
+
+
+def _geometry_warp_site(device, ds, eng):
+    '''The banked warp at the rate-3 crop: the kernel on a bank flow
+    against its plain version (exactly equal), its route and launches, its
+    times and bound.'''
+    from dnncancerannotator_torch.ops import warp
+    from dnncancerannotator_torch.ops.kernels import warp_twopass as WT
+    bank = eng._warp_bank(ds)
+    h = w = GEO_SIZE
+    flow = warp._upsample_flow(bank['flows'][:TRAIN_BATCH], h, w,
+                               bank['stride']).contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    image = torch.rand((TRAIN_BATCH, h, w, 6), generator=gen, device=device)
+    d = bank['max_displacement']
+    route = WT.route(TRAIN_BATCH, h, w, 6, d)
+    name = f'warp_twopass [{TRAIN_BATCH}, {h}, {w}, 6] d={d} ({route})'
+    got = WT.warp_twopass(image, flow, d)
+    want = WT.plain(image, flow, d)
+    if not torch.equal(got, want):
+        raise AssertionError(f'{name}: differs from its plain version by '
+                             f'{float((got - want).abs().max())}')
+    log(f'  {name}: equal to its plain version')
+    _check_launches(name, lambda: WT.warp_twopass(image, flow, d),
+                    WARP_LAUNCHES)
+    _time_sites({'kernel': lambda: WT.warp_twopass(image, flow, d),
+                 'plain': lambda: WT.plain(image, flow, d)})
+    site = bound(nbytes(image, flow, got), 0)
+    log(f'  {name} bound {site[0]:.4f} ms ({site[1]})')
+    return route
+
+
+def geometry_rate3(device, val_paths, train_paths):
+    '''(a) unet.yaml at rate 3, B=8 243 x 243 crops (GEO_OVERLAY), through
+    the CLI: ``train`` GEO_STEPS steps (every loss finite, both checkpoints,
+    each fused chain, the head conv, their backwards and the warp
+    launched every step, no 2x2 tconv; each kernel call's route printed,
+    the chains at 243, 81 and 27), ``evaluate`` with metrics.yaml
+    (``model_eval``: every region count equal to the plain CCA's, the CCA
+    calls' routes printed) and ``predict`` (MAP_TOL of a plain forward);
+    the kernels at the path's sites against their plain versions; one
+    seeded step against a plain step (phase 13's rule); the throughput
+    beside phase 5's. Returns the train call's launch counts.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.models import blocks
+    from dnncancerannotator_torch.ops import kernels
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    overlay = _overlay_file('geometry_rate3.json', GEO_OVERLAY)
+    save_path = os.path.join(WORK, 'rate3_run')
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with _route_log() as routes:
+        res = cli(argv=[
+            'train', '--config', *[os.path.join(REPO, c) for c in CONFIGS],
+            overlay, '--save_path', save_path, '--data_path', *train_paths,
+            '--save_freq', str(STEPS_PER_CALL), '--seed', str(SEED),
+            '--device', device.type, '--max_steps', str(GEO_STEPS)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernels.launch_counts()
+    losses = res.history['loss']
+    log(f'rate {GEO_RATE} train: {GEO_STEPS} steps of B={TRAIN_BATCH} '
+        f'{GEO_SIZE}x{GEO_SIZE} in {seconds:.3f} s (host clock, the bank '
+        f'solve and data load included); loss {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}; launches {launches}')
+    for line in routes:
+        log(f'  {line}')
+    if res.epoch != list(range(1, GEO_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'train steps {res.epoch}, losses {losses}')
+    ckpt_dir = os.path.join(save_path, 'checkpoints')
+    for step in range(STEPS_PER_CALL, GEO_STEPS + 1, STEPS_PER_CALL):
+        if not os.path.exists(os.path.join(ckpt_dir, f'ckpt-{step}',
+                                           'opt_state.npz')):
+            raise AssertionError(f'no ckpt-{step}')
+
+    config = config_lib.load_config(
+        os.path.join(save_path, 'options.yaml'))['config']
+    eng = engine.Engine(config, seed=SEED, device=device)
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    eng._setup_training(ds)
+    eng.load(os.path.join(ckpt_dir, f'ckpt-{GEO_STEPS}'))
+    n_chains = sum(isinstance(m, blocks.ConvChain) and m.fused
+                   for m in eng.model.modules())
+    want = {'conv_chain': n_chains, 'conv_chain_bwd': n_chains,
+            'stencil_conv': 1, 'stencil_conv_bwd': 1, 'warp_twopass': 1}
+    for name, sites in want.items():
+        if launches[name] < sites * GEO_STEPS:
+            raise AssertionError(f'{name} launched {launches[name]} times, '
+                                 f'want >= {sites} x {GEO_STEPS}')
+    if launches['tconv2x2'] or launches['tconv2x2_bwd']:
+        raise AssertionError('a 2x2 tconv kernel ran at rate 3')
+    for side in GEO_SIDES:
+        if not any(line.startswith('conv_chain [') and
+                   line.endswith(f'{side}, {side}] ' + line.split('] ')[-1])
+                   for line in routes):
+            raise AssertionError(f'no chain ran at {side}x{side}: {routes}')
+
+    # the kernels at the path's sites: the chains, the warp
+    x = torch.rand((TRAIN_BATCH, GEO_SIZE, GEO_SIZE, 5),
+                   generator=torch.Generator(device=device).manual_seed(SEED),
+                   device=device)
+    sides = _geometry_chain_sites(eng.model, x, device)
+    log(f'rate {GEO_RATE}: {n_chains} fused chains at {sorted(sides)}')
+    _geometry_warp_site(device, ds, eng)
+    if not any(line.startswith(f'warp_twopass [{TRAIN_BATCH}, {GEO_SIZE}, '
+                               f'{GEO_SIZE}, ') for line in routes):
+        raise AssertionError(f'no warp ran at {GEO_SIZE}x{GEO_SIZE}')
+    RATES[f'unet.yaml rate {GEO_RATE} (phase 21)'] = _train_rate(
+        eng, ds, f'rate {GEO_RATE} train')
+    log(f'train throughput by phase (slices/s): {json.dumps(RATES)}')
+
+    # evaluate, with each CCA call's route
+    with _route_log() as routes:
+        model_eval(device, val_paths, save_path, GEO_STEPS,
+                   f'rate {GEO_RATE}', size=GEO_SIZE)
+    for line in routes:
+        if line.startswith('cca'):
+            log(f'  evaluate: {line}')
+
+    # predict, against the plain forward of the checkpoint's weights
+    eng = engine.Engine(config, seed=SEED, device=device)
+    eng.build((BATCH, GEO_SIZE, GEO_SIZE, 5))
+    eng.load(os.path.join(ckpt_dir, f'ckpt-{GEO_STEPS}'))
+    out_dir = os.path.join(WORK, 'rate3_maps')
+    n_slices = sum(N_EXAMS) * SLICES_PER_EXAM
+    kernels.reset_launches()
+    count = cli(argv=['predict', '--save_path', save_path, '--data_path',
+                      *val_paths, '--output_path', out_dir, '--batch_size',
+                      str(BATCH), '--output_format', 'npy', '--device',
+                      device.type])
+    predict_launches = kernels.launch_counts()
+    log(f'rate {GEO_RATE} predict: {count} maps; launches '
+        f'{predict_launches}')
+    if predict_launches['conv_chain'] < n_chains * -(-n_slices // BATCH):
+        raise AssertionError('predict launched the chain '
+                             f'{predict_launches["conv_chain"]} times')
+    _check_maps(eng.model, val_paths, out_dir, n_slices,
+                reference=lambda x: _plain_model_forward(eng.model, x),
+                size=GEO_SIZE)
+
+    # one seeded step against the plain step
+    eng, raw, draws = big_check_state(config, ds, SEED, device)
+    check_big_step(eng, ds, raw, draws, modules=_unet_modules(),
+                   label=f'unet.yaml rate {GEO_RATE}')
+    return launches
+
+
+def geometry_rate4(device, train_paths):
+    '''(b) unet.yaml at rate 4 on the shipped 256 x 256 crops: one seeded
+    step against the plain step (phase 13's rule).'''
+    from dnncancerannotator_torch.data import pipeline
+    config = _config(CONFIGS)
+    config['model_options']['rate'] = 4
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    eng, raw, draws = big_check_state(config, ds, SEED, device)
+    check_big_step(eng, ds, raw, draws, modules=_unet_modules(),
+                   label='unet.yaml rate 4')
+
+
+def geometry_valid(device, val_paths):
+    '''(c) unet.yaml at VALID (B=8, 256 x 256 in, VALID_OUT out): every
+    3x3 conv on the stencil route (zero pads) on the activations of a
+    seeded forward, forward and backward against their plain versions
+    (KERNEL_TOL; DX_TOL, DW_TOL and F64_RATIO), at the library's launches
+    a call, timed beside ``F.conv2d`` and ``convolution_backward``; the
+    model's forward through the kernels against the plain forward
+    (MAP_TOL); and the predict CLI raising as the JAX engine's predict
+    raises there (its loss cannot take the smaller output).'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.models import fastconv
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    from dnncancerannotator_torch.runs.__main__ import main as cli
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    overlay = _overlay_file('geometry_valid.json',
+                            {'model_options.padding': 'valid'})
+    configs = CONFIGS + (overlay,)
+    config = _config(configs)
+    probe = engine.Engine(config, seed=SEED, device=device)
+    probe.build((TRAIN_BATCH, SIZE, SIZE, 5))
+    paths = [path for path, m in probe.model.named_modules()
+             if isinstance(m, fastconv.Conv2DFast)
+             and m.weight.shape[-1] == 3
+             and SC.eligible(*m.weight.shape[1::-1], 3, 3)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    batch = torch.rand((TRAIN_BATCH, SIZE, SIZE, 5), generator=gen,
+                       device=device)
+    modules, seen = _site_inputs(configs, paths, batch, device)
+    pads = ((0, 0), (0, 0))
+    log(f'unet.yaml at VALID: {len(paths)} 3x3 stencil sites (zero pads, '
+        f'B={TRAIN_BATCH}, {SIZE}x{SIZE} in):')
+    for path in paths:
+        conv = modules[path]
+        co, ci, kh, kw = conv.weight.shape
+        w, b = conv.weight.detach(), conv.bias.detach()
+        x = seen[path].detach().contiguous()
+        route = SC.route(ci, co, kh, kw, pads, *x.shape[2:])
+        name = (f'stencil_conv {path} {ci}->{co} relu @{x.shape[-1]} '
+                f'({route})')
+        with torch.no_grad():
+            got = SC.stencil_conv(x, w, b, pads, True)
+            _check_close(name, got, SC.plain(x, w, b, pads, True))
+        _check_launches(name, lambda: SC.stencil_conv(x, w, b, pads, True),
+                        1)
+        _time_sites({
+            'kernel': lambda: SC.stencil_conv(x, w, b, pads, True),
+            'plain': lambda: SC.plain(x, w, b, pads, True),
+            'library': lambda: F.relu(F.conv2d(x, w, b))})
+        site = bound(nbytes(x, w, b, got), 2 * got.numel() * ci * kh * kw)
+        log(f'  {name} bound {site[0]:.4f} ms ({site[1]})')
+        g = torch.randn(got.shape, generator=gen, device=device)
+        g = torch.where(got > 0, g, torch.zeros_like(g))
+        bwd_route = SCB.route(x.shape[0], ci, co, *x.shape[2:], kh, kw, pads)
+        name = f'stencil_conv_bwd {path} @{x.shape[-1]} ({bwd_route})'
+        bgot = SCB.stencil_conv_bwd(x, g, w, pads)
+        _check_grads(name, bgot, SCB.plain(x, g, w, pads),
+                     SCB.plain(*_f64(x, g, w), pads))
+        _check_launches(name, lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+                        STENCIL_BWD_ROUTE_LAUNCHES[bwd_route])
+        _time_sites({
+            'kernel': lambda: SCB.stencil_conv_bwd(x, g, w, pads),
+            'plain': lambda: SCB.plain(x, g, w, pads),
+            'library': lambda: conv_bwd(g, x, w, [co], [1, 1], [0, 0],
+                                        [1, 1], False, [0, 0], 1,
+                                        [True] * 3)})
+        site = bound(nbytes(x, g, w, *bgot), 4 * g.numel() * ci * kh * kw)
+        log(f'  {name} bound {site[0]:.4f} ms ({site[1]})')
+
+    with torch.no_grad():
+        (probs, counts) = _counted('VALID forward',
+                                   lambda: probe.model(batch),
+                                   need=('stencil_conv',))
+        plain = _plain_model_forward(probe.model, batch)
+    err = float((probs - plain).abs().max())
+    log(f'unet.yaml at VALID: forward {list(batch.shape)} -> '
+        f'{list(probs.shape)}, max|diff| from the plain forward {err:.3e}; '
+        f'launches {counts}')
+    if tuple(probs.shape) != (TRAIN_BATCH, VALID_OUT, VALID_OUT, 1) or \
+            not torch.isfinite(probs).all() or not err <= MAP_TOL:
+        raise AssertionError(f'VALID forward: {tuple(probs.shape)}, {err}')
+
+    # predict: the JAX engine's eval step takes the loss, which raises at
+    # the smaller output; so does the port's
+    save_path = os.path.join(WORK, 'valid_run')
+    os.makedirs(save_path, exist_ok=True)
+    with open(os.path.join(save_path, 'options.yaml'), 'w') as fh:
+        json.dump(dict(config=config, save_path=save_path,
+                       data_path=val_paths), fh)
+    probe.save_ckpt(os.path.join(save_path, 'checkpoints'), 1)
+    try:
+        cli(argv=['predict', '--save_path', save_path, '--data_path',
+                  *val_paths, '--output_path', os.path.join(WORK,
+                                                            'valid_maps'),
+                  '--batch_size', str(BATCH), '--device', device.type])
+    except ValueError as exc:
+        log(f'unet.yaml at VALID: predict raises, as the JAX engine\'s: '
+            f'{exc}')
+    else:
+        raise AssertionError('predict at VALID did not raise')
+
+
+def geometry_strided(device):
+    '''(d) strided forwards (conv_stride 2; the strided convs are library
+    calls, as in the JAX package): UNetAnnotator at unet.yaml's widths and
+    MulmoUNetAnnotator at mulmo_unet.yaml's (2 levels) through the kernels
+    against the same forward under ``gates.library_only()`` (MAP_TOL), each
+    output finite and of the side the geometry gives.'''
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.ops import gates
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    for label, configs, extra, size, side in STRIDE_CASES:
+        overlay = _overlay_file('geometry_stride.json', dict(
+            {'model_options.conv_stride': 2}, **extra))
+        eng = engine.Engine(_config(configs + (overlay,)), seed=SEED,
+                            device=device)
+        batch = torch.rand((TRAIN_BATCH, size, size, 5), generator=gen,
+                           device=device)
+        eng.build(tuple(batch.shape))
+        with torch.no_grad(), eng.scope():
+            probs, counts = _counted(label, lambda: eng.model(batch))
+            with gates.library_only():
+                plain = eng.model(batch)
+        err = float((probs - plain).abs().max())
+        log(f'{label} conv_stride 2: {list(batch.shape)} -> '
+            f'{list(probs.shape)}, max|diff| from the library forward '
+            f'{err:.3e}; launches {counts}')
+        if tuple(probs.shape) != (TRAIN_BATCH, side, side, 1) or \
+                not torch.isfinite(probs).all() or not err <= MAP_TOL:
+            raise AssertionError(f'{label} strided forward: '
+                                 f'{tuple(probs.shape)}, {err}')
+
+
+def geometry_slice(device, val_paths, train_paths):
+    '''Phase 21: (a)-(d); returns the rate-3 train call's launch
+    counts.'''
+    launches = geometry_rate3(device, val_paths, train_paths)
+    geometry_rate4(device, train_paths)
+    geometry_valid(device, val_paths)
+    geometry_strided(device)
+    return launches
+
+
 def main():
     with phase('1 environment'):
         smi = environment()
@@ -6604,6 +7047,8 @@ def main():
             extract_slice(device, smi)
         with phase('20 Orbax checkpoints'):
             orbax_slice(device, data_paths, train_paths, smi)
+        with phase('21 model geometries'):
+            geo_launches = geometry_slice(device, data_paths, train_paths)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -6650,6 +7095,7 @@ def main():
          'launches': launches[name],
          'predict_launches': predict_launches[name],
          'eval_launches': eval_launches[name],
+         'rate3_launches': geo_launches.get(name, 0),
          'max_abs_err': acc['max_abs_err'], **summed_times(acc),
          'bound_ms': acc['bound_ms'],
          'bound_by': max(acc['by'], key=acc['by'].get),

@@ -5,9 +5,11 @@ autograd.
 
 - ``ConvChain``: ``n_conv`` convs, each ``conv -> relu [-> bn_i]``;
 - ``Downsample``: conv chain -> (skip, max-pooled [-> pool_bn]);
-- ``Upsample``: 2x2 tconv [-> tconv_bn] -> center-crop the skip to the
-  upsampled size -> ``[up, skip]`` (a channel concat in NCHW, a tuple the
-  first conv takes part by part in NHWC) -> conv chain;
+- ``Upsample``: ``rate`` x ``rate`` tconv of stride ``rate`` [->
+  tconv_bn] -> center-crop the skip to the upsampled size (the JAX
+  slicing, a target larger than the skip included: Python's slice bounds)
+  -> ``[up, skip]`` (a channel concat in NCHW, a tuple the first conv
+  takes part by part in NHWC) -> conv chain;
 - ``Encoder``: ``n_downsample`` Downsample blocks, filters scaled by
   ``rate`` per level (``int(rate * filters)``);
 - ``Decoder``: Upsample blocks over the reversed skips, each with the skip's
@@ -95,8 +97,9 @@ class ConvChain(nn.Module):
     '''``n_conv`` stacked convs, each followed by its BatchNorm ``bn_i``
     when ``bn``. A relu chain of two stride-1 SAME convs without BN in NCHW
     runs whole as one conv_chain kernel where ``fastconv.chain_ok`` takes
-    it in the dtype it runs in, outside ``gates.library_only()``; otherwise
-    each conv runs on its own. The parameters are the same either way.
+    it in the dtype it runs in, outside ``gates.library_only()`` and on a
+    non-empty input; otherwise each conv runs on its own (a strided conv
+    always). The parameters are the same either way.
 
     Under ``spatial_partition`` the whole chain runs unchanged on its
     rank's rows plus 2r rows of each neighbour (r = K // 2) and keeps its
@@ -140,7 +143,7 @@ class ConvChain(nn.Module):
     def forward(self, x):
         dtype = self.dtype or (x[0] if isinstance(x, tuple) else x).dtype
         if self._fused.get(dtype, self._fused[torch.float32]) \
-                and not gates.forced_off():
+                and not gates.forced_off() and x.numel():
             c0, c1 = self.conv_0, self.conv_1
             weights = (c0.weight.to(dtype), c0.bias.to(dtype),
                        c1.weight.to(dtype), c1.bias.to(dtype))

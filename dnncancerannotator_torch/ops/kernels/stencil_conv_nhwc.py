@@ -173,11 +173,16 @@ def eligible(ci, co, kh, kw, padding):
 def pixel_stride(x):
     '''Floats between neighbouring pixels of x [B, H, W, C] whose channels
     are contiguous and whose pixels are evenly spaced (a contiguous tensor,
-    or a channel slice of one); raises otherwise.'''
-    _, h, w, c = x.shape
-    xs = x.stride(2)
-    if ((c > 1 and x.stride(3) != 1) or xs < c or x.stride(1) != w * xs
-            or x.stride(0) != h * w * xs):
+    or a channel slice of one); raises otherwise. A dimension of size 1
+    has any stride (the NHWC view of a [B, C, 1, 1] output has W's = 1), so
+    the spacing is read from the innermost pixel dimension that has more
+    than one element.'''
+    b, h, w, c = x.shape
+    xs = next((x.stride(d) // step for d, n, step in (
+        (2, w, 1), (1, h, w), (0, b, h * w)) if n > 1), c)
+    if ((c > 1 and x.stride(3) != 1) or xs < c
+            or (h > 1 and x.stride(1) != w * xs)
+            or (b > 1 and x.stride(0) != h * w * xs)):
         raise ValueError(f'stencil_conv_nhwc needs x with contiguous channels '
                          f'and evenly spaced pixels; got shape '
                          f'{tuple(x.shape)}, strides {tuple(x.stride())}')

@@ -5,6 +5,10 @@ the positive-class weight mask ``label * (weight - 1) + 1``. When ``weight``
 is unset it is ``1 / positive_rate`` of the whole batch (1 when the batch has
 no positive pixel), then ``weight_mul * w + weight_add``. Returns the
 per-sample loss [B] (mean over pixels); callers take the batch mean.
+Logits smaller than the labels are taken where they broadcast against
+them, as the JAX loss takes them (a strided model's 1 x 1 output), and
+raise ValueError naming both shapes where they do not (a VALID model's
+output): the labels are never cropped or padded to fit.
 
 Label smoothing blurs the label mask with a Gaussian
 (``ops/filters.py``) before the loss, wherever ``per_sample`` runs: the
@@ -64,6 +68,13 @@ def weighted_crossentropy(labels, logits, weight=None, weight_add=0.0,
     check to the caller.'''
     if logits.dim() == labels.dim() + 1:
         logits = logits.squeeze(-1)
+    try:
+        torch.broadcast_shapes(labels.shape, logits.shape)
+    except RuntimeError:
+        # where the JAX loss's broadcast fails (a VALID model's smaller
+        # output, a strided one's past 1 x 1): the labels are not cropped
+        raise ValueError(f'the logits {tuple(logits.shape)} do not match '
+                         f'the labels {tuple(labels.shape)}') from None
     # at least f32 (bf16 logits are upcast; f64 stays f64)
     dtype = torch.promote_types(logits.dtype, torch.float32)
     labels = labels.to(dtype)

@@ -1454,3 +1454,96 @@ def test_orbax_fixture_loads_onto_the_card(cuda, name):
                 moments += 1
         assert float(state['step']) == float(expected['count'])
     assert moments == 2 * len(eng.optimizer.state)
+
+
+# -- the model geometries (unet.yaml at rate 3 on 243 x 243 crops, at
+# VALID on 256 x 256): the kernels at the shapes those paths give them
+# (chip_smoke.py phase 21 runs the paths themselves)
+_RATE3_CHAINS = [(5, 3, 3, 243), (3, 9, 9, 81), (9, 27, 27, 27),
+                 (18, 9, 9, 81), (6, 3, 3, 243)]
+
+
+@pytest.mark.parametrize('ci,cm,co,hw', _RATE3_CHAINS)
+def test_conv_chain_kernels_at_rate3(cuda, ci, cm, co, hw):
+    '''The five fused chains at rate 3 (B=8, planes of 243, 81 and 27:
+    multiples of neither 16 nor 128), forward with c1 and backward, one
+    launch a call each; the backward against the f64 plain version and
+    its dw and db the same bits on two calls.'''
+    gen = torch.Generator().manual_seed(ci * hw)
+    x = _rand(gen, 8, ci, hw, hw)
+    w1, b1 = _rand(gen, cm, ci, 3, 3) * 0.3, _rand(gen, cm)
+    w2, b2 = _rand(gen, co, cm, 3, 3) * 0.3, _rand(gen, co)
+    before = CC.launches
+    c1, c2 = CC.conv_chain(x, w1, b1, w2, b2, need_c1=True)
+    assert CC.launches == before + 1
+    p1, p2 = CC.plain(x, w1, b1, w2, b2)
+    _assert_close(c1, p1)
+    _assert_close(c2, p2)
+    g = _rand(gen, *c2.shape)
+    before = CCB.launches
+    got = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2)
+    assert CCB.launches == before + 1
+    want = CCB.plain(*(t.double() for t in (x, c1, c2, g, w1, w2)))
+    _assert_grads(got, tuple(w.float() for w in want))
+    again = CCB.conv_chain_bwd(x, c1, c2, g, w1, w2)
+    for a, b in zip(got[1:], again[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('route', ['tile', 'direct'])
+def test_warp_twopass_at_rate3(cuda, monkeypatch, route):
+    '''The banked warp at the rate-3 crop, [8, 243, 243, 6] at d = 8, on
+    both routes: exactly its plain version, one launch.'''
+    shape = (8, 243, 243, 6, 8)
+    _warp_route(monkeypatch, WT, route, shape)
+    gen = torch.Generator().manual_seed(243)
+    img = _rand(gen, *shape[:4])
+    flow = _rand(gen, 8, 243, 243, 2) * 12.0
+    before = WT.launches
+    got = WT.warp_twopass(img, flow, 8)
+    assert WT.launches == before + 1
+    want = WT.plain(img, flow, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize('n,hw', [(2000, 121), (20, 121), (100, 243),
+                                  (6400, 121)])
+def test_cca_kernel_at_rate3(cuda, n, hw):
+    '''The CCA on the planes evaluate gives it at a 243 crop (the region
+    metrics' half-size 121 x 121 planes a chunk, the Visualizer's whole
+    ones, on the global route below 132 of them): exactly its plain
+    version, on the route's rule.'''
+    gen = torch.Generator().manual_seed(n + hw)
+    masks = (torch.rand(n, hw, hw, generator=gen) < 0.55).cuda()
+    want = 'shared' if hw * hw <= 32768 or (hw * hw <= 65536 and n >= 132) \
+        else 'global'
+    assert CCA.route(n, hw, hw) == want
+    got = CCA.cca_raw_labels(masks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, CCA.plain(masks))
+
+
+# the 3x3 stencil sites of unet.yaml at VALID (B=8, 256 x 256 in): zero
+# pads, relu, each conv's input plane
+_VALID_SITES = [(5, 3, 256), (3, 3, 254), (3, 6, 126), (6, 6, 124),
+                (6, 12, 61), (12, 6, 104), (6, 6, 102), (6, 3, 200),
+                (3, 3, 198)]
+
+
+@pytest.mark.parametrize('ci,co,hw', _VALID_SITES)
+def test_stencil_conv_zero_pads_at_valid_sites(cuda, ci, co, hw):
+    '''The stencil conv forward and backward with zero pads at full width:
+    against their plain versions, one launch a forward, the backward's
+    launches by its route.'''
+    gen = torch.Generator().manual_seed(ci * co + hw)
+    x = torch.rand(8, ci, hw, hw, generator=gen).cuda()
+    wk, b = _rand(gen, co, ci, 3, 3) * 0.3, _rand(gen, co)
+    before = SC.launches
+    got = SC.stencil_conv(x, wk, b, _ZERO, True)
+    assert SC.launches == before + 1
+    assert got.shape == (8, co, hw - 2, hw - 2)
+    _assert_close(got, SC.plain(x, wk, b, _ZERO, True))
+    g = torch.where(got > 0, _rand(gen, *got.shape), torch.zeros_like(got))
+    _assert_grads(SCB.stencil_conv_bwd(x, g, wk, _ZERO),
+                  SCB.plain(x, g, wk, _ZERO))

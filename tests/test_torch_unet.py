@@ -131,18 +131,42 @@ def test_converter_rejects_mismatched_keys(unet_case, edit):
 
 
 def test_unported_models_raise():
-    '''What the port still refuses raises and names its ROADMAP item: a
-    strided conv, in f32 and in bf16 (bf16 compute itself builds in each
-    of the three models).'''
+    '''What the port once refused now runs: bf16 compute builds in each of
+    the three models, and a strided conv (stride 2, SAME, 3 -> 4 channels:
+    the JAX package's small einsum form) equals the JAX Conv2DFast on the
+    same weights, in NHWC and NCHW, in f32 (within 1e-5 of its scale) and
+    in bf16 (within a bf16 ulp of it: one rounding on each side after f32
+    sums in other orders).'''
+    from dnncancerannotator_tpu.models import fastconv as jax_fastconv
     for name, options in (('UNetAnnotator', UNET_OPTIONS),
                           ('MulmoUNetAnnotator', UNET_OPTIONS),
                           ('MultiResUnet', {})):
         torch_models.build_model(name, dict(options, dtype='bfloat16'),
                                  in_channels=5)
+    rng = np.random.default_rng(4)
+    kernel = rng.standard_normal((3, 3, 3, 4)).astype(np.float32)
+    bias = rng.standard_normal(4).astype(np.float32)
+    x = rng.random((2, 9, 8, 3), dtype=np.float32)
     for dtype in (None, 'bfloat16'):
         for fmt in ('NHWC', 'NCHW'):
+            arr = x if fmt == 'NHWC' else x.transpose(0, 3, 1, 2)
+            want = np.asarray(jax_fastconv.Conv2DFast(
+                features=4, kernel_size=(3, 3), strides=(2, 2),
+                activation='relu', data_format=fmt,
+                dtype=jnp.bfloat16 if dtype else None).apply(
+                    {'params': {'kernel': kernel, 'bias': bias}},
+                    jnp.asarray(arr)).astype(jnp.float32))
             conv = blocks.fastconv.Conv2DFast(3, 4, (3, 3), strides=(2, 2),
+                                              activation='relu',
                                               data_format=fmt, dtype=dtype)
-            with pytest.raises(NotImplementedError, match='stride.*ROADMAP'):
-                conv(torch.zeros(1, 8, 8, 3) if fmt == 'NHWC'
-                     else torch.zeros(1, 3, 8, 8))
+            conv.load_state_dict({'weight': torch.from_numpy(
+                kernel.transpose(3, 2, 0, 1).copy()),
+                'bias': torch.from_numpy(bias)})
+            with torch.no_grad():
+                got = conv(torch.from_numpy(arr.copy())).float().numpy()
+            assert got.shape == want.shape == (
+                (2, 5, 4, 4) if fmt == 'NHWC' else (2, 4, 5, 4))
+            tol = 2.0 ** -8 if dtype else 1e-5
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=tol * np.abs(want).max(),
+                                       err_msg=f'{fmt} {dtype}')

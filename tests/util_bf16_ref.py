@@ -58,6 +58,11 @@ CASES = {
     'mulmo': ('MulmoUNetAnnotator', MULMO, (2, 32, 32, 2), 7, False),
     'mru': ('MultiResUnet', dict(base_filters=4), (2, 32, 32, 3), 8, False),
 }
+# tests/test_torch_geometry.py's: unet.yaml's model at rate 3, 2 levels
+GEOMETRY_CASES = {
+    'unet_rate3': ('UNetAnnotator', dict(UNET, rate=3, n_downsample=2),
+                   (2, 27, 27, 5), 9, False),
+}
 
 
 def model_case(name, options, shape, seed):
@@ -239,7 +244,7 @@ def compute(case):
     from dnncancerannotator_tpu import models as jax_models
     from tests import test_torch_mulmo as tm
 
-    name, options, shape, seed, sens = CASES[case]
+    name, options, shape, seed, sens = {**CASES, **GEOMETRY_CASES}[case]
     model, x, gmap, flat, stats = model_case(name, options, shape, seed)
     model16, _ = jax_models.build_model(name, options, dtype=jnp.bfloat16)
     out = {'in/x': x, 'in/gmap': gmap}

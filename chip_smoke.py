@@ -372,6 +372,25 @@ Phases (each raises on failure, so the process exits non-zero):
    kernels against the same forward under ``gates.library_only()``,
    finite and of the side the geometry gives. Its times are CUDA events
    alone (``_time_sites``: no profiler window).
+22. the Orbax writer (after phase 21): (a) unet.yaml at phase 5's
+   operating point with checkpoints kept to one (CKPT_OVERLAY) through
+   ``Engine.train``: 50 steps, a background save every 25, every kernel of
+   the step launched every step, ckpt-25 pruned and no temporary
+   directory left, ckpt-50 (the JAX engine's Orbax layout) read back by
+   ``engine.read_ckpt`` to the live model's and optimizer's state bit for
+   bit; (b) a fresh Engine resumed from a copy of ckpt-25 (taken when it
+   committed) to step 50: the unbroken run's losses and state bit for bit
+   (where a kernel is not deterministic on the card, phase 5's rule, with
+   what differs printed); (c) ``evaluate`` of the run with metrics.yaml
+   (``model_eval``: the CCA kernel, every region count equal to the plain
+   CCA's); (d) unet_big.yaml as shipped (bf16, 64 first filters, Adam; a
+   16-field bank), one step, then ``save_ckpt``: the checkpoint's MB, the
+   ms ``save_ckpt`` blocks (the host copy), the ms until the directory
+   commits and ``read_ckpt``'s ms (median of CKPT_LOADS), its arrays the
+   live state's bits; (e) unet.yaml's train throughput with a save every 5
+   steps and with one at the end of each call (phase 5's differential
+   calls of 25 and 100 steps, each the minimum of three, in turns) and
+   their ratio.
 
 9. profiler windows: torch.profiler slows every later CUDA call on the host,
    so the device times of phases 3-3i and the train-step profiles of
@@ -384,7 +403,7 @@ Phases (each raises on failure, so the process exits non-zero):
 Each phase's wall time is printed when it ends. The last three lines of
 stdout are a JSON object of per-kernel results for all fourteen kernels
 (with each one's launches in phase 21's rate-3 train call,
-``rate3_launches``),
+``rate3_launches``, and in phase 22's train call, ``ckpt_launches``),
 the NCHW stencil conv's tile route (``stencil_conv_tile``) and the six
 bf16 forms (with each kernel's bound:
 the larger of its bytes over 3.35 TB/s and its FLOPs over the 67 TFLOP/s of
@@ -1218,7 +1237,7 @@ def write_records(data_dir, size=SIZE, n_exams=N_EXAMS,
 
 def write_save_path(save_path, data_paths, device):
     '''options.yaml (JSON, which is YAML) with the stacked unet.yaml options,
-    and a seeded checkpoint ckpt-1/params.npz.'''
+    and a seeded checkpoint ckpt-1.'''
     from dnncancerannotator_torch import engine
     from dnncancerannotator_torch.utils import config as config_lib
 
@@ -1235,6 +1254,7 @@ def write_save_path(save_path, data_paths, device):
             if name.endswith('.bias'):
                 param.copy_(torch.randn(param.shape, generator=gen) * 0.1)
     eng.save_ckpt(os.path.join(save_path, 'checkpoints'), 1)
+    eng.finalize_checkpoints()
     return config
 
 
@@ -1518,7 +1538,7 @@ def train_slice(device):
         raise AssertionError(f'train steps {res.epoch}, losses {losses}')
     for step in range(SAVE_FREQ, TRAIN_STEPS + 1, SAVE_FREQ):
         files = set(os.listdir(os.path.join(ckpt_dir, f'ckpt-{step}')))
-        if files != {'params.npz', 'opt_state.npz'}:
+        if files != ORBAX_FILES:
             raise AssertionError(f'ckpt-{step} holds {sorted(files)}')
     for name, sites in TRAIN_SITES.items():
         if launches[name] < sites * TRAIN_STEPS:
@@ -3182,8 +3202,9 @@ def _profile_steps(label, step, steps=5, top=12):
 
 
 def _batch_stats(path):
-    with np.load(os.path.join(path, 'params.npz')) as npz:
-        return {k: npz[k] for k in npz.files if k.startswith('batch_stats/')}
+    from dnncancerannotator_torch import engine
+    return {k: v for k, v in engine.read_ckpt(path, opt_state=False).items()
+            if k.startswith('batch_stats/')}
 
 
 def _big_step(eng, ds, raw, draws, plain, f64=False, modules=None):
@@ -3517,9 +3538,8 @@ def bn_train_slice(device, data_paths, spec, val_paths=None):
         raise AssertionError(f'{label}: {ran} launched')
     for step in range(BIG_SAVE_FREQ, BIG_STEPS + 1, BIG_SAVE_FREQ):
         path = os.path.join(ckpt_dir, f'ckpt-{step}')
-        with np.load(os.path.join(path, 'opt_state.npz')) as npz:
-            if any('batch_stats' in k for k in npz.files):
-                raise AssertionError('optimizer state for batch_stats')
+        if any('/batch_stats/' in k for k in engine.read_ckpt(path)):
+            raise AssertionError('optimizer state for batch_stats')
         stats = _batch_stats(path)
         still = [k for k, v in stats.items()
                  if np.array_equal(v, np.full_like(v, k.endswith('/var')))]
@@ -4554,7 +4574,7 @@ def stream_cli(device, train_paths, work):
                              f'{res.epoch}, losses {losses}')
     for step in range(SAVE_FREQ, TRAIN_STEPS + 1, SAVE_FREQ):
         files = set(os.listdir(os.path.join(ckpt_dir, f'ckpt-{step}')))
-        if files != {'params.npz', 'opt_state.npz'}:
+        if files != ORBAX_FILES:
             raise AssertionError(f'ckpt-{step} holds {sorted(files)}')
     for name, sites in TRAIN_SITES.items():
         if launches[name] < sites * TRAIN_STEPS:
@@ -6736,7 +6756,7 @@ def geometry_rate3(device, val_paths, train_paths):
     ckpt_dir = os.path.join(save_path, 'checkpoints')
     for step in range(STEPS_PER_CALL, GEO_STEPS + 1, STEPS_PER_CALL):
         if not os.path.exists(os.path.join(ckpt_dir, f'ckpt-{step}',
-                                           'opt_state.npz')):
+                                           '_CHECKPOINT_METADATA')):
             raise AssertionError(f'no ckpt-{step}')
 
     config = config_lib.load_config(
@@ -6915,6 +6935,7 @@ def geometry_valid(device, val_paths):
         json.dump(dict(config=config, save_path=save_path,
                        data_path=val_paths), fh)
     probe.save_ckpt(os.path.join(save_path, 'checkpoints'), 1)
+    probe.finalize_checkpoints()
     try:
         cli(argv=['predict', '--save_path', save_path, '--data_path',
                   *val_paths, '--output_path', os.path.join(WORK,
@@ -6966,6 +6987,257 @@ def geometry_slice(device, val_paths, train_paths):
     geometry_valid(device, val_paths)
     geometry_strided(device)
     return launches
+
+
+# -- phase 22 ----------------------------------------------------------------
+# the Orbax writer: phase 5's operating point with checkpoints kept to one
+# (CKPT_OVERLAY), a resume from a copy of the first, evaluate of the run,
+# unet_big.yaml's full-width save, and what the background save costs
+# training
+CKPT_STEPS = 50
+CKPT_SAVE_FREQ = 25
+CKPT_OVERLAY = {'deploy_options.steps_per_call': STEPS_PER_CALL,
+                'deploy_options.max_checkpoints_to_keep': 1}
+# (d): unet_big.yaml and data_options.yaml as shipped (bf16, 64 first
+# filters, Adam), its warp bank cut to 16 fields (a bank is solved per
+# Engine and never saved)
+CKPT_BIG_CONFIGS = ('configs/unet_big.yaml',
+                    'configs/additionals/data_options.yaml')
+CKPT_BIG_OVERLAY = {'deploy_options.warp_bank_size': 16}
+CKPT_LOADS = 5               # (d): read_ckpt timings, the median
+CKPT_RATE_FREQS = (5, 1000)  # (e): save_freq of the differential calls
+CKPT_RATE_STEPS = (25, 100)  # (e): the step counts of the calls
+ORBAX_FILES = {'_METADATA', '_CHECKPOINT_METADATA', 'manifest.ocdbt', 'd'}
+
+
+@contextlib.contextmanager
+def _committed(copies=None):
+    """Within the block every checkpoint the engine writes is timed at its
+    commit (perf_counter into the yielded {name: time}), and those named
+    in ``copies`` ({name: destination}) are copied once committed, on the
+    writer thread."""
+    from dnncancerannotator_torch.ckpt import orbax
+    write = orbax.write_checkpoint
+    commits = {}
+
+    def spy(path, flat, chain):
+        out = write(path, flat, chain)
+        name = os.path.basename(path)
+        commits[name] = time.perf_counter()
+        if name in (copies or {}):
+            shutil.copytree(path, copies[name])
+        return out
+
+    orbax.write_checkpoint = spy
+    try:
+        yield commits
+    finally:
+        orbax.write_checkpoint = write
+
+
+def _state_flat(eng, step):
+    """The live model's and optimizer's state as a checkpoint's flat
+    dict."""
+    from dnncancerannotator_torch import convert
+    flat = convert.flax_from_torch_state(eng.model.state_dict())
+    flat.update(eng._opt_state_flat(step))
+    return flat
+
+
+def _ckpt_run(config, save_path, data_paths):
+    os.makedirs(save_path, exist_ok=True)
+    with open(os.path.join(save_path, 'options.yaml'), 'w') as fh:
+        json.dump(dict(config=config, save_path=save_path,
+                       data_path=data_paths), fh)
+
+
+def _check_train_launches(label, counts, steps):
+    for name, sites in TRAIN_SITES.items():
+        if counts.get(name, 0) < sites * steps:
+            raise AssertionError(f'{label}: {name} launched '
+                                 f'{counts.get(name, 0)} times, want >= '
+                                 f'{sites} x {steps}')
+
+
+def _resume_state(label, got, want, losses, want_losses):
+    """(b): the resumed run's state the same bits as the unbroken run's;
+    where a kernel of the path is not deterministic on the card, phase 5's
+    rule instead (losses within LOSS_TOL relative, each tensor within
+    STEP_TOL of its largest value), with the tensors that differ printed."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f'{label}: keys {sorted(set(got) ^ set(want))}')
+    differ = [k for k in want if np.asarray(got[k]).tobytes() !=
+              np.asarray(want[k]).tobytes()]
+    if not differ and losses == want_losses:
+        log(f'{label}: {len(want)} arrays and {len(losses)} losses the same '
+            'bits as the unbroken run\'s')
+        return
+    errs = {k: float(np.abs(got[k] - want[k]).max() /
+                     max(np.abs(want[k]).max(), 1e-30)) for k in differ}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    log(f'{label}: NOT bit-equal: {len(differ)} arrays differ (worst '
+        f'{max(errs.items(), key=lambda kv: kv[1]) if errs else None}), '
+        f'losses within {loss_err:.3e}; a kernel of the path is not '
+        f'deterministic on the card (the first that differs: '
+        f'{differ[:3]}); held to phase 5\'s rule')
+    if loss_err > LOSS_TOL or any(e > STEP_TOL for e in errs.values()):
+        raise AssertionError(f'{label}: past phase 5\'s rule: {errs}, '
+                             f'losses {loss_err}')
+
+
+def ckpt_train(device, val_paths, train_paths):
+    """(a)-(c); returns the launch counts of (a)'s train call."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    config = config_lib.apply_config(_config(CONFIGS), dict(CKPT_OVERLAY))
+    run, resume = (os.path.join(WORK, n) for n in ('ckpt_run',
+                                                   'ckpt_resume'))
+    for save in (run, resume):
+        _ckpt_run(config, save, train_paths)
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    first = f'ckpt-{CKPT_SAVE_FREQ}'
+    eng = engine.Engine(config, seed=SEED, device=device)
+    with _committed({first: os.path.join(resume, 'checkpoints', first)}), \
+            _deterministic_cudnn():
+        res, counts = _counted('phase 22 train', lambda: eng.train(
+            ds, save_path=run, max_steps=CKPT_STEPS,
+            save_freq=CKPT_SAVE_FREQ))
+    losses = res.history['loss']
+    log(f'phase 22 train: {CKPT_STEPS} steps, loss {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}; launches {counts}')
+    if res.epoch != list(range(1, CKPT_STEPS + 1)) or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f'phase 22 train: {res.epoch}, {losses}')
+    _check_train_launches('phase 22 train', counts, CKPT_STEPS)
+    ckpts = os.path.join(run, 'checkpoints')
+    names = sorted(os.listdir(ckpts))
+    last = os.path.join(ckpts, f'ckpt-{CKPT_STEPS}')
+    if names != [f'ckpt-{CKPT_STEPS}'] or \
+            set(os.listdir(last)) != ORBAX_FILES:
+        raise AssertionError(f'phase 22: {names} in checkpoints, '
+                             f'{sorted(os.listdir(last))} in the last')
+    want = _state_flat(eng, CKPT_STEPS)
+    _same_bits('phase 22 ckpt-50', engine.read_ckpt(last), want)
+    log(f'phase 22: {names} alone ({first} pruned, no temporary '
+        f'directory); ckpt-{CKPT_STEPS} reads back to the live state\'s '
+        f'{len(want)} arrays, bit for bit')
+
+    # (b) a resume from the copy of the first checkpoint
+    eng_b = engine.Engine(config, seed=SEED, device=device)
+    with _deterministic_cudnn():
+        res_b, counts_b = _counted('phase 22 resume', lambda: eng_b.train(
+            ds, save_path=resume, max_steps=CKPT_STEPS,
+            save_freq=CKPT_SAVE_FREQ))
+    if res_b.epoch != list(range(CKPT_SAVE_FREQ + 1, CKPT_STEPS + 1)):
+        raise AssertionError(f'phase 22 resume: steps {res_b.epoch}')
+    _check_train_launches('phase 22 resume', counts_b,
+                          CKPT_STEPS - CKPT_SAVE_FREQ)
+    _resume_state('phase 22 resume from a copy of ' + first,
+                  _state_flat(eng_b, CKPT_STEPS), want,
+                  res_b.history['loss'], losses[CKPT_SAVE_FREQ:])
+
+    # (c) evaluate the run: the CCA kernel, region counts against the plain
+    # CCA's
+    model_eval(device, val_paths, run, CKPT_STEPS, 'phase 22')
+    return counts
+
+
+def ckpt_big(device, train_paths, smi):
+    """(d) unet_big.yaml's full-width save: MB, the blocking ms of
+    save_ckpt, the ms until commit, read_ckpt's ms (median of
+    CKPT_LOADS)."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    config = config_lib.apply_config(_config(CKPT_BIG_CONFIGS),
+                                     dict(CKPT_BIG_OVERLAY))
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    eng = engine.Engine(config, seed=SEED, device=device)
+    res = eng.train(ds, max_steps=1, save_freq=1 << 30)
+    n_params = sum(p.numel() for p in eng.model.parameters())
+    if not np.isfinite(res.history['loss']).all() or \
+            eng.compute_dtype != torch.bfloat16:
+        raise AssertionError(f'phase 22 unet_big: {res.history}, '
+                             f'{eng.compute_dtype}')
+    ckpts = os.path.join(WORK, 'ckpt_big', 'checkpoints')
+    with _committed() as commits:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        path = eng.save_ckpt(ckpts, 1)
+        blocking = time.perf_counter() - start
+        eng.finalize_checkpoints()
+        done = time.perf_counter() - start
+    committed = commits[os.path.basename(path)] - start
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+    loads = []
+    for _ in range(CKPT_LOADS):
+        t = time.perf_counter()
+        flat = engine.read_ckpt(path)
+        loads.append(time.perf_counter() - t)
+    _same_bits('phase 22 unet_big', flat, _state_flat(eng, 1))
+    arrays = sum(v.nbytes for v in flat.values())
+    log(f'phase 22 unet_big.yaml ({n_params} parameters, bf16 compute, '
+        f'Adam): checkpoint {size / 1e6:.3f} MB on disk for '
+        f'{arrays / 1e6:.3f} MB of arrays; save_ckpt blocks '
+        f'{blocking * 1e3:.3f} ms (the host copy), commits at '
+        f'{committed * 1e3:.3f} ms ({done * 1e3:.3f} ms to '
+        f'finalize_checkpoints\' return); read_ckpt '
+        f'{statistics.median(loads) * 1e3:.3f} ms (median of {CKPT_LOADS}: '
+        f'{", ".join(f"{t * 1e3:.1f}" for t in loads)}) [{smi}]')
+
+
+def ckpt_cost(device, train_paths, smi):
+    """(e) unet.yaml's train throughput with a background save every 5
+    steps and with one at the end of a call: phase 5's differential calls
+    of 25 and 100 steps, each the minimum of three, the two settings in
+    turns."""
+    from dnncancerannotator_torch import engine
+    from dnncancerannotator_torch.data import pipeline
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    config = config_lib.apply_config(_config(CONFIGS), dict(CKPT_OVERLAY))
+    ds = pipeline.train_ds(train_paths, **config['data_options']['train'])
+    engines = {}
+    for freq in CKPT_RATE_FREQS:
+        eng = engine.Engine(config, seed=SEED, device=device)
+        save = os.path.join(WORK, f'ckpt_cost_{freq}')
+        eng.train(ds, save_path=save, max_steps=10, save_freq=freq)
+        engines[freq] = (eng, save)
+    times = {}
+    for _ in range(3):
+        for n in CKPT_RATE_STEPS:
+            for freq, (eng, save) in engines.items():
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                eng.train(ds, save_path=save, max_steps=eng.current_step + n,
+                          save_freq=freq)
+                torch.cuda.synchronize()
+                times.setdefault((freq, n), []).append(
+                    time.perf_counter() - start)
+    short, long = CKPT_RATE_STEPS
+    rates = {freq: (long - short) * TRAIN_BATCH / (
+        min(times[(freq, long)]) - min(times[(freq, short)]))
+        for freq in CKPT_RATE_FREQS}
+    every, rare = CKPT_RATE_FREQS
+    log(f'phase 22 train throughput: save_freq {every} {rates[every]:.2f} '
+        f'slices/s, save_freq {rare} {rates[rare]:.2f} slices/s, ratio '
+        f'{rates[every] / rates[rare]:.4f} (differential calls of {short} '
+        f'and {long} steps, each the minimum of three, in turns: '
+        + json.dumps({f'{f}/{n}': [round(t, 4) for t in v]
+                      for (f, n), v in times.items()}) + f') [{smi}]')
+    return rates
+
+
+def ckpt_slice(device, val_paths, train_paths, smi):
+    """Phase 22; returns (a)'s launch counts."""
+    counts = ckpt_train(device, val_paths, train_paths)
+    ckpt_big(device, train_paths, smi)
+    ckpt_cost(device, train_paths, smi)
+    return counts
 
 
 def main():
@@ -7049,6 +7321,8 @@ def main():
             orbax_slice(device, data_paths, train_paths, smi)
         with phase('21 model geometries'):
             geo_launches = geometry_slice(device, data_paths, train_paths)
+        with phase('22 Orbax writer'):
+            ckpt_launches = ckpt_slice(device, data_paths, train_paths, smi)
         with phase('9 profiler windows'):
             for job in _DEFERRED:
                 job()
@@ -7096,6 +7370,7 @@ def main():
          'predict_launches': predict_launches[name],
          'eval_launches': eval_launches[name],
          'rate3_launches': geo_launches.get(name, 0),
+         'ckpt_launches': ckpt_launches.get(name, 0),
          'max_abs_err': acc['max_abs_err'], **summed_times(acc),
          'bound_ms': acc['bound_ms'],
          'bound_by': max(acc['by'], key=acc['by'].get),

@@ -1,4 +1,4 @@
-'''A read-only OCDBT key-value store: the layout in which Orbax, through
+'''An OCDBT key-value store, read and written: the layout in which Orbax, through
 TensorStore, writes the arrays of the JAX package's checkpoints (TensorStore's
 "OCDBT storage format": google.github.io/tensorstore/kvstore/ocdbt/).
 
@@ -30,6 +30,16 @@ stated; lists are stored column by column.
   an Orbax checkpoint the root manifest's tree points into
   ``ocdbt.process_<i>/d/``, where each writing process put its data.
 
+``write_store`` writes a new store of one version (generation 1) in the
+layout above: a manifest of kind 0 with the config Orbax writes its stores
+with (values past 1 KiB out of line, nodes up to 100,000,000 bytes, zstd
+envelopes), and one data file ``d/<random hex>`` holding the out-of-line
+values and then the B-tree: a single leaf that holds every key. Its
+envelopes are zstd frames of raw blocks (ckpt/zstd.py). A checkpoint's
+leaf is a few hundred keys (the bn fixture's state has 320 leaves, unet_big's
+about 300), far below the node limit; a store past it raises instead of
+splitting the leaf.
+
 The store walks the newest version's tree once, at open, into an index;
 ``read`` then takes inline values from it or reads a data file's range.
 Every check fails with ValueError naming the file: a bad magic, length or
@@ -39,6 +49,8 @@ entry past its body, a path that leaves the directory.
 
 import os
 import struct
+import time
+import uuid
 
 from ..data.tfrecord import crc32c
 from . import zstd
@@ -47,6 +59,13 @@ MANIFEST = 'manifest.ocdbt'
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 _EMPTY = (1 << 64) - 1  # the offset of an empty tree's root
+# the config of the stores Orbax writes (its tensorstore_utils'
+# add_ocdbt_write_options), kept by write_store
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+_ZSTD, _ZSTD_LEVEL = 1, 0
+DATA_DIR = 'd'
 
 
 class _Body:
@@ -273,3 +292,117 @@ class OcdbtStore:
         if isinstance(value, bytes):
             return value
         return self._file(*value)
+
+
+# -- the writer ---------------------------------------------------------------
+
+def _varint(value):
+    out = bytearray()
+    while True:
+        byte = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(byte | 0x80)
+        else:
+            out.append(byte)
+            return bytes(out)
+
+
+def _varints(values):
+    return b''.join(map(_varint, values))
+
+
+def _prefixed(strings, extra=()):
+    '''``strings`` (sorted bytes) as ``_Body.prefixed`` reads them: the
+    lengths of the prefix each shares with the one before (the first has
+    none), the suffix lengths, the ``extra`` columns, then the suffixes.'''
+    prefixes, suffixes, previous = [], [], b''
+    for i, s in enumerate(strings):
+        n = 0
+        limit = min(len(s), len(previous))
+        while n < limit and s[n] == previous[n]:
+            n += 1
+        if i:
+            prefixes.append(n)
+        suffixes.append(s[n:])
+        previous = s
+    return (_varints(prefixes) + _varints(map(len, suffixes)) +
+            b''.join(_varints(column) for column in extra) +
+            b''.join(suffixes))
+
+
+def _file_table(paths):
+    '''A data file table of ``paths`` relative to the store, each with an
+    empty base path.'''
+    encoded = [p.encode() for p in paths]
+    return _varint(len(encoded)) + _prefixed(encoded, extra=[[0] * len(
+        encoded)])
+
+
+def _envelope(magic, body):
+    '''One OCDBT file: the header, ``body`` as a zstd frame, the CRC32C.'''
+    head = _varint(0) + _varint(_ZSTD)
+    payload = zstd.compress(body)
+    length = 4 + 8 + len(head) + len(payload) + 4
+    out = struct.pack('>I', magic) + struct.pack('<Q', length) + head + \
+        payload
+    return out + struct.pack('<I', crc32c(out))
+
+
+def _leaf(keys, values, data_rel, offsets):
+    '''The body of a leaf holding ``keys``: inline values where ``offsets``
+    has None, else a reference into the data file ``data_rel``.'''
+    kinds = [0 if off is None else 1 for off in offsets]
+    indirect = [off for off in offsets if off is not None]
+    return (bytes([0]) + _file_table([data_rel]) + _varint(len(keys)) +
+            _prefixed(keys) + _varints(map(len, values)) + _varints(kinds) +
+            _varints([0] * len(indirect)) + _varints(indirect) +
+            b''.join(v for v, off in zip(values, offsets) if off is None))
+
+
+def write_store(path, items):
+    '''Write ``items`` ({str key: bytes}) as a new OCDBT store in the
+    directory ``path`` (made if absent; its manifest must not exist).
+    Returns the number of bytes written.'''
+    manifest = os.path.join(path, MANIFEST)
+    if os.path.exists(manifest):
+        raise ValueError(f'{manifest} exists: write_store makes a new store')
+    if not items:
+        raise ValueError(f'{path}: an OCDBT store to write needs a key')
+    keys = sorted(k.encode() for k in items)
+    values = [bytes(items[k.decode()]) for k in keys]
+    data_rel = f'{DATA_DIR}/{uuid.uuid4().hex}'
+    offsets, position, chunks = [], 0, []
+    for value in values:
+        if len(value) > MAX_INLINE_VALUE_BYTES:
+            offsets.append(position)
+            chunks.append(value)
+            position += len(value)
+        else:
+            offsets.append(None)
+    body = _leaf(keys, values, data_rel, offsets)
+    if len(body) > MAX_DECODED_NODE_BYTES:
+        raise ValueError(f'{path}: a leaf of {len(keys)} keys takes '
+                         f'{len(body)} bytes, past the node limit of '
+                         f'{MAX_DECODED_NODE_BYTES}')
+    node = _envelope(NODE_MAGIC, body)
+    os.makedirs(os.path.join(path, DATA_DIR), exist_ok=True)
+    written = 0
+    with open(os.path.join(path, data_rel), 'wb') as fh:
+        for chunk in chunks + [node]:
+            written += fh.write(chunk)
+    body = (uuid.uuid4().bytes + _varint(0) +
+            _varint(MAX_INLINE_VALUE_BYTES) + _varint(MAX_DECODED_NODE_BYTES) +
+            bytes([VERSION_TREE_ARITY_LOG2]) + _varint(_ZSTD) +
+            struct.pack('<i', _ZSTD_LEVEL) +
+            _file_table([data_rel]) +
+            _varint(1) +                      # one version, inline
+            _varint(1) + bytes([0]) +         # generation 1, root height 0
+            _varints([0, position, len(node)]) +  # root location
+            _varints([len(keys), len(node), position]) +  # statistics
+            struct.pack('<Q', time.time_ns()) +
+            _varint(0))                       # no version-tree nodes
+    raw = _envelope(MANIFEST_MAGIC, body)
+    with open(manifest, 'wb') as fh:
+        written += fh.write(raw)
+    return written

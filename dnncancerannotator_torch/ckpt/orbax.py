@@ -1,4 +1,5 @@
-'''The JAX package's Orbax checkpoints as the port's flat dicts.
+'''The JAX package's Orbax checkpoints as the port's flat dicts, read and
+written.
 
 The JAX engine saves ``ckpt-<step>`` with Orbax's StandardCheckpointHandler:
 ``_METADATA`` (JSON: every leaf of the saved tree by key path),
@@ -21,10 +22,30 @@ the optimizer's update count, which every ``count`` of the chain holds. A
 leaf it cannot place, an optax name that two states of the chain hold,
 counts that disagree, a checkpoint that never committed, or a layout other
 than OCDBT with zarr v2 raise ValueError.
+
+``write_checkpoint`` is its inverse: it writes a flat dict as the JAX
+engine's ``save_ckpt`` does, so that ``StandardCheckpointer().restore`` with
+the JAX engine's template, and so its ``load``, take it. ``params`` and
+``batch_stats`` become flax trees (an empty ``batch_stats`` the
+``{"value_type": "Dict", "skip_deserialize": true}`` leaf), the moments and
+``count`` go into the optimizer's optax chain (``chain``: one tuple of
+field names per state, () for an empty state, which Orbax records as a
+``None`` leaf; train/optimizers.py: ``chain``), ``step`` and each ``count``
+are int32. Every array is a ``jax.Array`` leaf with its ``write_shape`` in
+``_METADATA``. Orbax's restore reads neither ``_sharding`` nor
+``array_metadatas/`` when the template gives every leaf's sharding, as the
+JAX engine's does, so neither is written. The directory is written under
+``<path>.orbax-checkpoint-tmp``, ``_CHECKPOINT_METADATA`` last, then renamed
+to ``path``: a name that ``ckpt-<step>`` never matches until the save
+commits. A failed write removes the temporary directory and raises.
 '''
 
 import json
 import os
+import shutil
+import time
+
+import numpy as np
 
 from . import ocdbt
 from . import zarr
@@ -32,7 +53,11 @@ from . import zarr
 METADATA = '_METADATA'
 COMMIT_METADATA = '_CHECKPOINT_METADATA'
 OPTAX_NAMES = ('mu', 'nu', 'trace', 'e_g', 'e_x', 'sum_of_squares')
+HANDLER = ('orbax.checkpoint._src.handlers.standard_checkpoint_handler.'
+           'StandardCheckpointHandler')
+TMP_SUFFIX = '.orbax-checkpoint-tmp'
 _SEQUENCE_KEY = 1  # key_type of a tuple or list index in _METADATA
+_DICT_KEY = 2      # key_type of a dict key or a named field
 _ARRAY_TYPES = ('jax.Array', 'np.ndarray')
 
 
@@ -149,3 +174,113 @@ def read_checkpoint(path, opt_state=True):
             unravelled = _unravel(f'{field}/params', vector, params)
             flat.update(unravelled)
     return flat
+
+
+# -- the writer ---------------------------------------------------------------
+
+def _subtree(flat, prefix):
+    '''{path tuple: array} of the keys of ``flat`` under ``prefix/``.'''
+    n = len(prefix) + 1
+    return {tuple(k[n:].split('/')): v for k, v in flat.items()
+            if k.startswith(prefix + '/')}
+
+
+def _tree_leaves(flat, chain):
+    '''[(keys, key types, array or the value_type of an empty node)] of the
+    JAX engine's state, in its flatten order; every key of ``flat`` placed
+    once.'''
+    placed = set()
+
+    def take(prefix):
+        tree = _subtree(flat, prefix)
+        placed.update(f'{prefix}/' + '/'.join(p) for p in tree)
+        return tree
+
+    params = take('params')
+    if not params:
+        raise ValueError('a checkpoint to write needs params/...')
+    leaves = []
+    stats = take('batch_stats')
+    if not stats:
+        leaves.append((('batch_stats',), (_DICT_KEY,), 'Dict'))
+    for path in sorted(stats):
+        leaves.append((('batch_stats',) + path, (_DICT_KEY,) * (
+            1 + len(path)), stats[path]))
+    count = flat.get('count', flat.get('step'))
+    placed.update(('count', 'step'))
+    for i, fields in enumerate(chain):
+        head = ('opt_state', str(i))
+        types = (_DICT_KEY, _SEQUENCE_KEY)
+        if not fields:
+            leaves.append((head, types, 'None'))
+        for field in fields:
+            if field == 'count':
+                leaves.append((head + ('count',), types + (_DICT_KEY,),
+                               np.asarray(count, np.int32)))
+                continue
+            moment = take(f'{field}/params')
+            if sorted(moment) != sorted(params):
+                raise ValueError(
+                    f'moment {field!r} holds {len(moment)} of the '
+                    f'{len(params)} parameters (missing: '
+                    f'{sorted(set(params) - set(moment))[:3]})')
+            for path in sorted(moment):
+                leaves.append((head + (field,) + path, types + (
+                    _DICT_KEY,) * (1 + len(path)), moment[path]))
+    for path in sorted(params):
+        leaves.append((('params',) + path, (_DICT_KEY,) * (1 + len(path)),
+                       params[path]))
+    leaves.append((('step',), (_DICT_KEY,), np.asarray(flat['step'],
+                                                        np.int32)))
+    unplaced = sorted(set(flat) - placed)
+    if unplaced:
+        raise ValueError(f'{unplaced[0]!r} has no place in the optimizer '
+                         f'chain {chain}')
+    return leaves
+
+
+def write_checkpoint(path, flat, chain):
+    '''Write ``flat`` (read_checkpoint's form, with ``step``) as the JAX
+    engine's Orbax checkpoint ``path``, its optimizer's state in the optax
+    chain ``chain``; replaces a checkpoint already at ``path``. Returns the
+    bytes written.'''
+    path = os.path.abspath(path)
+    started = time.time_ns()
+    leaves = _tree_leaves(flat, chain)
+    tmp = path + TMP_SUFFIX
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        os.makedirs(tmp)
+        store, tree = {}, {}
+        for keys, types, value in leaves:
+            entry = {'key_metadata': [{'key': k, 'key_type': t}
+                                      for k, t in zip(keys, types)]}
+            if isinstance(value, str):
+                entry['value_metadata'] = {'value_type': value,
+                                           'skip_deserialize': True}
+            else:
+                zarr.write_array(store, '.'.join(keys), value)
+                entry['value_metadata'] = {
+                    'value_type': 'jax.Array', 'skip_deserialize': False,
+                    'write_shape': list(np.shape(value))}
+            tree[str(keys)] = entry
+        written = ocdbt.write_store(tmp, store)
+        for name, content in (
+                (METADATA, {'tree_metadata': tree, 'use_ocdbt': True,
+                            'use_zarr3': False,
+                            'store_array_data_equal_to_fill_value': True,
+                            'custom_metadata': None}),
+                (COMMIT_METADATA, {'item_handlers': HANDLER, 'metrics': {},
+                                   'performance_metrics': {},
+                                   'init_timestamp_nsecs': started,
+                                   'commit_timestamp_nsecs': time.time_ns(),
+                                   'custom_metadata': {}})):
+            with open(os.path.join(tmp, name), 'w') as fh:
+                written += fh.write(json.dumps(content))
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return written

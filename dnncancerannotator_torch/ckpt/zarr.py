@@ -12,6 +12,13 @@ float32, which holds every bfloat16 exactly), ``dimension_separator`` "." or
 chunks the store does not hold. Every chunk is stored whole, edge chunks
 padded; the array is assembled in C order. Any other field or value raises
 ValueError naming it.
+
+Write (``write_array``): the ``.zarray`` that TensorStore writes for Orbax,
+byte for byte (sorted keys, no spaces): zarr_format 2, C order, no filters,
+``dimension_separator`` ".", ``fill_value`` null, compressor ``{"id":
+"zstd", "level": 1}``, and one chunk, the whole array (``0.0...`` or ``0``
+for a scalar), stored even when it is all zeros (Orbax's
+``store_array_data_equal_to_fill_value``), framed by ckpt/zstd.py.
 '''
 
 import json
@@ -26,6 +33,10 @@ _DTYPES = {'<f4': np.float32, '<f8': np.float64, '<i4': np.int32,
            'bfloat16': np.uint16}
 _FIELDS = {'zarr_format', 'shape', 'chunks', 'dtype', 'compressor',
            'fill_value', 'order', 'filters', 'dimension_separator'}
+# numpy dtype -> the name written (bfloat16 is read only)
+_WRITE_DTYPES = {np.dtype(v): k for k, v in _DTYPES.items()
+                 if k != 'bfloat16'}
+_COMPRESSOR = {'id': 'zstd', 'level': 1}
 _SPECIAL_FILLS = {'NaN': math.nan, 'Infinity': math.inf,
                   '-Infinity': -math.inf}
 
@@ -98,3 +109,22 @@ def read_array(store, name) -> np.ndarray:
     if meta['dtype'] == 'bfloat16':
         out = (out.astype(np.uint32) << 16).view(np.float32)
     return out
+
+
+def write_array(store, name, array):
+    '''Put the zarr v2 array ``name`` into ``store`` (a dict of key ->
+    bytes): its ``.zarray`` and its one chunk.'''
+    array = np.asarray(array)
+    kind = _WRITE_DTYPES.get(array.dtype)
+    if kind is None:
+        raise ValueError(f'zarr array {name!r}: dtype {array.dtype} is not '
+                         f'written (one of {sorted(_WRITE_DTYPES.values())})')
+    shape = list(array.shape)
+    meta = {'chunks': shape, 'compressor': _COMPRESSOR,
+            'dimension_separator': '.', 'dtype': kind, 'fill_value': None,
+            'filters': None, 'order': 'C', 'shape': shape, 'zarr_format': 2}
+    store[f'{name}/.zarray'] = json.dumps(
+        meta, sort_keys=True, separators=(',', ':')).encode()
+    chunk = '.'.join('0' * array.ndim) or '0'
+    data = np.ascontiguousarray(array, _DTYPES[kind])
+    store[f'{name}/{chunk}'] = zstd.compress(data.reshape(-1).view(np.uint8))

@@ -2,9 +2,9 @@
 
 The flat form is {flax path: array}, e.g.
 ``params/unet/encoder/down_0/convchain/conv_0/kernel`` or
-``params/last_conv/bias``: the port's checkpoint
-(``<save_path>/checkpoints/ckpt-<step>/params.npz``) holds exactly that,
-with flax's HWIO kernels, so numpy reads it anywhere.
+``params/last_conv/bias``: a checkpoint (``<save_path>/checkpoints/
+ckpt-<step>``, the JAX engine's Orbax layout, ckpt/orbax.py) holds exactly
+that, with flax's HWIO kernels, so either package reads it.
 
 Layouts:
 

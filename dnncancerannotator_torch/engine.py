@@ -104,21 +104,27 @@ every checkpoint of a run, and writes ``results.csv`` and
 ``casewise_results.csv``; its batches are decoded and copied to the device
 by a ``_Prefetcher`` while the one before them computes.
 
-A checkpoint directory holds ``params.npz`` (the flax parameter paths with
-HWIO kernels, and a BatchNorm model's ``batch_stats/...`` running
-statistics, convert.py) and, once trained, ``opt_state.npz``: the
-optimizer's state under optax's names by flax parameter path
-(``mu/<path>`` and ``nu/<path>`` for Adam, AdamW, Adamax, NAdam and LAMB,
-``trace/<path>`` for SGD momentum, ``nu`` and ``trace`` (and ``mu`` when
-centered) for RMSprop, ``sum_of_squares`` for Adagrad, ``e_g`` and ``e_x``
-for Adadelta, ``mu`` for Lion; train/optimizers.py) in the same layout,
-and ``step``. numpy reads both without JAX. ``load`` (and so ``evaluate``,
-``predict``, ``export_model`` and ``train``'s resume) also reads the JAX
-package's checkpoints as its engine saves them, without orbax or
-tensorstore (``read_ckpt``, ckpt/): Orbax's OCDBT store of zarr v2 arrays,
-zstd-compressed, with the optimizer's state in the param-tree layout or the
-flat interim one; the optimizer then steps on from the chain's ``count``.
-Saving stays in the port's npz form.
+A checkpoint directory ``ckpt-<step>`` is the JAX engine's own: Orbax's
+StandardCheckpointHandler layout (ckpt/orbax.py), an OCDBT store of zarr v2
+arrays in zstd frames with ``_METADATA`` and, written last when the save
+commits, ``_CHECKPOINT_METADATA``. It holds the JAX engine's state tree:
+``params`` and ``batch_stats`` (flax paths, HWIO kernels, convert.py),
+``step``, and ``opt_state``, the optimizer's optax chain (train/optimizers.py:
+``chain``) with its moments under optax's names in the params tree (``mu``
+and ``nu`` for Adam, AdamW, Adamax, NAdam and LAMB, ``trace`` for SGD
+momentum, ``nu`` and ``trace`` (and ``mu`` when centered) for RMSprop,
+``sum_of_squares`` for Adagrad, ``e_g`` and ``e_x`` for Adadelta, ``mu`` for
+Lion) and each state's ``count``. So the JAX package's ``load``,
+``evaluate``, ``predict`` and ``train`` (resume) take a run the port trained,
+and the port's take the JAX package's (``read_ckpt``, without orbax,
+tensorstore or a zstd module). ``save_ckpt`` saves in the background as the
+JAX engine's AsyncCheckpointer does: it copies the state to host memory,
+then a writer thread writes and commits the directory while training goes
+on; at most one save is in flight, and ``finalize_checkpoints`` (before
+every load, save, resume and evaluate, and at the end of ``train``) waits
+for it and raises what its writer raised. ``read_ckpt`` still reads the
+port's earlier form, ``params.npz`` and ``opt_state.npz`` (the same flat
+keys in numpy archives); nothing writes it any more.
 '''
 
 import contextlib
@@ -323,6 +329,24 @@ class _Prefetcher:
         self._thread.join(timeout=30)
 
 
+class _Save(threading.Thread):
+    '''A checkpoint writer: runs ``write`` once and keeps what it raised.
+    Not a daemon, so a process that ends with a save in flight waits for it
+    to commit.'''
+
+    def __init__(self, path, write):
+        super().__init__(name=f'save {os.path.basename(path)}')
+        self.path = path
+        self._write = write
+        self.error = None
+
+    def run(self):
+        try:
+            self._write()
+        except BaseException as exc:  # raised by finalize_checkpoints
+            self.error = exc
+
+
 class TrainResults:
     '''Per-step history of a ``train`` call (for dump_train_results).'''
 
@@ -341,8 +365,9 @@ class TrainResults:
 def read_ckpt(path, opt_state=True):
     '''The checkpoint directory ``path`` as one flat dict of numpy arrays
     (the flax-keyed params, and with ``opt_state`` the optimizer's entries
-    and ``step``): the port's ``params.npz`` and ``opt_state.npz``, or the
-    JAX package's Orbax checkpoint (ckpt/orbax.py).'''
+    and ``step``): an Orbax checkpoint (ckpt/orbax.py), as the JAX engine
+    and the port save them, or the port's earlier ``params.npz`` and
+    ``opt_state.npz``.'''
     params_path = os.path.join(path, PARAMS_FILE)
     if os.path.isfile(params_path):
         with np.load(params_path) as npz:
@@ -404,6 +429,10 @@ class Engine:
         # (step, check messages, device vector) of each train step's
         # debug_asserts checks, read with its chunk's losses
         self._check_log = []
+        # the checkpoint save in flight (a _Save), and whether a save was
+        # started since the last finalize_checkpoints (on every rank)
+        self._save = None
+        self._save_pending = False
 
     def build(self, input_shape):
         '''Build the model for [B, H, W, C] inputs with seeded glorot
@@ -455,52 +484,119 @@ class Engine:
         return OrderedDict(sorted(found))
 
     def save_ckpt(self, base_path, step):
-        '''Write ``ckpt-<step>/params.npz`` in the flat flax-keyed form, and
-        ``opt_state.npz`` when the engine has an optimizer; the directory
-        appears whole (written under another name, then renamed). Keeps the
-        newest ``max_checkpoints_to_keep`` checkpoints. In a process group
-        rank 0 writes and every rank of the Engine's group returns once it
-        has.'''
+        '''Save ``ckpt-<step>`` under ``base_path`` as the JAX engine does,
+        in the background: the model's and the optimizer's state are copied
+        to host memory here, the one blocking part (blocking copies, so
+        nothing the next step does reaches them), then a writer thread
+        writes the Orbax checkpoint (ckpt/orbax.py) while training goes on.
+        At most one save is in flight: this first waits for the one before
+        (finalize_checkpoints), then removes the committed checkpoints past
+        the newest ``max_checkpoints_to_keep`` counting this one. In a
+        process group every rank calls this at the same steps and rank 0
+        writes. Returns the checkpoint's path.'''
+        self.finalize_checkpoints()
         path = os.path.join(base_path, f'ckpt-{step}')
+        self._save_pending = True
         if multihost.is_primary():
-            self._write_ckpt(base_path, path, step)
-        if self.group is not None:
-            self.group.barrier(self.device)
+            snapshot = self._snapshot(step)
+            self._prune_ckpts(base_path, step)
+            self._save = _Save(path, functools.partial(
+                self._write_ckpt, path, snapshot))
+            self._save.start()
         return path
 
-    def _write_ckpt(self, base_path, path, step):
-        tmp = path + '.tmp'
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        np.savez(os.path.join(tmp, PARAMS_FILE),
-                 **convert.flax_from_torch_state(self.model.state_dict()))
-        if self.optimizer is not None:
-            np.savez(os.path.join(tmp, OPT_STATE_FILE),
-                     **self._opt_state_flat(step))
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
-        self._prune_ckpts(base_path)
+    def finalize_checkpoints(self):
+        '''Wait until the save in flight commits; an error of its writer
+        raises here. In a process group every rank then meets at a barrier
+        (after a save, as each rank knows), so no rank reads a checkpoint
+        before it commits.'''
+        save, self._save = self._save, None
+        pending, self._save_pending = self._save_pending, False
+        if save is not None:
+            save.join()
+        if pending and self.group is not None:
+            self.group.barrier(self.device)
+        if save is not None and save.error is not None:
+            raise save.error
 
-    def _prune_ckpts(self, base_path):
+    def save(self, path):
+        '''Write the current state to ``path`` as the JAX engine's Orbax
+        checkpoint, synchronously (the JAX engine's ``save``). An engine
+        that has not trained writes its optimizer's initial state.'''
+        if self.model is None:
+            raise RuntimeError('nothing to save; call build() first')
+        self.finalize_checkpoints()
+        if multihost.is_primary():
+            self._write_ckpt(path, self._snapshot(self.current_step))
+        if self.group is not None:
+            self.group.barrier(self.device)
+        return self
+
+    def _snapshot(self, step):
+        '''What a checkpoint of ``step`` holds, copied to host memory:
+        (step, model state_dict, optimizer, {param name: {state key:
+        tensor}} of every parameter, the update count or None). The writer
+        thread reads nothing else of the engine.'''
+        def host(t):
+            return t.detach().to('cpu', copy=True)
+
+        optimizer = self.optimizer
+        if optimizer is None:
+            # not set up to train: the config's optimizer gives the chain
+            # and the initial state
+            optimizer, _ = optimizers_lib.solve_optimizer(
+                self.model_config['deploy_options'].get('optimizer', 'adam'),
+                self.model.parameters(), self.schedule)
+        keys = optimizers_lib.state_names(optimizer)
+        names = {p: n for n, p in self.model.named_parameters()}
+        state, counts = {n: {} for n in names.values()}, []
+        for p, st in optimizer.state.items():
+            state[names[p]] = {k: host(st[k]) for k in keys
+                               if torch.is_tensor(st.get(k))}
+            if 'step' in st:
+                counts.append(int(st['step']))
+        model = {k: host(v) for k, v in self.model.state_dict().items()}
+        return (step, model, optimizer, state,
+                counts[0] if counts else None)
+
+    def _write_ckpt(self, path, snapshot):
+        step, model, optimizer, _, _ = snapshot
+        flat = convert.flax_from_torch_state(model)
+        flat.update(self._opt_state_flat(step, snapshot))
+        orbax_lib.write_checkpoint(path, flat, optimizers_lib.chain(
+            optimizer))
+        logger.info('Saved checkpoint %s', path)
+
+    def _prune_ckpts(self, base_path, step):
+        '''Remove the oldest committed checkpoints, leaving room for the
+        save of ``step`` within ``max_checkpoints_to_keep`` (a checkpoint
+        being written is not yet listed).'''
         if not self.max_checkpoints_to_keep:
             return
         ckpts = self.get_ckpts(base_path)
-        for step in list(ckpts)[:max(
-                len(ckpts) - int(self.max_checkpoints_to_keep), 0)]:
-            shutil.rmtree(ckpts[step], ignore_errors=True)
-            logger.info('Pruned checkpoint %s', ckpts[step])
+        ckpts.pop(step, None)   # the save replaces it
+        for old in list(ckpts)[:max(
+                len(ckpts) - int(self.max_checkpoints_to_keep) + 1, 0)]:
+            shutil.rmtree(ckpts[old], ignore_errors=True)
+            logger.info('Pruned checkpoint %s', ckpts[old])
 
-    def _opt_state_flat(self, step):
-        '''The optimizer's per-parameter state by optax name and flax path,
-        plus the step.'''
-        names = {p: n for n, p in self.model.named_parameters()}
-        flat = {'step': np.asarray(step, np.int64)}
-        for key, optax_name in optimizers_lib.state_names(
-                self.optimizer).items():
-            state = {names[p]: st[key]
-                     for p, st in self.optimizer.state.items()
-                     if torch.is_tensor(st.get(key))}
-            for path, value in convert.flax_from_torch_state(state).items():
+    def _opt_state_flat(self, step, snapshot=None):
+        '''The optimizer's per-parameter state by optax name and flax path
+        (a parameter it has no state for yet at the state's initial value),
+        ``count`` (the update count) and the step; of ``snapshot``, else
+        of the live optimizer.'''
+        if snapshot is None:
+            snapshot = self._snapshot(step)
+        _, model, optimizer, state, count = snapshot
+        flat = {'step': np.asarray(step, np.int32),
+                'count': np.asarray(step if count is None else count,
+                                    np.int32)}
+        for key, optax_name in optimizers_lib.state_names(optimizer).items():
+            init = optimizers_lib.initial_value(optimizer, key)
+            values = {n: st.get(key) for n, st in state.items()}
+            values = {n: torch.full_like(model[n], init) if v is None else v
+                      for n, v in values.items()}
+            for path, value in convert.flax_from_torch_state(values).items():
                 flat[f'{optax_name}/{path}'] = value
         return flat
 
@@ -529,6 +625,7 @@ class Engine:
         has one and the engine is set up to train.'''
         if self.model is None:
             raise RuntimeError('call build() before load()')
+        self.finalize_checkpoints()
         flat = read_ckpt(path, opt_state=self.optimizer is not None)
         model_flat = {k: v for k, v in flat.items()
                       if k.split('/', 1)[0] in ('params', 'batch_stats')}
@@ -541,6 +638,7 @@ class Engine:
         return self
 
     def _auto_resume(self, base_path):
+        self.finalize_checkpoints()
         ckpts = self.get_ckpts(base_path)
         if not ckpts:
             return
@@ -914,6 +1012,7 @@ class Engine:
             logger.warning('Preempted (SIGTERM) at step %d: saving a '
                            'checkpoint', step)
             self.save_ckpt(ckpt_dir, step)
+        self.finalize_checkpoints()
         return results
 
     @staticmethod
@@ -1068,6 +1167,7 @@ class Engine:
         results}; with ``export_csv`` also writes ``results.csv`` (one row
         a step) and ``casewise_results.csv`` (one row a slice and step).'''
         self.build(dataset.feature_shape)
+        self.finalize_checkpoints()   # a save of this engine still in flight
         ckpt_path = os.path.join(save_path, 'checkpoints')
         export_path = export_path or os.path.join(save_path, 'tfevents')
         while os.path.exists(os.path.join(export_path, tag)):

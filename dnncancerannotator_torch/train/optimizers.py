@@ -24,9 +24,10 @@ transform>)``, which runs over all parameters as one vector:
   trust ratio is one ratio over all parameters as one vector (the flatten);
   torch has no lion.
 
-Each optimizer's per-parameter state has optax's names (``state_names``),
-which is how the engine writes it into checkpoints, and ``step``, the
-update count. The learning rate is the engine's schedule: the engine sets
+Each optimizer's per-parameter state has optax's names (``state_names``)
+and ``step``, the update count. A checkpoint holds them as the JAX engine's
+``opt_state``: the optax chain of that optimizer (``chain``), whose states
+hold the moments and each its own ``count``. The learning rate is the engine's schedule: the engine sets
 it before every step. Without a schedule it is the config's
 ``learning_rate`` or the Keras default, as a constant schedule.
 '''
@@ -273,6 +274,43 @@ def state_names(optimizer):
     if isinstance(optimizer, _Optax):
         return {name: name for name in optimizer.STATE}
     return _TORCH_STATE[type(optimizer)]
+
+
+# the optax chain of each optimizer as the JAX package builds it
+# (optax.flatten of its registry's transform, the learning rate a schedule,
+# so the chain ends in scale_by_schedule's count): one tuple of field names
+# per state, () for an empty state (add_decayed_weights, trust ratio,
+# identity); the entries of sgd and rmsprop depend on the first param group
+_CHAINS = {
+    torch.optim.Adam: (('count', 'mu', 'nu'), ('count',)),
+    torch.optim.AdamW: (('count', 'mu', 'nu'), (), ('count',)),
+    torch.optim.Adamax: (('count', 'mu', 'nu'), ('count',)),
+    NAdam: (('count', 'mu', 'nu'), ('count',)),
+    # trace(momentum), or identity when momentum is 0 (the JAX registry
+    # passes None)
+    torch.optim.SGD: lambda group: (
+        ('trace',) if group['momentum'] else (), ('count',)),
+    # scale_by_rms (scale_by_stddev: mu and nu when centered), the
+    # schedule, then trace
+    RMSprop: lambda group: (
+        ('mu', 'nu') if group['centered'] else ('nu',), ('count',),
+        ('trace',)),
+    Adagrad: (('sum_of_squares',), ('count',)),
+    torch.optim.Adadelta: ((), ('e_g', 'e_x'), ('count',)),
+    Lamb: (('count', 'mu', 'nu'), (), (), ('count',)),
+    Lion: (('count', 'mu'), (), ('count',)),
+}
+
+
+def chain(optimizer):
+    '''The optax chain of ``optimizer``'s JAX counterpart (see _CHAINS).'''
+    layout = _CHAINS[type(optimizer)]
+    return layout(optimizer.param_groups[0]) if callable(layout) else layout
+
+
+def initial_value(optimizer, key):
+    '''The value of state ``key`` before ``optimizer``'s first step.'''
+    return getattr(optimizer, 'INITIAL', {}).get(key, 0.0)
 
 
 def solve_optimizer(spec, params, schedule=None):

@@ -55,7 +55,7 @@ from dnncancerannotator_tpu.ops.pallas import flatchain as JFC
 from dnncancerannotator_tpu.ops.pallas import flattconv as JFT
 from dnncancerannotator_tpu.ops.pallas import pool_kernel as JPK
 from dnncancerannotator_tpu.ops.pallas import tconv_kernel as JTK
-from dnncancerannotator_torch import convert
+from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import models as torch_models
 from dnncancerannotator_torch.models import fastbn, fastconv
 from dnncancerannotator_torch.models import multiresunet as mru
@@ -541,9 +541,9 @@ def test_bf16_cli_train_resume_predict_evaluate(records, tmp_path):
                          *common, '--data_path', *records, '--save_freq',
                          '2', '--seed', '1', '--max_steps', str(steps)])
         assert np.isfinite(res.history['loss']).all()
-    with np.load(os.path.join(save, 'checkpoints', 'ckpt-4',
-                              'params.npz')) as npz:
-        assert {npz[k].dtype for k in npz.files} == {np.dtype(np.float32)}
+    saved = engine.read_ckpt(os.path.join(save, 'checkpoints', 'ckpt-4'))
+    assert {v.dtype for k, v in saved.items()
+            if k not in ('step', 'count')} == {np.dtype(np.float32)}
     out = str(tmp_path / 'pred')
     count = main(argv=['predict', *common, '--data_path', *records,
                        '--output_path', out, '--output_format', 'npy',

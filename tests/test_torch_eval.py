@@ -330,8 +330,9 @@ def test_validation_and_evaluate_cli_match_jax(records, tmp_path):
     shared = {}
     for step in (4, 8):
         ckpt = os.path.join(save, 'checkpoints', f'ckpt-{step}')
-        with np.load(os.path.join(ckpt, 'params.npz')) as npz:
-            jeng.state['params'] = _jax_params({k: npz[k] for k in npz.files})
+        saved = engine.read_ckpt(ckpt, opt_state=False)
+        jeng.state['params'] = _jax_params(
+            {k: v for k, v in saved.items() if k.startswith('params/')})
         jeng.save_ckpt(os.path.join(jax_save, 'checkpoints'), step)
         eng.load(ckpt)
         got_b = _probs(ds, lambda x: port_step(x)[1].numpy())
@@ -404,6 +405,7 @@ def test_evaluate_selects_checkpoints_and_tags_as_jax(records, tmp_path):
     eng.build((5, 32, 32, 5))
     for step in (1, 2, 4, 7):
         eng.save_ckpt(os.path.join(save, 'checkpoints'), step)
+    eng.finalize_checkpoints()
     with open(os.path.join(save, 'options.yaml'), 'w') as fh:
         json.dump({'config': config}, fh)
 

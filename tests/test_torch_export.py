@@ -357,6 +357,7 @@ def test_other_families_export(tmp_path, name, options):
     with open(os.path.join(save, 'options.yaml'), 'w') as f:
         yaml.safe_dump(dict(config=config), f)
     eng.save_ckpt(os.path.join(save, 'checkpoints'), 2)
+    eng.finalize_checkpoints()
     fn = torch_export.load_exported(
         torch_export.export_model(save, str(tmp_path / 'art')), device='cpu')
     x = _features(3, 11)

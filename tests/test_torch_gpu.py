@@ -1245,6 +1245,7 @@ def test_exported_program_on_the_card(cuda, tmp_path, options, deploy):
     with open(os.path.join(save, 'options.yaml'), 'w') as f:
         yaml.safe_dump(dict(config=config), f)
     eng.save_ckpt(os.path.join(save, 'checkpoints'), 1)
+    eng.finalize_checkpoints()
     path = export.export_model(save, str(tmp_path / 'art'))
 
     from torch.export.passes import move_to_device_pass
@@ -1547,3 +1548,41 @@ def test_stencil_conv_zero_pads_at_valid_sites(cuda, ci, co, hw):
     g = torch.where(got > 0, _rand(gen, *got.shape), torch.zeros_like(got))
     _assert_grads(SCB.stencil_conv_bwd(x, g, wk, _ZERO),
                   SCB.plain(x, g, wk, _ZERO))
+
+
+@pytest.mark.parametrize('name', ['unet', 'bn'])
+def test_orbax_write_from_the_card(cuda, name, tmp_path):
+    '''The fixture's run loaded onto the card, then saved in the background
+    with ``save_ckpt`` while the card keeps working: the checkpoint commits
+    in the JAX engine's Orbax layout and reads back to the state on the
+    card at the save, to the bit.'''
+    import numpy as np
+    from dnncancerannotator_torch import convert, engine
+    from dnncancerannotator_torch.train import optimizers
+    from dnncancerannotator_torch.utils import config as config_lib
+
+    run = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       'fixtures_torch', 'orbax', name)
+    config = config_lib.load_config(
+        os.path.join(run, 'options.yaml'))['config']
+    eng = engine.Engine(config, device=cuda)
+    eng.build((1, 64, 64, 5))
+    eng.optimizer, eng.schedule = optimizers.solve_optimizer(
+        config['deploy_options'].get('optimizer', 'adam'),
+        eng.model.parameters(), eng.schedule)
+    ckpts = eng.get_ckpts(os.path.join(run, 'checkpoints'))
+    step = max(ckpts)
+    eng.load(ckpts[step])
+    want = convert.flax_from_torch_state(eng.model.state_dict())
+    want.update(eng._opt_state_flat(step))
+    path = eng.save_ckpt(str(tmp_path), step)
+    with torch.no_grad():   # the state on the card moves on meanwhile
+        for p in eng.model.parameters():
+            p.add_(1.0)
+    eng.finalize_checkpoints()
+    assert {'_METADATA', '_CHECKPOINT_METADATA', 'manifest.ocdbt'} <= set(
+        os.listdir(path))
+    got = engine.read_ckpt(path)
+    assert sorted(got) == sorted(want)
+    for key, value in want.items():
+        assert np.asarray(got[key]).tobytes() == value.tobytes(), key

@@ -1,7 +1,7 @@
 '''The port stands alone: it never imports JAX, OpenCV, orbax, tensorstore,
-zstandard or the JAX package (and reads a JAX checkpoint without them), its
-host library builds from its own sources into build/torch_host/ and
-nothing of the root native/ directory is loaded, and it never picks the
+zstandard or the JAX package (and reads and writes a JAX checkpoint without
+them), its host library builds from its own sources into build/torch_host/
+and nothing of the root native/ directory is loaded, and it never picks the
 CPU when a GPU was asked for and none is visible.'''
 
 import os
@@ -67,6 +67,13 @@ ckpts = os.path.join(repo, 'tests', 'fixtures_torch', 'orbax', 'unet',
 flat = orbax.read_checkpoint(os.path.join(ckpts, ckpt))
 assert ckpt == 'ckpt-%d' % int(flat['step'])
 assert 'mu/params/last_conv/bias' in flat
+# and written back as the JAX engine writes it, with none of them either
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    orbax.write_checkpoint(os.path.join(tmp, 'ckpt-1'), flat,
+                           (('count', 'mu', 'nu'), ('count',)))
+    again = orbax.read_checkpoint(os.path.join(tmp, 'ckpt-1'))
+    assert all(again[k].tobytes() == v.tobytes() for k, v in flat.items())
 assert os.path.join(repo, 'native') + '/' not in maps
 import torch
 from dnncancerannotator_torch import models

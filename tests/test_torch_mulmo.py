@@ -34,7 +34,7 @@ from dnncancerannotator_tpu.models import multiresunet as jax_multiresunet
 from dnncancerannotator_tpu.models import unet as jax_unet
 from dnncancerannotator_tpu.ops import gates as jax_gates
 from dnncancerannotator_tpu.ops.pallas import conv_kernel as CK
-from dnncancerannotator_torch import convert
+from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import models as torch_models
 from dnncancerannotator_torch.ops import functions, gates
 from dnncancerannotator_torch.ops.kernels import stencil_conv_nhwc as SN
@@ -501,9 +501,8 @@ def test_mulmo_train_resume_predict_cli(records, tmp_path):
                           'cpu', '--max_steps', str(max_steps)])
 
     def ckpt(save, step):
-        path = os.path.join(save, 'checkpoints', f'ckpt-{step}', 'params.npz')
-        with np.load(path) as npz:
-            return {k: npz[k] for k in npz.files}
+        return engine.read_ckpt(os.path.join(
+            save, 'checkpoints', f'ckpt-{step}'), opt_state=False)
 
     a, b = str(tmp_path / 'a'), str(tmp_path / 'b')
     res = run(a, 4)

@@ -19,7 +19,7 @@ from flax import linen as nn
 
 from dnncancerannotator_tpu.models import fastbn as jax_fastbn
 from dnncancerannotator_tpu.models import fastconv as jax_fastconv
-from dnncancerannotator_torch import convert
+from dnncancerannotator_torch import convert, engine
 from dnncancerannotator_torch import models as torch_models
 from dnncancerannotator_torch.models import fastbn, multiresunet
 from dnncancerannotator_torch.runs.__main__ import main
@@ -186,9 +186,8 @@ def test_multiresunet_train_evaluate_predict_cli(records, tmp_path):
         return main(argv=argv)
 
     def ckpt(save, step):
-        path = os.path.join(save, 'checkpoints', f'ckpt-{step}', 'params.npz')
-        with np.load(path) as npz:
-            return {k: npz[k] for k in npz.files}
+        return engine.read_ckpt(os.path.join(
+            save, 'checkpoints', f'ckpt-{step}'), opt_state=False)
 
     a, b = str(tmp_path / 'a'), str(tmp_path / 'b')
     res = run(a, 4, validate=True)

@@ -265,13 +265,12 @@ def test_train_cli_checkpoints_resumes_and_predicts(records, tmp_path):
     assert all(np.isfinite(first.history['loss']))
     assert first.history['lr'] == [1e-3] * 4
     assert sorted(os.listdir(ckpt_dir)) == ['ckpt-2', 'ckpt-4']
-    with np.load(os.path.join(ckpt_dir, 'ckpt-4', 'opt_state.npz')) as npz:
-        keys = set(npz.files)
-        assert int(npz['step']) == 4
-    with np.load(os.path.join(ckpt_dir, 'ckpt-4', 'params.npz')) as npz:
-        params = set(npz.files)
-    assert keys == {'step'} | {f'{m}/{k}' for m in ('mu', 'nu')
-                               for k in params}
+    saved = engine.read_ckpt(os.path.join(ckpt_dir, 'ckpt-4'))
+    assert int(saved['step']) == int(saved['count']) == 4
+    params = {k for k in saved if k.startswith('params/')}
+    assert set(saved) == {'step', 'count'} | params | {
+        f'{m}/{k}' for m in ('mu', 'nu') for k in params}
+    assert os.path.isfile(os.path.join(ckpt_dir, 'ckpt-4', '_METADATA'))
 
     second = main(argv=argv + ['6'])   # resumes at step 4
     assert second.epoch == [5, 6]

@@ -499,9 +499,8 @@ def test_train_cli_keeps_batch_stats(records, tmp_path):
         return main(argv=argv)
 
     def ckpt(save, step):
-        path = os.path.join(save, 'checkpoints', f'ckpt-{step}', 'params.npz')
-        with np.load(path) as npz:
-            return {k: npz[k] for k in npz.files}
+        return engine.read_ckpt(os.path.join(
+            save, 'checkpoints', f'ckpt-{step}'), opt_state=False)
 
     a, b = str(tmp_path / 'a'), str(tmp_path / 'b')
     res = run(a, 4, validate=True)

@@ -1,7 +1,9 @@
 '''Orbax checkpoints written by the JAX package, for the port's reader
 (dnncancerannotator_torch/ckpt/): the JAX engine's own ``build`` and
 ``save_ckpt`` with seeded optimizer state, the ten optimizers' chains, and
-the flat interim layout. Used by tests/test_torch_orbax.py and by
+the flat interim layout. Used by tests/test_torch_orbax.py,
+tests/test_torch_orbax_write.py (which also restores the port's checkpoints
+with Orbax, ``restore``) and by
 tools/make_torch_orbax_fixture.py, which writes the committed fixtures under
 tests/fixtures_torch/orbax/. Imports JAX: never imported by the port.'''
 
@@ -142,13 +144,12 @@ def small_params(seed=0):
                      'bias': rng.standard_normal(1, np.float32)}}
 
 
-def write_optimizer_state(path, optimizer, seed=0):
-    '''A state with the small params and ``optimizer``'s chain (the JAX
-    engine's registry, optax.flatten-ed as the engine runs it), saved with
-    StandardCheckpointer in the engine's param-tree view. Returns the
-    expected flat dict.'''
+def optimizer_view(optimizer, seed=0):
+    '''A state with the small params and ``optimizer``'s chain (a registry
+    name or spec of the JAX engine, optax.flatten-ed as the engine runs
+    it), seeded, in the engine's param-tree view. Returns (view, the
+    expected flat dict).'''
     import optax
-    import orbax.checkpoint as ocp
     from dnncancerannotator_tpu import engine as jax_engine
     from dnncancerannotator_tpu.train import optimizers as jax_optimizers
     tx, _ = jax_optimizers.solve_optimizer(optimizer)
@@ -158,9 +159,34 @@ def write_optimizer_state(path, optimizer, seed=0):
              'step': np.zeros((), np.int32)}
     state, _ = seed_state(jax.tree.map(np.asarray, state), seed)
     view = jax.tree.map(np.asarray, jax_engine.Engine._param_tree_view(state))
+    return view, expected_flat(view)
+
+
+def write_optimizer_state(path, optimizer, seed=0):
+    '''``optimizer_view``'s state saved with StandardCheckpointer. Returns
+    the expected flat dict.'''
+    import orbax.checkpoint as ocp
+    view, expected = optimizer_view(optimizer, seed)
     with ocp.StandardCheckpointer() as ckptr:
         ckptr.save(os.path.abspath(path), view)
-    return expected_flat(view)
+    return expected
+
+
+def restore(path, view):
+    '''Orbax's StandardCheckpointer restore of ``path`` with the template
+    the JAX engine's ``load`` builds from a state like ``view``: each leaf's
+    shape and dtype, replicated on the engine's mesh.'''
+    import orbax.checkpoint as ocp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+    mesh = Mesh(np.asarray(jax.devices()[:1]).reshape(1, 1),
+                ('data', 'model'))
+    rep = NamedSharding(mesh, PartitionSpec())
+    template = jax.tree.map(
+        lambda l: jax.ShapeDtypeStruct(np.shape(l), np.asarray(l).dtype,
+                                       sharding=rep), view)
+    with ocp.StandardCheckpointer() as ckptr:
+        return jax.tree.map(np.asarray, ckptr.restore(
+            os.path.abspath(path), template))
 
 
 def write_fixture(name, out_dir=FIXTURES, seed=0):

@@ -3,7 +3,7 @@ backward) and warp resample kernels at the shapes their paths call them
 with:
 
     python3 tools/profile_torch_sites.py [--repo DIR] [--out FILE] [--warp]
-        [--stencil | --leaky] [--sweep | --sweep-head | --sweep-warp |
+        [--stencil | --leaky | --rate3] [--sweep | --sweep-head | --sweep-warp |
         --sweep-stencil]
 
 On one GPU, with seeded inputs, it times:
@@ -54,6 +54,14 @@ unet.yaml + leakyReLU.yaml's nine sites (``LEAKY_SITES``: seven shapes,
 f32 and bf16, B=8 and 64, no relu: the leaky relu is a separate op), each
 labelled with its route and beside ``F.conv2d`` with the bias
 (``--leaky`` these alone);
+``--rate3`` times instead the sites of unet.yaml at upsampling rate 3
+(243 x 243 crops, chip_smoke.py phase 21): the 1x1 head (3 -> 1) forward
+and backward at B=8 beside ``F.conv2d`` and ``convolution_backward``, and
+``cca`` on the rate-3 evaluate path's planes, 121 x 121 (243 resized by
+0.5): the thresholded, opened predictions of 22, 20 and 10 slices at the
+100 PR thresholds and the labels of 64, 32, 22, 20 and 10 slices, from the
+seeded checkpoint's probabilities on the phase-4 records, resized to
+243 x 243 first;
 ``--sweep-stencil`` times the three stencil tiles at every tile height
 that fits (the NCHW forward's also at runs of 4 and 8 pixels, each
 exact channel group and one or two lanes an item; the backward's at
@@ -144,6 +152,84 @@ def cca_sets(device):
     }
     return {k: torch.as_tensor(v, device=device).contiguous()
             for k, v in sets.items()}
+
+
+def rate3_jobs(device):
+    '''(label, call, bound ms) of ``--rate3``'s head and CCA calls, each
+    kernel checked against its plain version.'''
+    from dnncancerannotator_torch.metrics import region
+    from dnncancerannotator_torch.ops import image as image_ops
+    from dnncancerannotator_torch.ops.kernels import cca as K
+    from dnncancerannotator_torch.ops.kernels import stencil_conv as SC
+    from dnncancerannotator_torch.ops.kernels import stencil_conv_bwd as SCB
+    from dnncancerannotator_torch.ops.morphology import morph_open
+    from dnncancerannotator_torch.utils.viz import PR_THRESHOLDS
+    F = torch.nn.functional
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    side, jobs = 243, []
+    gen = torch.Generator(device=device).manual_seed(chip_smoke.SEED + 17)
+    x = torch.rand((TRAIN_BATCH, 3, side, side), generator=gen,
+                   device=device)
+    w = torch.randn((1, 3, 1, 1), generator=gen, device=device)
+    bias = torch.randn((1,), generator=gen, device=device)
+    pads = ((0, 0), (0, 0))
+    out = SC.stencil_conv(x, w, bias, pads)
+    chip_smoke._check_close('head @243', out, SC.plain(x, w, bias, pads))
+    g = torch.randn(out.shape, generator=gen, device=device)
+    got = SCB.stencil_conv_bwd(x, g, w, pads)
+    for a, b, tol in zip(got, SCB.plain(x, g, w, pads),
+                         (chip_smoke.DX_TOL, chip_smoke.DW_TOL,
+                          chip_smoke.DW_TOL)):
+        chip_smoke._check_close('head bwd @243', a, b, tol)
+    fwd_bound = chip_smoke.bound(chip_smoke.nbytes(x, w, bias, out),
+                                 2 * out.numel() * 3)[0]
+    bwd_bound = chip_smoke.bound(chip_smoke.nbytes(x, g, w, *got),
+                                 4 * g.numel() * 3)[0]
+    label = f'1x1 3->1 @{side} B={TRAIN_BATCH}'
+    jobs += [
+        (f'stencil_conv head {label} '
+         f'({SC.route(3, 1, 1, 1, pads, side, side)})',
+         functools.partial(SC.stencil_conv, x, w, bias, pads), fwd_bound),
+        (f'F.conv2d head {label}', functools.partial(F.conv2d, x, w, bias),
+         fwd_bound),
+        (f'stencil_conv_bwd head {label}',
+         functools.partial(SCB.stencil_conv_bwd, x, g, w, pads), bwd_bound),
+        (f'convolution_backward head {label}',
+         functools.partial(conv_bwd, g, x, w, [1], [1, 1], [0, 0], [1, 1],
+                           False, [0, 0], 1, [True, True, True]), bwd_bound)]
+
+    from dnncancerannotator_torch import engine
+    work = os.path.join(HERE, 'build', 'profile_torch_sites')
+    data_paths = chip_smoke.write_records(os.path.join(work, 'data'))
+    save_path = os.path.join(work, 'run')
+    config = chip_smoke.write_save_path(save_path, data_paths, device)
+    eng = engine.Engine(config, seed=chip_smoke.SEED, device=device)
+    eng.build((chip_smoke.BATCH, chip_smoke.SIZE, chip_smoke.SIZE, 5))
+    eng.load(os.path.join(save_path, 'checkpoints', 'ckpt-1'))
+    with torch.no_grad():
+        y, probs, _, _ = chip_smoke._first_batch(eng, data_paths)
+        both = image_ops.resize_bilinear(
+            torch.stack([y.float(), probs.squeeze(-1)], -1), side, side)
+        y, p = region._resized(both[..., 0], both[..., 1], 0.5)
+        thresholds = torch.tensor(PR_THRESHOLDS, dtype=torch.float32,
+                                  device=device)
+        preds = morph_open(p, 5)[:, None] >= thresholds[None, :, None, None]
+    hw = tuple(p.shape[1:])
+    sets = {f'eval predictions [{n * 100},{hw[0]},{hw[1]}]':
+            preds[:n].reshape(-1, *hw) for n in (22, 20, 10)}
+    sets.update({f'eval labels [{n},{hw[0]},{hw[1]}]': y[:n] > 0.5
+                 for n in (64, 32, 22, 20, 10)})
+    for name, masks in sets.items():
+        masks = masks.contiguous()
+        got = K.cca_raw_labels(masks)
+        if not torch.equal(got, K.plain(masks)):
+            raise AssertionError(f'cca {name} differs from its plain version')
+        jobs.append((f'cca rate 3 {name} ({K.route(*masks.shape)})',
+                     functools.partial(K.cca_raw_labels, masks),
+                     chip_smoke.bound(chip_smoke.nbytes(masks, got),
+                                      4 * masks.numel())[0]))
+    return jobs
 
 
 def sweep_cca(device):
@@ -610,6 +696,8 @@ def main():
                              'backward\'s sites alone')
     parser.add_argument('--sweep-stencil', action='store_true',
                         help='time the stencil tiles at every tile height')
+    parser.add_argument('--rate3', action='store_true',
+                        help='time the rate-3 head and CCA sites alone')
     parser.add_argument('--leaky', action='store_true',
                         help='time unet.yaml + leakyReLU.yaml\'s NCHW stencil '
                              'sites alone')
@@ -642,6 +730,8 @@ def main():
         return report(stencil_jobs(device), args, card)
     if args.leaky:
         return report(leaky_jobs(device), args, card)
+    if args.rate3:
+        return report(rate3_jobs(device), args, card)
     for label, masks in cca_sets(device).items():
         got = K.cca_raw_labels(masks)
         if not torch.equal(got, K.plain(masks)):
